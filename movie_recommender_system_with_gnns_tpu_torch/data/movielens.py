@@ -1,0 +1,323 @@
+"""MovieLens ingest on the host: rating filter, dense id maps, edge list, splits.
+
+A copy of the JAX package's host NumPy code (``data/movielens.py``), kept here
+because the port imports nothing of that package. Everything returns plain
+``np.ndarray``; tensors are made where a device is chosen.
+
+  * rating filter ``>= min_rating``                 — reference dataset_handler.py:106
+  * dense id maps, movies offset by ``num_users``    — dataset_handler.py:115-118
+  * undirected doubling of the bipartite edge list  — dataset_handler.py:141
+  * 90/5/5 split with persisted val/test indices,
+    train derived by setdiff on reload              — dataset_handler.py:144-253
+
+The CSV load reads through pandas; the native mmap reader of the JAX package
+(``data/native.py``) is not bound in the port.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+try:
+    import pandas as pd
+except ImportError:  # pragma: no cover
+    pd = None
+
+
+@dataclass
+class MovieLensData:
+    """Processed interaction data in one flat structure.
+
+    ``edge_index`` is the undirected-doubled bipartite edge list with dense
+    node ids: users occupy ``[0, num_users)``, movies
+    ``[num_users, num_users + num_items)``.
+    """
+
+    num_users: int
+    num_items: int
+    edge_index: np.ndarray                 # int32 (2, E) undirected (doubled+coalesced)
+    user_ids: np.ndarray                   # raw userId for dense user index u
+    movie_ids: np.ndarray                  # raw movieId for dense item index i
+    movie_titles: Optional["pd.DataFrame"] = None   # columns: movieId, title
+    _user_id_map: Optional[Dict[int, int]] = field(default=None, repr=False)
+    _movie_id_map: Optional[Dict[int, int]] = field(default=None, repr=False)
+
+    def user_index(self, raw_user_id) -> np.ndarray:
+        """raw userId -> dense user index in [0, num_users); -1 if unknown."""
+        return _lookup(self.user_ids, np.asarray(raw_user_id))
+
+    def movie_index(self, raw_movie_id) -> np.ndarray:
+        """raw movieId -> dense *node* id in [num_users, num_users+num_items);
+        -1 if unknown."""
+        idx = _lookup(self.movie_ids, np.asarray(raw_movie_id))
+        return np.where(idx >= 0, idx + self.num_users, idx)
+
+    def raw_user_id(self, user_index) -> np.ndarray:
+        return self.user_ids[np.asarray(user_index)]
+
+    def raw_movie_id(self, item_index) -> np.ndarray:
+        """dense item index in [0, num_items) -> raw movieId."""
+        return self.movie_ids[np.asarray(item_index)]
+
+    @property
+    def user_id_map(self) -> Dict[int, int]:
+        if self._user_id_map is None:
+            self._user_id_map = {int(r): i for i, r in enumerate(self.user_ids)}
+        return self._user_id_map
+
+    @property
+    def movie_id_map(self) -> Dict[int, int]:
+        if self._movie_id_map is None:
+            self._movie_id_map = {
+                int(r): i + self.num_users for i, r in enumerate(self.movie_ids)
+            }
+        return self._movie_id_map
+
+    @property
+    def movies(self):
+        return self.movie_titles
+
+    def get_num_users_items(self) -> Tuple[int, int]:
+        return self.num_users, self.num_items
+
+    def title_of(self, raw_movie_id: int) -> str:
+        if self.movie_titles is None:
+            return f"movie:{raw_movie_id}"
+        rows = self.movie_titles[self.movie_titles["movieId"] == raw_movie_id]
+        if len(rows) == 0:
+            return f"movie:{raw_movie_id}"
+        return str(rows.iloc[0]["title"])
+
+
+def _lookup(sorted_source_unsorted: np.ndarray, queries: np.ndarray) -> np.ndarray:
+    """Vectorized raw-id -> dense-index lookup via a sorted side index."""
+    order = np.argsort(sorted_source_unsorted, kind="stable")
+    srt = sorted_source_unsorted[order]
+    pos = np.searchsorted(srt, queries)
+    pos = np.clip(pos, 0, len(srt) - 1)
+    hit = srt[pos] == queries
+    out = np.where(hit, order[pos], -1)
+    return out.astype(np.int64)
+
+
+def to_undirected(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+    """Double and coalesce edges: {(u,v)} -> {(u,v)} ∪ {(v,u)}, sorted, deduped."""
+    src = np.concatenate([edge_index[0], edge_index[1]])
+    dst = np.concatenate([edge_index[1], edge_index[0]])
+    key = src.astype(np.int64) * np.int64(num_nodes) + dst.astype(np.int64)
+    uniq = np.unique(key)
+    return np.stack([uniq // num_nodes, uniq % num_nodes]).astype(np.int32)
+
+
+def load_movielens(
+    ratings_path: str,
+    movies_path: Optional[str] = None,
+    min_rating: float = 4.0,
+) -> MovieLensData:
+    """Load MovieLens CSVs: ``rating >= min_rating`` filter,
+    first-appearance-ordered dense id maps, undirected doubling."""
+    if pd is None:
+        raise RuntimeError("pandas is required to read MovieLens CSVs")
+    ratings = pd.read_csv(ratings_path, usecols=["userId", "movieId", "rating"])
+    ratings = ratings[ratings["rating"] >= min_rating]
+    user_raw = ratings["userId"].to_numpy()
+    movie_raw = ratings["movieId"].to_numpy()
+    movies = (pd.read_csv(movies_path, usecols=["movieId", "title"])
+              if movies_path else None)
+    # first-appearance order, like a dict comprehension over .unique()
+    first_user_ids = user_raw[np.sort(np.unique(user_raw, return_index=True)[1])]
+    first_movie_ids = movie_raw[np.sort(np.unique(movie_raw, return_index=True)[1])]
+
+    u_dense = _lookup(first_user_ids, user_raw)
+    m_dense = _lookup(first_movie_ids, movie_raw)
+    num_users = len(first_user_ids)
+    num_items = len(first_movie_ids)
+
+    edge_index = np.stack([u_dense, m_dense + num_users]).astype(np.int64)
+    edge_index = to_undirected(edge_index, num_users + num_items)
+    return MovieLensData(
+        num_users=num_users,
+        num_items=num_items,
+        edge_index=edge_index,
+        user_ids=first_user_ids,
+        movie_ids=first_movie_ids,
+        movie_titles=movies,
+    )
+
+
+def make_synthetic_movielens(
+    num_users: int = 1000,
+    num_items: int = 1700,
+    num_interactions: int = 100_000,
+    seed: int = 0,
+    power: float = 1.1,
+    num_communities: int = 0,
+    intra_prob: float = 0.85,
+) -> MovieLensData:
+    """Synthetic power-law bipartite interaction graph shaped like MovieLens.
+
+    User activity and item popularity follow Zipf-like laws. With
+    ``num_communities > 0``, users and items belong to latent communities and
+    ``intra_prob`` of the interactions stay inside the user's community.
+    Bit-identical to the JAX package's generator for the same arguments.
+    """
+    rng = np.random.default_rng(seed)
+    u_p = (1.0 / np.arange(1, num_users + 1) ** power)
+    i_p = (1.0 / np.arange(1, num_items + 1) ** power)
+    u_p /= u_p.sum()
+    i_p /= i_p.sum()
+    users = rng.choice(num_users, size=num_interactions, p=u_p)
+    items = rng.choice(num_items, size=num_interactions, p=i_p)
+    if num_communities > 1:
+        u_comm = users % num_communities
+        i_comm = items % num_communities
+        intra = rng.random(num_interactions) < intra_prob
+        mism = intra & (i_comm != u_comm)
+        # shift mismatched items to the nearest item of the user's community
+        delta = (u_comm[mism] - i_comm[mism]) % num_communities
+        items = items.copy()
+        items[mism] = (items[mism] + delta) % num_items
+    pairs = np.unique(users.astype(np.int64) * num_items + items)
+    users = (pairs // num_items).astype(np.int64)
+    items = (pairs % num_items).astype(np.int64)
+    # re-index densely in case some user/item was never sampled
+    uu = np.unique(users)
+    ii = np.unique(items)
+    users = _lookup(uu, users)
+    items = _lookup(ii, items)
+    n_u, n_i = len(uu), len(ii)
+    edge_index = np.stack([users, items + n_u])
+    edge_index = to_undirected(edge_index, n_u + n_i)
+    titles = None
+    if pd is not None:
+        titles = pd.DataFrame(
+            {"movieId": np.arange(1, n_i + 1),
+             "title": [f"Synthetic Movie {i}" for i in range(1, n_i + 1)]}
+        )
+    return MovieLensData(
+        num_users=n_u,
+        num_items=n_i,
+        edge_index=edge_index,
+        user_ids=np.arange(1, n_u + 1),
+        movie_ids=np.arange(1, n_i + 1),
+        movie_titles=titles,
+    )
+
+
+def _load_persisted(val_file: str, test_file: str, count: int, what: str,
+                    indexes_dir: str) -> Tuple[np.ndarray, np.ndarray]:
+    val_idx = np.sort(np.load(val_file))
+    test_idx = np.sort(np.load(test_file))
+    top = max(val_idx[-1] if val_idx.size else -1,
+              test_idx[-1] if test_idx.size else -1)
+    if top >= count:
+        raise ValueError(
+            f"persisted split indices in {indexes_dir} reference {what} "
+            f"{top} but this dataset has only {count} {what}s — the indices "
+            "belong to a DIFFERENT dataset; delete the dir or point "
+            "indexes_dir elsewhere")
+    return val_idx, test_idx
+
+
+def split_edges(
+    data: MovieLensData,
+    indexes_dir: str,
+    train_size: float = 0.9,
+    val_test_ratio: float = 0.5,
+    seed: int = 0,
+    split_level: str = "edge",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """90/5/5 split with persisted val/test indices.
+
+    First run: shuffle, split, sort, persist ``val_indices.npy`` /
+    ``test_indices.npy``. Rerun: load them and derive train by setdiff.
+    Returns (train_edges, val_edges, test_edges), each int32 (2, E_split).
+    ``split_level="edge"`` splits the directed edges of the doubled graph (the
+    reference's split); ``"interaction"`` splits unique pairs, then doubles.
+    The JAX package's files load unchanged, and vice versa.
+    """
+    if split_level == "interaction":
+        return _split_interactions(data, indexes_dir, train_size,
+                                   val_test_ratio, seed)
+    if split_level != "edge":
+        raise ValueError(f"unknown split_level {split_level!r}")
+    num_edges = data.edge_index.shape[1]
+    val_file = os.path.join(indexes_dir, "val_indices.npy")
+    test_file = os.path.join(indexes_dir, "test_indices.npy")
+
+    if not (os.path.exists(val_file) and os.path.exists(test_file)):
+        rng = np.random.default_rng(seed)
+        perm = rng.permutation(num_edges)
+        n_train = int(round(train_size * num_edges))
+        train_idx = np.sort(perm[:n_train])
+        rest = perm[n_train:]
+        n_val = int(round(val_test_ratio * len(rest)))
+        val_idx = np.sort(rest[:n_val])
+        test_idx = np.sort(rest[n_val:])
+        os.makedirs(indexes_dir, exist_ok=True)
+        np.save(val_file, val_idx)
+        np.save(test_file, test_idx)
+    else:
+        val_idx, test_idx = _load_persisted(val_file, test_file, num_edges,
+                                            "edge", indexes_dir)
+        train_idx = np.setdiff1d(np.arange(num_edges),
+                                 np.concatenate([val_idx, test_idx]))
+        for arr in (train_idx, val_idx, test_idx):
+            if not np.all(np.diff(arr) > 0):
+                raise ValueError(f"split indices in {indexes_dir} repeat an edge")
+
+    ei = data.edge_index
+    return (
+        ei[:, train_idx].astype(np.int32),
+        ei[:, val_idx].astype(np.int32),
+        ei[:, test_idx].astype(np.int32),
+    )
+
+
+def _double(u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Directed (2, 2P) edge array holding both directions of P pairs."""
+    return np.stack([np.concatenate([u, v]),
+                     np.concatenate([v, u])]).astype(np.int32)
+
+
+def _split_interactions(
+    data: MovieLensData,
+    indexes_dir: str,
+    train_size: float,
+    val_test_ratio: float,
+    seed: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Interaction-level 90/5/5: split unique (user, item) pairs, then emit
+    each split direction-doubled. Persists ``{val,test}_pair_indices.npy``."""
+    head, tail = data.edge_index[0], data.edge_index[1]
+    fwd = (head < data.num_users) & (tail >= data.num_users)
+    u, v = head[fwd].astype(np.int64), tail[fwd].astype(np.int64)
+    num_pairs = u.shape[0]
+    val_file = os.path.join(indexes_dir, "val_pair_indices.npy")
+    test_file = os.path.join(indexes_dir, "test_pair_indices.npy")
+
+    if not (os.path.exists(val_file) and os.path.exists(test_file)):
+        rng = np.random.default_rng(seed)
+        perm = rng.permutation(num_pairs)
+        n_train = int(round(train_size * num_pairs))
+        rest = perm[n_train:]
+        n_val = int(round(val_test_ratio * len(rest)))
+        val_idx = np.sort(rest[:n_val])
+        test_idx = np.sort(rest[n_val:])
+        os.makedirs(indexes_dir, exist_ok=True)
+        np.save(val_file, val_idx)
+        np.save(test_file, test_idx)
+    else:
+        val_idx, test_idx = _load_persisted(val_file, test_file, num_pairs,
+                                            "pair", indexes_dir)
+    train_idx = np.setdiff1d(np.arange(num_pairs),
+                             np.concatenate([val_idx, test_idx]))
+    return (
+        _double(u[train_idx], v[train_idx]),
+        _double(u[val_idx], v[val_idx]),
+        _double(u[test_idx], v[test_idx]),
+    )

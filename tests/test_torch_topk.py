@@ -1,0 +1,200 @@
+"""The port's top-k retrieval (ops/topk.py, ops/cuda_mips.py) against the JAX
+package's on the CPU. The JAX fused lane runs its Pallas kernel in interpret
+mode; the port's fused lane runs its kernel's plain version (CPU tensors).
+
+Tolerances: f32 scores within rtol 1e-6 (the two frameworks sum the products
+in different orders, which moves a score by an ulp or so) and identical
+indices; bf16 as in ``torch_parity.assert_topk_bf16_close``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from movie_recommender_system_with_gnns_tpu.ops import topk as J
+from movie_recommender_system_with_gnns_tpu.ops.pallas_mips import (
+    mips_topk_fused as j_fused,
+)
+from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_mips
+from movie_recommender_system_with_gnns_tpu_torch.ops import topk as T
+from torch_parity import assert_topk_bf16_close
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _inputs(rng, nq, n, d, p_mask=0.1):
+    q = rng.standard_normal((nq, d)).astype(np.float32)
+    c = rng.standard_normal((n, d)).astype(np.float32)
+    mask = rng.random((nq, n)) < p_mask
+    # ban each query's best item too (the case exclusion exists for)
+    mask[np.arange(nq), (q @ c.T).argmax(1)] = True
+    return q, c, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("method", ["twophase", "blocked", "flat", "fused", "auto"])
+def test_mips_topk_f32_matches_jax(rng, method, masked):
+    q, c, mask = _inputs(rng, 21, 1000, 16)
+    kw = dict(k=10, method=method)
+    if method == "blocked":
+        kw["block"] = 256
+    if method == "fused":
+        kw["score_dtype"] = "float32"
+    s_j, i_j = J.mips_topk(jnp.asarray(q), jnp.asarray(c),
+                           exclude_mask=jnp.asarray(mask) if masked else None, **kw)
+    s_t, i_t = T.mips_topk(_t(q), _t(c), exclude_mask=_t(mask) if masked else None, **kw)
+    assert s_t.dtype == torch.float32 and s_t.shape == (21, 10)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-6, atol=1e-7)
+    if masked:
+        assert not mask[np.arange(21)[:, None], i_t.numpy()].any()
+
+
+@pytest.mark.parametrize("mode", ["none", "int8", "packed"])
+@pytest.mark.parametrize("n", [1000, 777])
+def test_fused_bf16_matches_jax(rng, n, mode):
+    q, c, mask = _inputs(rng, 33, n, 32)
+    kw = {}
+    if mode == "int8":
+        kw = {"exclude_mask": mask}
+    elif mode == "packed":
+        rows, cols = np.nonzero(mask)
+        kw = {"exclude_mask_packed": np.asarray(J.pack_mask_tiles(
+            jnp.asarray(rows), jnp.asarray(cols), num_rows=33, num_items=n))}
+    s_j, i_j = j_fused(jnp.asarray(q), jnp.asarray(c), k=11,
+                       **{key: jnp.asarray(v) for key, v in kw.items()})
+    s_t, i_t = cuda_mips.mips_topk_fused(_t(q), _t(c), k=10,
+                                         **{key: _t(v) for key, v in kw.items()})
+    assert_topk_bf16_close(s_t.numpy(), i_t.numpy(), np.asarray(s_j), np.asarray(i_j))
+    assert (i_t.numpy() < n).all()
+    if mode != "none":
+        assert not mask[np.arange(33)[:, None], i_t.numpy()].any()
+
+
+def test_fused_one_chunk_holds_all_winners(rng):
+    """All global top-k in ONE 128-column chunk: the exactness edge case of
+    chunk containment."""
+    c = rng.standard_normal((1024, 8)).astype(np.float32) * 0.01
+    q = rng.standard_normal((2, 8)).astype(np.float32)
+    c[256:266] = q[0] * 10 + rng.standard_normal((10, 8)).astype(np.float32) * 0.1
+    s_j, i_j = J.mips_topk(jnp.asarray(q), jnp.asarray(c), k=11, method="fused")
+    s_t, i_t = T.mips_topk(_t(q), _t(c), k=10, method="fused")
+    assert_topk_bf16_close(s_t.numpy(), i_t.numpy(), np.asarray(s_j), np.asarray(i_j))
+    assert set(i_t[0].tolist()) == set(range(256, 266))
+
+
+def test_fused_fewer_survivors_than_k_matches_jax(rng):
+    """Fewer than k unmasked columns: the rounded sentinel and the pad
+    indices come back exactly as from the JAX kernel."""
+    q, c, _ = _inputs(rng, 3, 200, 16)
+    mask = np.ones((3, 200), bool)
+    mask[:, :4] = False
+    s_j, i_j = j_fused(jnp.asarray(q), jnp.asarray(c), k=10,
+                       exclude_mask=jnp.asarray(mask))
+    s_t, i_t = cuda_mips.mips_topk_fused(_t(q), _t(c), k=10, exclude_mask=_t(mask))
+    np.testing.assert_array_equal(i_t.numpy()[:, 4:], np.asarray(i_j)[:, 4:])
+    np.testing.assert_array_equal(s_t.numpy()[:, 4:], np.asarray(s_j)[:, 4:])
+    assert s_t[0, -1].item() == float(torch.tensor(T.NEG_INF, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("num_items,n_tile", [(1000, 2048), (4097, 2048), (3000, 1024)])
+def test_pack_mask_tiles_byte_identical(rng, num_items, n_tile):
+    keys = np.unique(rng.integers(0, 40 * num_items, 3000))
+    rows, cols = (keys // num_items).astype(np.int32), (keys % num_items).astype(np.int32)
+    # padding pairs land in the sentinel row
+    rows = np.concatenate([rows, np.full(5, 40, np.int32)])
+    cols = np.concatenate([cols, np.zeros(5, np.int32)])
+    j = np.asarray(J.pack_mask_tiles(jnp.asarray(rows), jnp.asarray(cols),
+                                     num_rows=40, num_items=num_items, n_tile=n_tile))
+    t = T.pack_mask_tiles(_t(rows), _t(cols), 40, num_items, n_tile)
+    assert t.dtype == torch.uint8 and t.shape == j.shape
+    np.testing.assert_array_equal(t.numpy(), j)
+    dense = np.zeros((40, -(-num_items // n_tile) * n_tile), bool)
+    dense[rows[:-5], cols[:-5]] = True
+    np.testing.assert_array_equal(cuda_mips.unpack_mask_tiles(t, n_tile).numpy(), dense)
+
+
+def test_seen_mask_from_pairs_matches_jax():
+    rows = np.array([0, 0, 2, 3, 4, 4, 4], np.int32)
+    cols = np.array([1, 5, 3, 0, 2, 2, 6], np.int32)
+    j = np.asarray(J.seen_mask_from_pairs(jnp.asarray(rows), jnp.asarray(cols),
+                                          num_rows=4, num_cols=7))
+    t = T.seen_mask_from_pairs(_t(rows), _t(cols), 4, 7)
+    assert t.dtype == torch.int8
+    np.testing.assert_array_equal(t.numpy(), j)
+
+
+def test_tie_order_matches_jax(rng):
+    """Exact ties: lax.top_k puts the lower position first, at both levels of
+    the two-phase selection and in merge_topk."""
+    s = rng.integers(0, 4, (6, 700)).astype(np.float32)
+    vj, ij = J.twophase_select(jnp.asarray(s), 10)
+    vt, it = T.twophase_select(_t(s), 10)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    ps = rng.integers(0, 3, (4, 6, 5)).astype(np.float32)
+    pi = rng.integers(0, 1000, (4, 6, 5)).astype(np.int32)
+    mj = J.merge_topk(jnp.asarray(ps), jnp.asarray(pi), 7)
+    mt = T.merge_topk(_t(ps), _t(pi), 7)
+    for a, b in zip(mt, mj):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_postfilter_matches_jax(rng):
+    nq, ni = 40, 600
+    q, c, _ = _inputs(rng, nq, ni, 16)
+    lens = rng.integers(0, 9, nq)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    items = rng.integers(0, ni, indptr[-1]).astype(np.int32)
+    excl_j = J.excl_matrix_from_pairs(indptr, items, 16)
+    excl_t = T.excl_matrix_from_pairs(indptr, items, 16)
+    np.testing.assert_array_equal(excl_t, excl_j)
+    s_j, i_j = J.mips_topk_postfilter(jnp.asarray(q), jnp.asarray(c),
+                                      jnp.asarray(excl_j), k=6)
+    s_t, i_t = T.mips_topk_postfilter(_t(q), _t(c), _t(excl_t), k=5)
+    assert_topk_bf16_close(s_t.numpy(), i_t.numpy(), np.asarray(s_j), np.asarray(i_j))
+    with pytest.raises(ValueError, match="l_pad"):
+        T.excl_matrix_from_pairs(indptr, items, int(lens.max()) - 1)
+
+
+def test_full_sort_scores_matches_jax(rng):
+    q, c, _ = _inputs(rng, 5, 50, 8)
+    np.testing.assert_allclose(T.full_sort_scores(_t(q), _t(c)).numpy(),
+                               np.asarray(J.full_sort_scores(jnp.asarray(q), jnp.asarray(c))),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_unported_and_rejected_options(rng):
+    q, c, _ = _inputs(rng, 4, 100, 8)
+    with pytest.raises(NotImplementedError, match="kernel B3"):
+        T.mips_topk(_t(q), _t(c), k=3, method="pallas")
+    with pytest.raises(ValueError):
+        T.mips_topk(_t(q), _t(c), k=3, method="fused", block=64)
+    with pytest.raises(ValueError):
+        T.mips_topk(_t(q), _t(c), k=3, method="fused", recall_target=0.9)
+    with pytest.raises(ValueError, match="unknown method"):
+        T.mips_topk(_t(q), _t(c), k=3, method="nope")
+    with pytest.raises(ValueError, match="packed mask width"):
+        cuda_mips.mips_topk_fused(_t(q), _t(c), k=3,
+                                  exclude_mask_packed=torch.zeros(4, 8, dtype=torch.uint8))
+
+
+def test_score_chunkmax_plain_semantics(rng):
+    """The kernel's plain version: pad columns and excluded entries hold the
+    rounded sentinel, and each chunk max is the max of the ROUNDED tile."""
+    q = torch.nn.functional.normalize(_t(rng.standard_normal((128, 16)).astype(np.float32)))
+    c = torch.nn.functional.normalize(_t(rng.standard_normal((256, 16)).astype(np.float32)))
+    mask = torch.zeros(128, 256, dtype=torch.int8)
+    mask[:, 7] = 1
+    s, cm = cuda_mips.score_chunkmax(q.bfloat16(), c.bfloat16(), 200, mask=mask)
+    neg = torch.tensor(T.NEG_INF, dtype=torch.bfloat16)
+    assert s.dtype == cm.dtype == torch.bfloat16 and cm.shape == (128, 2)
+    assert (s[:, 200:] == neg).all() and (s[:, 7] == neg).all()
+    assert torch.equal(cm, s.view(128, 2, 128).amax(-1))
+    ref = (q.bfloat16().float() @ c.bfloat16().float().T).bfloat16()
+    assert torch.equal(s[:, 8:200], ref[:, 8:200])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_mips.score_chunkmax(q.bfloat16().to("meta"), c.bfloat16().to("meta"), 200)

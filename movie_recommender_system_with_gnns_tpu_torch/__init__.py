@@ -6,9 +6,11 @@ JAX package: host NumPy code it needs is copied here. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``
 (:func:`utils.device.resolve_device`).
 
-This slice ports the batched serving path; the fused score-and-chunk-max pass
+Ported so far: the batched serving path, whose fused score-and-chunk-max pass
 of exact top-k retrieval is a hand-written CUDA kernel
-(``csrc/score_chunkmax.cu``, bound in ``ops/cuda_mips.py``).
+(``csrc/score_chunkmax.cu``, bound in ``ops/cuda_mips.py``), and training with
+the full-node and compact cluster trainers, whose fused BPR loss and gradients
+are a second one (``csrc/bpr_tile.cu``, bound in ``ops/cuda_bpr.py``).
 """
 
 from .config import Config

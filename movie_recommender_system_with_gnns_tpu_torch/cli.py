@@ -1,22 +1,28 @@
-"""Command-line entry point of the port: ``recommend`` (one-shot or batch).
+"""Command-line entry point of the port: ``train`` and ``recommend`` (one-shot
+or batch).
 
+    python -m movie_recommender_system_with_gnns_tpu_torch.cli train --fused-bpr
     python -m movie_recommender_system_with_gnns_tpu_torch.cli recommend --user-id N
     python -m movie_recommender_system_with_gnns_tpu_torch.cli recommend --movie-id N
     python -m movie_recommender_system_with_gnns_tpu_torch.cli recommend \\
         --users-file users.txt --out recs.csv
 
-The dataset options are the JAX package's, so one checkpoint and one indexes
-dir serve both; the training options wait for the training slice. ``--device`` picks the device (default ``cuda``; without a
-GPU, pass ``--device cpu``). ``train`` and ``eda`` are not ported yet.
+The options are the JAX package's, so one command line, one checkpoint and one
+indexes dir serve both. ``--device`` picks the device (default ``cuda``;
+without a GPU, pass ``--device cpu``). ``train`` runs the compact cluster
+trainer (``--trainer compact``, the default) or the full-node one
+(``--trainer full``) with ``--optimizer adam``; ``--mesh``, ``--max-retries``,
+``--full-eval``, the history plot and ``eda`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
-from .config import Config, DataConfig, TrainConfig
+from .config import Config, DataConfig, ModelConfig, TrainConfig
 
 
 def _build_cfg(args) -> Config:
@@ -29,8 +35,65 @@ def _build_cfg(args) -> Config:
         synthetic_interactions=args.synthetic_interactions,
         synthetic_communities=args.synthetic_communities,
         synthetic_power=args.synthetic_power,
+        split_level=getattr(args, "split_level", "edge"),
     )
-    return Config(data=data, train=TrainConfig(checkpoint_path=args.checkpoint))
+    model = ModelConfig(num_layers=args.layers, dim=args.dim, readout=args.readout)
+    train = TrainConfig(epochs=args.epochs, lr=args.lr, num_clusters=args.clusters,
+                        checkpoint_path=args.checkpoint,
+                        histories_dir=args.histories_dir,
+                        loss=getattr(args, "loss", "reference"),
+                        optimizer=getattr(args, "optimizer", "adam"),
+                        partitioner=getattr(args, "partitioner", "greedy"),
+                        trainer=getattr(args, "trainer", "compact"),
+                        num_negatives=getattr(args, "num_negatives", 1),
+                        negatives=getattr(args, "negatives", "uniform"),
+                        fused_bpr=getattr(args, "fused_bpr", False),
+                        lr_schedule=getattr(args, "lr_schedule", "constant"),
+                        lr_warmup_steps=getattr(args, "lr_warmup_steps", 0))
+    return Config(data=data, model=model, train=train)
+
+
+def cmd_train(args) -> int:
+    """Reference train_test.py __main__ (:259-293): build data, resume if a
+    checkpoint exists, train, persist histories."""
+    from .training.checkpoint import load_params_if_exists, save_params
+    from .training.pipeline import prepare_training_data
+    from .training.train import create_train_state, save_histories, train_model
+    from .utils.device import resolve_device
+
+    for flag, on in (("--mesh", args.mesh), ("--max-retries", args.max_retries > 0),
+                     ("--full-eval", args.full_eval)):
+        if on:
+            print(f"train {flag} is not ported to the PyTorch package yet; run "
+                  "it with movie_recommender_system_with_gnns_tpu.cli",
+                  file=sys.stderr)
+            return 2
+    device = resolve_device(args.device)
+    cfg = _build_cfg(args)
+    print(f"device: {device}")
+    bundle = prepare_training_data(cfg, device=device)
+    data, clusters, val, test = bundle
+    print(f"Number of users: {data.num_users}")
+    print(f"Number of items: {data.num_items}")
+    print(f"Number of relevant interactions: {data.edge_index.shape[1]}")
+
+    if cfg.train.lr_schedule == "cosine" and cfg.train.lr_total_steps <= 0:
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, lr_total_steps=cfg.train.num_clusters * cfg.train.epochs))
+
+    state = create_train_state(cfg, data.num_users, data.num_items, device=device)
+    if cfg.train.resume:
+        state = state._replace(
+            params=load_params_if_exists(cfg.train.checkpoint_path, state.params))
+
+    def save_cb(st, recall):
+        save_params(cfg.train.checkpoint_path, st.params,
+                    meta={"val_recall": recall, "config": cfg.to_json()})
+
+    state, hist = train_model(cfg, state, clusters, val, test,
+                              save_checkpoint=save_cb)
+    save_histories(hist, cfg.train.histories_dir)
+    return 0
 
 
 def _write_batch(path, raw_ids, valid, scores, items, data, top_k) -> None:
@@ -51,13 +114,12 @@ def cmd_recommend(args) -> int:
     from .serving.recommend import (batch_recommend_users, recommend_from_movie,
                                     recommend_from_user, train_seen_items)
     from .training.checkpoint import load_params
-    from .training.pipeline import prepare_training_data
+    from .training.pipeline import load_and_split
     from .utils.device import resolve_device
 
     device = resolve_device(args.device)
     cfg = _build_cfg(args)
-    bundle = prepare_training_data(cfg)
-    data = bundle.data
+    data, splits = load_and_split(cfg)
     if not os.path.exists(cfg.train.checkpoint_path):
         print(f"checkpoint {cfg.train.checkpoint_path} not found — train first")
         return 1
@@ -92,7 +154,7 @@ def cmd_recommend(args) -> int:
         print(f"Please enter a user ID (suggested user: {int(data.user_ids[0])}):")
         user_id = int(input())
     uidx = int(data.user_index(user_id))
-    excluded = (train_seen_items(bundle.splits[0], data.num_users, uidx)
+    excluded = (train_seen_items(splits[0], data.num_users, uidx)
                 if uidx >= 0 else None)
     out = recommend_from_user(params, user_id, data, excluded, top_k=args.top_k)
     if "error" in out:
@@ -113,6 +175,13 @@ def main(argv=None) -> int:
     ap.add_argument("--data-dir", default=None)
     ap.add_argument("--indexes-dir", default="data/indexes")
     ap.add_argument("--checkpoint", default="best_model.npz")
+    ap.add_argument("--histories-dir", default="data/histories")
+    ap.add_argument("--epochs", type=int, default=3)          # train_test.py:287
+    ap.add_argument("--lr", type=float, default=1e-3)         # train_test.py:216
+    ap.add_argument("--dim", type=int, default=64)            # train_test.py:274
+    ap.add_argument("--layers", type=int, default=3)          # train_test.py:274
+    ap.add_argument("--clusters", type=int, default=100)      # dataset_handler.py:256
+    ap.add_argument("--readout", default="reference", choices=["reference", "standard"])
     ap.add_argument("--synthetic-users", type=int, default=943)
     ap.add_argument("--synthetic-items", type=int, default=1682)
     ap.add_argument("--synthetic-interactions", type=int, default=100_000)
@@ -121,7 +190,39 @@ def main(argv=None) -> int:
     ap.add_argument("--synthetic-power", type=float, default=1.1,
                     help="Zipf exponent of the synthetic graph's degrees")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    sub.add_parser("train", help="not ported yet")
+    pt = sub.add_parser("train", help="train the LightGCN model")
+    pt.add_argument("--loss", default="reference", choices=["reference", "standard"],
+                    help="reference-quirk cosine-softplus BPR vs textbook BPR")
+    pt.add_argument("--optimizer", default="adam",
+                    choices=["adam", "lazy_adam", "hybrid_adam", "lazy_item_adam"],
+                    help="only adam is ported; the others raise")
+    pt.add_argument("--partitioner", default="greedy",
+                    choices=["greedy", "random_edges"])
+    pt.add_argument("--trainer", default="compact",
+                    choices=["compact", "full", "fullgraph"],
+                    help="compact = Cluster-GCN in local node space; full = "
+                         "reference full-node-space clusters; fullgraph is "
+                         "not ported yet and raises")
+    pt.add_argument("--split-level", default="edge",
+                    choices=["edge", "interaction"],
+                    help="edge = reference-parity split of the doubled edge "
+                         "list; interaction = leakage-free unique-pair split")
+    pt.add_argument("--lr-schedule", default="constant",
+                    choices=["constant", "cosine"],
+                    help="cosine adds warmup + decay (total steps auto-set "
+                         "to steps_per_epoch x epochs)")
+    pt.add_argument("--lr-warmup-steps", type=int, default=0)
+    pt.add_argument("--num-negatives", type=int, default=1,
+                    help="negatives per positive")
+    pt.add_argument("--negatives", default="uniform",
+                    choices=["uniform", "feasible"],
+                    help="uniform = reference law (no collision check); "
+                         "feasible is not ported yet and raises")
+    pt.add_argument("--fused-bpr", action="store_true",
+                    help="fused CUDA BPR loss+grad kernel (ops/cuda_bpr.py)")
+    pt.add_argument("--mesh", default=None, help="not ported yet")
+    pt.add_argument("--max-retries", type=int, default=0, help="not ported yet")
+    pt.add_argument("--full-eval", action="store_true", help="not ported yet")
     pr = sub.add_parser("recommend", help="top-k retrieval")
     pr.add_argument("--user-id", type=int, default=None)
     pr.add_argument("--movie-id", type=int, default=None)
@@ -132,6 +233,8 @@ def main(argv=None) -> int:
     sub.add_parser("eda", help="not ported yet")
 
     args = ap.parse_args(argv)
+    if args.cmd == "train":
+        return cmd_train(args)
     if args.cmd == "recommend":
         return cmd_recommend(args)
     print(f"'{args.cmd}' is not ported to the PyTorch package yet; run it "

@@ -1,9 +1,9 @@
 """Configuration tree of the port: the JAX package's frozen dataclasses, field
 for field, so one JSON config (``Config.to_json``) loads in both packages.
 
-Fields that only the training, multi-device or propagated-serving slices read
-are kept so a config written by either package round-trips unchanged; this
-slice reads ``data.*`` and ``serve.top_k``.
+Fields that only parts not ported yet read (the full-graph trainer, the
+multi-device and propagated-serving paths) are kept so a config written by
+either package round-trips unchanged.
 
 Reference defaults (reference repo file:line):
   * ``num_layers=3`` training override, ``dim_h=64``   — train_test.py:274, light_gcn.py:14
@@ -59,7 +59,7 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimisation loop (read by the training slice, not yet ported)."""
+    """Optimisation loop."""
 
     epochs: int = 3
     lr: float = 1e-3

@@ -3,22 +3,25 @@
   * parameters are one NamedTuple ``(user_emb, item_emb)``, init N(0, 0.01²)
     (reference light_gcn.py:25-26), the same public surface as the JAX package
     so tests compare like with like;
+  * :func:`propagate` is K parameterless graph convolutions over the given
+    adjacency plus the layer-averaged readout. ``readout='reference'`` keeps
+    the reference's double 1/(K+1) factor (light_gcn.py:36 applies 1/(K+1) on
+    top of a mean that already divides by K+1); ``'standard'`` is the
+    LightGCN paper's plain mean;
   * :func:`get_embeddings` returns layer-0 table rows — the reference's
     serving contract (light_gcn.py:42-64);
   * :func:`params_from_numpy` carries weights across from the JAX package's
     arrays (or any ``.npz``) bit for bit.
-
-``propagate`` waits for the training slice.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, as_dtype, resolve_device
 
 
 class LightGCNParams(NamedTuple):
@@ -62,6 +65,39 @@ def params_from_numpy(user_emb: np.ndarray, item_emb: np.ndarray,
         user_emb=torch.from_numpy(np.array(user_emb, order="C")).to(dev),
         item_emb=torch.from_numpy(np.array(item_emb, order="C")).to(dev),
     )
+
+
+def propagate(
+    params: LightGCNParams,
+    graph,
+    spmm: Callable[[object, torch.Tensor], torch.Tensor],
+    num_layers: int = 3,
+    readout: str = "reference",
+    compute_dtype=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K-layer LightGCN propagation + layer-averaged readout.
+
+    Mirrors ``LightGCN.forward`` (light_gcn.py:28-40): concat tables, K× Â·emb
+    through any ``spmm(graph, emb) -> emb`` callable, average the K+1 layer
+    outputs, split back into user/item halves.
+    """
+    if readout not in ("reference", "standard"):
+        raise ValueError(f"unknown readout {readout!r}")
+    num_users = params.user_emb.shape[0]
+    emb = torch.cat([params.user_emb, params.item_emb], dim=0)
+    if compute_dtype is not None:
+        emb = emb.to(as_dtype(compute_dtype))
+    acc = emb
+    cur = emb
+    for _ in range(num_layers):
+        cur = spmm(graph, cur)
+        acc = acc + cur
+    final = acc / (num_layers + 1)
+    if readout == "reference":
+        # light_gcn.py:36: extra 1/(K+1) on top of the mean (faithful quirk)
+        final = final / (num_layers + 1)
+    final = final.to(params.user_emb.dtype)
+    return final[:num_users], final[num_users:]
 
 
 def get_embeddings(

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 from typing import Dict
 
@@ -26,6 +27,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+#: kernel launches by kernel name; each wrapper adds one where it launches its
+#: kernel, and nowhere else
+LAUNCHES: Counter = Counter()
 
 
 def _nvcc() -> str:

@@ -17,21 +17,18 @@ launches.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..utils.device import as_dtype
+from ._build import LAUNCHES
 from .bpr import normalize_embedding
 from .topk import NEG_INF, DTypeLike, _topk_lowest_first
 
 CHUNK = 128   # chunk width of pass 2 == the kernel's output tile edge
 _MASK_NONE, _MASK_INT8, _MASK_PACKED = 0, 1, 2
-
-#: kernel launches by kernel name, counted where each wrapper launches
-LAUNCHES: Counter = Counter()
 
 
 def unpack_mask_tiles(packed: torch.Tensor, n_tile: int = 2048) -> torch.Tensor:

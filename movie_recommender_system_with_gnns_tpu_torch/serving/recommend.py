@@ -36,15 +36,16 @@ def compute_serving_tables(params: LightGCNParams, train_edges=None, cfg=None,
     """Embedding tables used for retrieval scoring.
 
     ``mode='layer0'`` is the reference contract: the raw trained tables.
-    ``mode='propagated'`` needs LightGCN propagation, which the training
-    slice ports; it raises until then.
+    ``mode='propagated'`` (tables propagated over the train graph) is not
+    ported yet and raises.
     """
     if mode == "layer0":
         return params
     if mode == "propagated":
         raise NotImplementedError(
-            "propagated serving tables need LightGCN propagation, which is "
-            "not ported yet (ROADMAP queue A, the training slice)")
+            "propagated serving tables (LightGCN propagation over the train "
+            "graph) are not ported yet (ROADMAP queue A, eval and the rest of "
+            "serving)")
     raise ValueError(f"unknown serving mode {mode!r}")
 
 

@@ -3,7 +3,7 @@
 ``user_emb`` and ``item_emb`` arrays plus an optional ``_meta`` uint8 array
 holding JSON (JAX package ``training/checkpoint.py:28-50``), so a checkpoint
 written by either package loads in the other unchanged. Full-state and Orbax
-checkpoints wait for the training slice.
+checkpoints wait for the recovery slice.
 """
 
 from __future__ import annotations
@@ -38,3 +38,18 @@ def load_params(path: str, device: DeviceLike = None) -> Tuple[LightGCNParams, d
         params = params_from_numpy(z["user_emb"], z["item_emb"], device)
         meta = json.loads(bytes(z["_meta"]).decode()) if "_meta" in z else {}
     return params, meta
+
+
+def load_params_if_exists(path: str, params: LightGCNParams) -> LightGCNParams:
+    """Resume-if-exists (train_test.py:279-280): the loaded tables, on the
+    given tables' device, when the checkpoint exists AND matches their shapes;
+    else the given fresh params."""
+    if not os.path.exists(path):
+        return params
+    loaded, _ = load_params(path, params.user_emb.device)
+    if (loaded.user_emb.shape != params.user_emb.shape
+            or loaded.item_emb.shape != params.item_emb.shape):
+        print(f"checkpoint {path} shape mismatch; starting fresh")
+        return params
+    print(f"resumed parameters from {path}")
+    return loaded

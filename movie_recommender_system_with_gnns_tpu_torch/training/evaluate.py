@@ -1,7 +1,7 @@
 """Per-user grouping of train interactions (JAX package ``training/evaluate.py``).
 
 Only ``_np_group_by_user`` and its cache are ported; ``ServingIndex.build``
-needs them. ``evaluate_full_ranking`` waits for the training slice.
+needs them. ``evaluate_full_ranking`` is not ported yet.
 """
 
 from __future__ import annotations

@@ -1,0 +1,412 @@
+"""Training engine: train step, cluster-epoch loop, evaluation, multi-epoch loop (JAX
+package ``training/train.py``).
+
+Capability parity with reference ``utils/train_test.py``:
+
+  * one ``train_step(state, graph, batch, generator)`` replacing the eager
+    per-cluster loop body (train_test.py:86-101): propagation + triplet gather
+    + negative sampling + BPR + global-norm clip (max 1.0, train_test.py:95) +
+    Adam (train_test.py:236);
+  * cluster batches are padded to shared static shapes;
+  * evaluation (train_test.py:136-163) propagates on the *eval* edge set, the
+    reference's semantics (``model(val_data.edge_index)``), and computes the
+    parity sampled-recall metric;
+  * the multi-epoch loop (train_test.py:214-256) keeps histories, saves the
+    best checkpoint on val-recall improvement, and runs a final test eval.
+
+Clip and Adam follow optax, which the JAX package uses, not ``torch.optim``:
+the clip scales by ``max_norm / norm`` only when ``norm > max_norm`` (no
+``+1e-6``), and Adam's ``eps`` is added outside the square root of the
+bias-corrected second moment. The update runs IN PLACE on the state's tables
+and moments (no second copy of the tables per step); a caller that wants to
+keep a state clones it first. The JAX package's ``lax.scan`` epoch fusions
+(``StackedClusters``, ``make_epoch_fn``) have no PyTorch counterpart: the
+full-node trainer runs the per-cluster loop.
+"""
+
+from __future__ import annotations
+
+import inspect
+import math
+import os
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.graph import COOGraph
+from ..models.lightgcn import LightGCNParams, init_params, propagate
+from ..ops.bpr import select_bpr_loss
+from ..ops.metrics import sampled_recall_at_k
+from ..ops.sampling import (TripletBatch, check_negatives_mode, sample_negative,
+                            triplets_from_edges)
+from ..ops.spmm import DeviceCOO, spmm_segment
+from ..utils.device import DeviceLike, resolve_device
+
+
+class AdamState(NamedTuple):
+    """optax ``scale_by_adam`` state: step count and first/second moments."""
+
+    count: int
+    mu: LightGCNParams
+    nu: LightGCNParams
+
+
+class TrainState(NamedTuple):
+    params: LightGCNParams
+    opt_state: AdamState
+    step: int
+
+
+class Optimizer(NamedTuple):
+    """``init(params) -> AdamState``; ``update(params, grads, opt_state) ->
+    (params, opt_state)``, in place on the tables and moments."""
+
+    init: Callable
+    update: Callable
+
+
+def make_lr_schedule(cfg: Config) -> Callable[[int], float]:
+    """``lr_of(t)`` with t the 0-based optimizer step (optax evaluates the
+    schedule at the count BEFORE the increment). ``"cosine"`` is linear warmup
+    then cosine decay, piecewise equal to
+    ``optax.warmup_cosine_decay_schedule``."""
+    tc = cfg.train
+    if tc.lr_schedule == "constant":
+        return lambda t: tc.lr
+    if tc.lr_schedule != "cosine":
+        raise ValueError(f"unknown lr_schedule {tc.lr_schedule!r}")
+    if tc.lr_total_steps <= 0:
+        raise ValueError(
+            "lr_schedule='cosine' needs lr_total_steps > 0 "
+            "(set it to steps_per_epoch * epochs)")
+    warm, total, peak = tc.lr_warmup_steps, tc.lr_total_steps, tc.lr
+    init = 0.0 if warm > 0 else peak
+    end = peak * tc.lr_final_frac
+
+    def lr_of(t: int) -> float:
+        if t < warm:
+            return init + (peak - init) * t / max(warm, 1)
+        frac = min(max((t - warm) / max(total - warm, 1), 0.0), 1.0)
+        return end + 0.5 * (peak - end) * (1.0 + math.cos(math.pi * frac))
+
+    return lr_of
+
+
+def make_optimizer(cfg: Config) -> Optimizer:
+    """clip-by-global-norm(1.0) → Adam, matching train_test.py:95,:236, as
+    plain functions on tensors that follow ``optax.chain(clip_by_global_norm,
+    adam)`` step for step."""
+    tc = cfg.train
+    lr_of = make_lr_schedule(cfg)
+    b1, b2, eps, max_norm = tc.adam_b1, tc.adam_b2, tc.adam_eps, tc.grad_clip_norm
+
+    def init(params: LightGCNParams) -> AdamState:
+        z = lambda: LightGCNParams(torch.zeros_like(params.user_emb),
+                                   torch.zeros_like(params.item_emb))
+        return AdamState(count=0, mu=z(), nu=z())
+
+    @torch.no_grad()
+    def update(params: LightGCNParams, grads: LightGCNParams,
+               opt_state: AdamState) -> Tuple[LightGCNParams, AdamState]:
+        norm = torch.sqrt(sum(g.square().sum() for g in grads))
+        # optax: untouched when norm < max_norm, else (g / norm) * max_norm;
+        # stays on the device (no host sync per step)
+        clip = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+        count = opt_state.count + 1
+        # bias corrections in float32, as optax evaluates them: 1 - 0.999 in
+        # f32 is 1.3e-5 off the exact value, which a float64 here would not be
+        bc1, bc2 = (float(np.float32(1) - np.float32(b) ** np.float32(count))
+                    for b in (b1, b2))
+        lr = lr_of(opt_state.count)
+        for p, g, mu, nu in zip(params, grads, opt_state.mu, opt_state.nu):
+            g = g * clip
+            mu.mul_(b1).add_(g, alpha=1.0 - b1)
+            nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+            denom = (nu / bc2).sqrt_().add_(eps)
+            p.addcdiv_(mu, denom, value=-lr / bc1)
+        return params, AdamState(count, opt_state.mu, opt_state.nu)
+
+    return Optimizer(init, update)
+
+
+def create_train_state(cfg: Config, num_users: int, num_items: int,
+                       generator: Optional[torch.Generator] = None,
+                       device: DeviceLike = None) -> TrainState:
+    """Fresh N(0, init_std²) tables and zero Adam moments on ``device``; the
+    default generator is a CPU one seeded with ``cfg.train.seed``."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.train.seed)
+    params = init_params(num_users, num_items, cfg.model.dim, cfg.model.init_std,
+                         generator=generator, device=device)
+    return TrainState(params=params, opt_state=make_optimizer(cfg).init(params),
+                      step=0)
+
+
+def state_checkpoint_path(cfg: Config) -> str:
+    """Full train-state checkpoints (tables + moments + step) are not ported
+    yet; they land with the recovery loop."""
+    raise NotImplementedError(
+        "full train-state checkpoints are not ported to the PyTorch package "
+        "yet (ROADMAP queue A: full-state checkpoints and recovery); leave "
+        "train.state_checkpoint_path unset")
+
+
+def compute_embeddings(
+    params: LightGCNParams,
+    graph: DeviceCOO,
+    batch: TripletBatch,
+    neg_item: torch.Tensor,
+    cfg: Config,
+    spmm: Callable = spmm_segment,
+):
+    """(final_user, initial_user, final_pos, initial_pos, final_neg,
+    initial_neg): the reference's ``compute_embeddings`` 6-tuple contract
+    (train_test.py:105-134). ``neg_item`` is (B,) or (B, K)."""
+    users_final, items_final = propagate(
+        params, graph, spmm, cfg.model.num_layers, cfg.model.readout)
+    return (
+        users_final[batch.user], params.user_emb[batch.user],
+        items_final[batch.pos_item], params.item_emb[batch.pos_item],
+        items_final[neg_item], params.item_emb[neg_item],
+    )
+
+
+def compute_loss(
+    params: LightGCNParams,
+    graph: DeviceCOO,
+    batch: TripletBatch,
+    neg_item: torch.Tensor,
+    cfg: Config,
+    spmm: Callable = spmm_segment,
+) -> torch.Tensor:
+    """Propagate on the batch graph and evaluate the BPR loss on the (user,
+    pos, neg) triplets: ``compute_embeddings`` + ``bpr_loss``
+    (train_test.py:105-134, :18-51)."""
+    embs = compute_embeddings(params, graph, batch, neg_item, cfg, spmm)
+    loss_fn = select_bpr_loss(cfg.train.loss)
+    return loss_fn(*embs, cfg.train.bpr_coeff, mask=batch.mask)
+
+
+def loss_and_grads(loss_fn: Callable, params: LightGCNParams, *args
+                   ) -> Tuple[torch.Tensor, LightGCNParams]:
+    """``(loss, d loss / d params)`` of ``loss_fn(params, *args)`` by autograd
+    (the role ``jax.value_and_grad`` plays in the JAX package)."""
+    leaves = LightGCNParams(params.user_emb.detach().requires_grad_(True),
+                            params.item_emb.detach().requires_grad_(True))
+    with torch.enable_grad():
+        loss = loss_fn(leaves, *args)
+        gu, gi = torch.autograd.grad(loss, leaves)
+    return loss.detach(), LightGCNParams(gu, gi)
+
+
+def make_train_step(cfg: Config, spmm: Callable = spmm_segment):
+    """Build ``train_step(state, graph, batch, generator, neg=None)``; ``neg``
+    injects the negatives instead of drawing them."""
+    check_negatives_mode(cfg.train.negatives)
+    opt = make_optimizer(cfg)
+
+    def train_step(state: TrainState, graph: DeviceCOO, batch: TripletBatch,
+                   generator: Optional[torch.Generator],
+                   neg: Optional[torch.Tensor] = None
+                   ) -> Tuple[TrainState, torch.Tensor]:
+        if neg is None:
+            neg = sample_negative(generator, batch.user.shape[0],
+                                  state.params.item_emb.shape[0],
+                                  cfg.train.num_negatives,
+                                  device=batch.user.device)
+        loss, grads = loss_and_grads(compute_loss, state.params, graph, batch,
+                                     neg, cfg, spmm)
+        params, opt_state = opt.update(state.params, grads, state.opt_state)
+        return TrainState(params, opt_state, state.step + 1), loss
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Epoch loop over cluster batches (reference train(), train_test.py:66-103)
+# ---------------------------------------------------------------------------
+
+
+class ClusterBatch(NamedTuple):
+    """One padded training subgraph: device graph + its positive pairs."""
+
+    graph: DeviceCOO
+    batch: TripletBatch
+    num_edges: int          # true (unpadded) edge count: the loss weight w
+                            # (train_test.py:98-101)
+
+
+def train_epoch(
+    state: TrainState,
+    clusters: List[ClusterBatch],
+    train_step,
+    generator: torch.Generator,
+    shuffle: bool = True,
+) -> Tuple[TrainState, float]:
+    """One epoch over shuffled cluster batches; returns the edge-weighted mean
+    loss (train_test.py:98-103). Losses stay on the device until the epoch
+    ends, so the loop never blocks on a host sync."""
+    order = list(range(len(clusters)))
+    if shuffle:
+        order = torch.randperm(len(clusters), generator=generator,
+                               device=generator.device).tolist()
+    losses = []
+    total_w = 0
+    for i in order:
+        cb = clusters[i]
+        state, loss = train_step(state, cb.graph, cb.batch, generator)
+        losses.append(loss * cb.num_edges)
+        total_w += cb.num_edges
+    total = float(torch.stack(losses).sum()) if losses else 0.0
+    return state, total / max(total_w, 1)
+
+
+# ---------------------------------------------------------------------------
+# Evaluation (reference evaluate(), train_test.py:136-163)
+# ---------------------------------------------------------------------------
+
+
+def make_eval_step(cfg: Config, spmm: Callable = spmm_segment):
+    @torch.no_grad()
+    def eval_step(params: LightGCNParams, graph: DeviceCOO, batch: TripletBatch,
+                  generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+        num_items = params.item_emb.shape[0]
+        neg = sample_negative(generator, batch.user.shape[0], num_items,
+                              device=batch.user.device)
+        loss = compute_loss(params, graph, batch, neg, cfg, spmm)
+        # parity recall on initial embeddings (train_test.py:157-159)
+        recall = sampled_recall_at_k(
+            generator,
+            params.user_emb[batch.user],
+            params.item_emb[batch.pos_item],
+            params.item_emb[neg],
+            k=cfg.train.eval_top_k,
+            num_samples=cfg.train.recall_num_samples,
+            sample_size=cfg.train.recall_sample_size,
+        )
+        return loss, recall
+
+    return eval_step
+
+
+def build_eval_batch(edge_index: np.ndarray, num_nodes: int, num_users: int,
+                     device: DeviceLike = None) -> Tuple[DeviceCOO, TripletBatch]:
+    """Eval graphs propagate over their own edge set (train_test.py:150-153)."""
+    dev = resolve_device(device)
+    g = DeviceCOO.from_host(COOGraph.build(edge_index, num_nodes), dev)
+    b = triplets_from_edges(edge_index, num_users, device=dev)
+    return g, b
+
+
+# ---------------------------------------------------------------------------
+# Multi-epoch loop (reference train_model(), train_test.py:214-256)
+# ---------------------------------------------------------------------------
+
+
+def _callback_takes_state(cb: Callable) -> bool:
+    """True if ``cb`` can accept a third positional arg (the live TrainState).
+
+    Keeps the ``(epoch, metrics)`` callback contract intact: metrics stays a
+    pure Dict[str, float]; callers that want mid-run state opt in by declaring
+    a third parameter.
+    """
+    try:
+        params = list(inspect.signature(cb).parameters.values())
+    except (TypeError, ValueError):
+        return False
+    positional = [p for p in params
+                  if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    has_varargs = any(p.kind == p.VAR_POSITIONAL for p in params)
+    return has_varargs or len(positional) >= 3
+
+
+def epoch_generator(cfg: Config, epoch: int, device: torch.device) -> torch.Generator:
+    """The generator of one epoch (its cluster order, negatives and eval
+    draws), seeded from ``(cfg.train.seed, epoch)`` alone, so a run resumed at
+    ``start_epoch`` draws what the uninterrupted run would have drawn."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((cfg.train.seed + 1) * 1_000_003 + epoch)
+    return gen
+
+
+def train_model(
+    cfg: Config,
+    state: TrainState,
+    clusters,
+    val: Tuple[DeviceCOO, TripletBatch],
+    test: Tuple[DeviceCOO, TripletBatch],
+    spmm: Callable = spmm_segment,
+    on_epoch_end: Optional[Callable] = None,  # (epoch, metrics[, state]) -> None
+    save_checkpoint: Optional[Callable[[TrainState, float], None]] = None,
+    metrics_logger=None,
+    start_epoch: int = 0,
+    best_recall: float = 0.0,
+) -> Tuple[TrainState, Dict[str, List[float]]]:
+    """Train for ``cfg.train.epochs`` epochs with a val eval after each, keep
+    the best-val checkpoint through ``save_checkpoint``, finish with a test
+    eval. ``clusters`` is a :class:`~.compact.CompactClusters` (compact
+    trainer) or a list of :class:`ClusterBatch` (full-node trainer).
+    ``start_epoch``/``best_recall`` continue an interrupted run."""
+    from .compact import CompactClusters, make_compact_epoch_fn
+
+    if cfg.train.state_checkpoint_path:
+        state_checkpoint_path(cfg)
+    eval_step = make_eval_step(cfg, spmm)
+    device = state.params.user_emb.device
+
+    if isinstance(clusters, CompactClusters):
+        epoch_fn = make_compact_epoch_fn(cfg)
+    else:
+        train_step = make_train_step(cfg, spmm)
+        epoch_fn = lambda st, cl, gen: train_epoch(st, cl, train_step, gen)
+
+    hist: Dict[str, List[float]] = {"train_loss": [], "val_loss": [], "val_recall": [],
+                                    "epoch_time_s": []}
+    for epoch in range(start_epoch, cfg.train.epochs):
+        gen = epoch_generator(cfg, epoch, device)
+        t0 = time.perf_counter()
+        state, train_loss = epoch_fn(state, clusters, gen)
+        val_loss, val_recall = eval_step(state.params, val[0], val[1], gen)
+        val_loss, val_recall = float(val_loss), float(val_recall)
+        dt = time.perf_counter() - t0
+        hist["train_loss"].append(train_loss)
+        hist["val_loss"].append(val_loss)
+        hist["val_recall"].append(val_recall)
+        hist["epoch_time_s"].append(dt)
+        print(
+            f"Epoch: {epoch:03d}, Train Loss: {train_loss:.4f}, "
+            f"Val Loss: {val_loss:.4f}, Recall@k: {val_recall:.6f}, "
+            f"k={cfg.train.eval_top_k} ({dt:.2f}s)"
+        )
+        if metrics_logger is not None:
+            metrics_logger.log(epoch, train_loss=train_loss, val_loss=val_loss,
+                               val_recall=val_recall, epoch_time_s=dt)
+        if val_recall > best_recall:
+            best_recall = val_recall
+            if save_checkpoint is not None:
+                save_checkpoint(state, val_recall)
+        if on_epoch_end is not None:
+            m = {k: v[-1] for k, v in hist.items()}
+            if _callback_takes_state(on_epoch_end):
+                on_epoch_end(epoch, m, state)  # live state for mid-run eval
+            else:
+                on_epoch_end(epoch, m)
+
+    gen = epoch_generator(cfg, cfg.train.epochs, device)
+    test_loss, test_recall = eval_step(state.params, test[0], test[1], gen)
+    print(f"Test Loss: {float(test_loss):.4f}, Recall@k: {float(test_recall):.6f}, "
+          f"k={cfg.train.eval_top_k}")
+    hist["test_loss"] = [float(test_loss)]
+    hist["test_recall"] = [float(test_recall)]
+    return state, hist
+
+
+def save_histories(hist: Dict[str, List[float]], histories_dir: str) -> None:
+    """Persist training curves as .npy, mirroring train_test.py:289-291."""
+    os.makedirs(histories_dir, exist_ok=True)
+    np.save(os.path.join(histories_dir, "hist_train_loss.npy"), np.asarray(hist["train_loss"]))
+    np.save(os.path.join(histories_dir, "hist_val_loss.npy"), np.asarray(hist["val_loss"]))
+    np.save(os.path.join(histories_dir, "hist_val_recall.npy"), np.asarray(hist["val_recall"]))

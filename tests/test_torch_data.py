@@ -18,6 +18,7 @@ from movie_recommender_system_with_gnns_tpu_torch.training.evaluate import (
     _np_group_by_user as t_group,
 )
 from movie_recommender_system_with_gnns_tpu_torch.training.pipeline import (
+    load_and_split,
     prepare_training_data,
 )
 
@@ -102,13 +103,15 @@ def test_prepare_training_data_splits_as_jax(tmp_path):
     cfg = tcfg.Config(data=tcfg.DataConfig(
         dataset="synthetic", synthetic_users=50, synthetic_items=80,
         synthetic_interactions=1500, indexes_dir=str(tmp_path / "t")))
-    bundle = prepare_training_data(cfg)
+    data, splits = load_and_split(cfg)
     jdata = jml.make_synthetic_movielens(50, 80, 1500, seed=0, power=1.1)
-    _assert_same_data(jdata, bundle.data)
-    for a, b in zip(jml.split_edges(jdata, str(tmp_path / "j")), bundle.splits):
+    _assert_same_data(jdata, data)
+    for a, b in zip(jml.split_edges(jdata, str(tmp_path / "j")), splits):
         np.testing.assert_array_equal(a, b)
-    data, train, val, test = bundle
-    assert data is bundle.data and train is val is test is None
+    bundle = prepare_training_data(cfg, data=data, device="cpu")
+    assert bundle.data is data
+    for a, b in zip(splits, bundle.splits):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_group_by_user_identical(tiny_data):

@@ -45,8 +45,18 @@ def test_entry_points_default_to_cuda(tmp_path):
     from movie_recommender_system_with_gnns_tpu_torch import cli
     from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import (
         init_params, params_from_numpy)
+    from movie_recommender_system_with_gnns_tpu_torch.config import Config
+    from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph
+    from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import triplets_from_edges
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import DeviceCOO, densify_blocks
     from movie_recommender_system_with_gnns_tpu_torch.training.checkpoint import (
         load_params, save_params)
+    from movie_recommender_system_with_gnns_tpu_torch.training.compact import (
+        build_compact_clusters)
+    from movie_recommender_system_with_gnns_tpu_torch.training.pipeline import (
+        build_cluster_batches, prepare_training_data)
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import (
+        build_eval_batch, create_train_state)
     from movie_recommender_system_with_gnns_tpu_torch.utils.device import resolve_device
 
     if torch.cuda.is_available():
@@ -62,4 +72,21 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--indexes-dir", str(tmp_path / "idx"), "--checkpoint",
                   str(tmp_path / "m.npz"), "recommend", "--user-id", "1"])
+    # the training slice's entry points
+    edges = np.array([[0, 1, 2, 3], [2, 3, 0, 1]], np.int32)
+    idx = np.zeros(2, np.int32)
+    for call in (
+            lambda: create_train_state(Config(), 4, 5),
+            lambda: build_compact_clusters([edges], 2),
+            lambda: build_cluster_batches([edges], 2, 4),
+            lambda: build_eval_batch(edges, 4, 2),
+            lambda: triplets_from_edges(edges, 2),
+            lambda: DeviceCOO.from_host(COOGraph.build(edges, 4)),
+            lambda: densify_blocks(idx, idx, idx, np.ones(2, np.float32), 1, 4),
+            lambda: prepare_training_data(Config()),
+            lambda: cli.main(["--indexes-dir", str(tmp_path / "idx"), "--checkpoint",
+                              str(tmp_path / "m.npz"), "train", "--fused-bpr"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert create_train_state(Config(), 4, 5, device="cpu").params.user_emb.device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")

@@ -201,8 +201,8 @@ def test_cli_batch_recommend(tmp_path, capsys):
 
 
 def test_cli_unported_commands_and_missing_checkpoint(tmp_path, capsys):
-    for cmd in ("train", "eda"):
-        assert tcli.main(["--device", "cpu", cmd]) == 2
+    for cmd in (["eda"], ["train", "--full-eval"]):
+        assert tcli.main(["--device", "cpu"] + cmd) == 2
         assert "not ported" in capsys.readouterr().err
     assert tcli.main(["--device", "cpu"] + _cli_args(tmp_path, "recommend",
                                                      "--user-id", "1")) == 1

@@ -32,3 +32,87 @@ def assert_topk_bf16_close(s_port, i_port, s_ref, i_ref):
            | (np.abs(s_ref[:, :k] - s_ref[:, 1:]) <= ulp))
     assert np.all(~diff | tie), "top-k index differs without a near tie"
     return int(diff.any(axis=1).sum())
+
+
+# ---------------------------------------------------------------------------
+# same seed -> numpy -> both packages
+# ---------------------------------------------------------------------------
+
+
+#: the tensor fields of CompactClusters that must equal the JAX package's
+CLUSTER_FIELDS = ("user_ids", "item_ids", "src", "dst", "w", "user_local",
+                  "pos_local", "mask", "edge_counts", "user_valid", "item_valid",
+                  "user_cluster", "user_slot")
+
+
+def to_np(x):
+    """A torch tensor, a JAX array or anything array-like as a numpy array."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def np_tables(num_users, num_items, dim, seed=0, std=0.1):
+    """(user_emb, item_emb) float32 tables from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal((num_users, dim)) * std).astype(np.float32),
+            (rng.standard_normal((num_items, dim)) * std).astype(np.float32))
+
+
+def both_params(num_users, num_items, dim, seed=0, std=0.1):
+    """The same numpy tables as (JAX params, port params on the CPU)."""
+    import jax.numpy as jnp
+
+    from movie_recommender_system_with_gnns_tpu.models.lightgcn import (
+        LightGCNParams as JParams)
+    from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import (
+        params_from_numpy)
+
+    u, i = np_tables(num_users, num_items, dim, seed, std)
+    return JParams(jnp.asarray(u), jnp.asarray(i)), params_from_numpy(u, i, "cpu")
+
+
+def numpy_partitioner(monkeypatch):
+    """Make the JAX package take its NumPy partitioner (the port's
+    counterpart) instead of the native library, for the current test only."""
+    from movie_recommender_system_with_gnns_tpu.data import native
+
+    monkeypatch.setattr(native, "available", lambda: False)
+
+
+def greedy_parts(data, num_parts, **kw):
+    """Non-empty greedy parts of a dataset, from the port's partitioner."""
+    from movie_recommender_system_with_gnns_tpu_torch.data.partition import (
+        partition_bipartite_greedy)
+
+    n = data.num_users + data.num_items
+    return [p for p in partition_bipartite_greedy(
+        data.edge_index, data.num_users, n, num_parts, **kw) if p.shape[1] > 0]
+
+
+def both_clusters(parts, num_users, align=8, dense=None):
+    """(JAX CompactClusters, port CompactClusters on the CPU) of the same
+    parts; ``dense`` ("float32" / "bfloat16") densifies both."""
+    import jax.numpy as jnp
+
+    from movie_recommender_system_with_gnns_tpu.training import compact as jc
+    from movie_recommender_system_with_gnns_tpu_torch.training import compact as tc
+
+    cj = jc.build_compact_clusters(parts, num_users, align=align)
+    ct = tc.build_compact_clusters(parts, num_users, align=align, device="cpu")
+    if dense is not None:
+        cj = jc.densify_adjacency(cj, dtype=jnp.dtype(dense))
+        ct = tc.densify_adjacency(ct, dtype=dense)
+    return cj, ct
+
+
+def jax_cluster(cj, c):
+    """The 8-tuple the JAX ``compact_cluster_loss`` takes for cluster ``c``."""
+    return tuple(x[c] for x in (cj.user_ids, cj.item_ids, cj.src, cj.dst, cj.w,
+                                cj.user_local, cj.pos_local, cj.mask))
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b| (the JAX kernel tests' gradient measure)."""
+    a, b = to_np(a), to_np(b)
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))

@@ -1,34 +1,50 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
+
+``--kernels-only`` stops after phase 3 (a new kernel's first, short run).
 
 Phases:
   1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
      power limit;
   2. build every kernel from the sources in this checkout (one ``nvcc`` per
-     source, started together);
+     source) and the host graph runtime (``g++``), all started together;
   3. each kernel against its plain PyTorch version. ``score_chunkmax``: random
      normalized inputs, d in {64, 128, 256}, ragged N, masks none / int8 /
      packed, bf16 and f32. ``bpr_tile``: d in {16, 64, 128, 256}, both losses,
      ragged B, negatives all / none / partly in the cluster, one user in most
      triplets, a masked tail, four negatives per positive, and the run-to-run
-     difference of two launches (the table gradients are summed by atomics);
+     difference of two launches (the table gradients are summed by atomics).
+     ``ell_spmm``: d in {16, 64, 100, 256}, f32 and bf16 tables, a graph with
+     an isolated node and a hub whose bucket is grown to the max degree,
+     aligned and unaligned row counts. ``mips_block``: with and without mask,
+     N no multiple of the block, k in {1, 10, 100}, Q no multiple of the query
+     tile, a row with fewer than k live columns, planted exact ties;
   4. the serving path at ML-25M width (``bench.py``'s ``SCALES["full"]``:
      162,541 users x 59,047 items, 18 M sampled interactions, d = 64): split,
      seeded random weights through save/load, ``ServingIndex.build`` over
      the train split, 32,768-user masked ``batch_recommend`` dispatches;
      1,024 of the served users are held against the plain version;
   5. the training path at the same width, on the same graph and split: 100
-     greedy clusters, compact clusters, dense bf16 adjacency blocks where
+     clusters from the native partitioner (greedy + label-propagation
+     refinement), compact clusters, dense bf16 adjacency blocks where
      they fit the configured width (the segment path otherwise), then
      ``train_model`` for 2 epochs (compact trainer, fused BPR kernel, Adam,
      L = 3, d = 64) with the best-val checkpoint; one cluster's gradients
      through the kernel against the plain route; a third, timed epoch and a
      profiled window of steps;
+  5b. eval and propagated serving at the same width, with the checkpoint of
+     phase 5: ``compute_serving_tables(mode="propagated")`` through the ELL
+     SpMM kernel against ``spmm_segment`` propagation, ``evaluate_full_ranking``
+     with layer-0 and with propagated tables (10,000 sampled users, k = 10;
+     1,000 of them against a run on the host),
+     ``batch_recommend_users(method="pallas")`` for 256 users with train-seen
+     exclusion against ``method="twophase"``;
   6. trained -> served: the checkpoint of phase 5 behind the ``ServingIndex``
      for one 32,768-user dispatch; then the CLI at a small synthetic size:
-     ``train --fused-bpr --epochs 1`` and the three ``recommend`` modes;
+     ``train --fused-bpr --full-eval --epochs 1``, the three ``recommend``
+     modes and ``recommend --propagated``;
   7. each kernel timed at its main-path shape beside its plain version, one
      library call where one computes the same function, and its bound.
 
@@ -84,7 +100,18 @@ KERNEL_ROWS = {
         route="cuda",
         source="movie_recommender_system_with_gnns_tpu_torch/csrc/bpr_tile.cu",
         replaces="movie_recommender_system_with_gnns_tpu/ops/pallas_bpr.py:76"),
+    "ell_spmm": dict(
+        route="cuda",
+        source="movie_recommender_system_with_gnns_tpu_torch/csrc/ell_spmm.cu",
+        replaces="movie_recommender_system_with_gnns_tpu/ops/pallas_spmm.py:43"),
+    "mips_block": dict(
+        route="cuda",
+        source="movie_recommender_system_with_gnns_tpu_torch/csrc/mips_block.cu",
+        replaces="movie_recommender_system_with_gnns_tpu/ops/pallas_mips.py:30"),
 }
+#: the eval / propagated-serving path: sampled eval users, users of the
+#: per-block serving call, users re-evaluated on the host
+EVAL = dict(max_users=10_000, block_users=256, host_users=1_000)
 
 
 def check(cond, msg: str) -> None:
@@ -390,6 +417,406 @@ def bpr_kernel_phase() -> float:
     return worst
 
 
+def profiled_ms(fn, iters: int, kernel: str):
+    """(device ms per call summed over everything ``fn`` enqueues, of which
+    the kernels whose name contains ``kernel``), by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [(e.self_device_time_total, e.key) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    kernel_us = sum(us for us, key in dev if kernel in key)
+    check(kernel_us > 0, f"the profiler recorded no {kernel} kernel")
+    return sum(us for us, _ in dev) / (1e3 * iters), kernel_us / (1e3 * iters)
+
+
+def ell_test_graph():
+    """(edge_index, num_nodes): a power-law bipartite graph in which node 0 is
+    linked to every other node (its bucket is grown to the max degree, far
+    past the widest default bucket of its neighbours) and two nodes have no
+    edge at all."""
+    from movie_recommender_system_with_gnns_tpu_torch.data.movielens import (
+        make_synthetic_movielens)
+
+    d = make_synthetic_movielens(3000, 1500, 60_000, seed=SEED + 4, power=1.1)
+    n = d.num_users + d.num_items
+    e = d.edge_index.astype(np.int64)
+    e = e[:, ~np.isin(e, [17, n - 3]).any(axis=0) & (e[0] != 0) & (e[1] != 0)]
+    others = np.setdiff1d(np.arange(1, n), [17, n - 3])
+    hub = np.stack([others, np.zeros_like(others)])
+    return np.concatenate([e, hub, hub[::-1]], axis=1), n
+
+
+def ell_kernel_phase() -> float:
+    """Phase 3, kernel B4: ``spmm_ell_cuda`` against the plain ``spmm_ell``
+    and ``spmm_segment`` on the card. f32 tables within rtol 1e-3 / atol 1e-4
+    (the JAX suite's bound for its kernel; the three sum the same f32
+    products in different orders); bf16 tables within one bf16 ulp of the
+    plain version (both round an f32 sum once). Returns the largest abs error
+    of the f32 cases."""
+    from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph, EllGraph
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import spmm_ell_cuda
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import (
+        DeviceCOO, DeviceELL, spmm_ell, spmm_segment)
+
+    e, n = ell_test_graph()
+    deg = np.bincount(e[1], minlength=n)
+    coo = DeviceCOO.from_host(COOGraph.build(e, n), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    worst = 0.0
+    for row_align in (8, 4):
+        g = EllGraph.build(e, n, row_align=row_align)
+        shapes = [(b.rows, b.width) for b in g.blocks]
+        check(g.blocks[-1].width >= deg.max() > 2048 and deg[17] == 0,
+              "the test graph lost its hub or its isolated node")
+        if row_align == 4:
+            check(any(r % 8 for r, _ in shapes), "no unaligned bucket in the test graph")
+        ell = DeviceELL.from_host(g, "cuda")
+        for d in (16, 64, 100, 256):
+            x = torch.randn(n, d, device="cuda", generator=gen)
+            out = spmm_ell_cuda(ell, x)
+            ref = spmm_ell(ell, x)
+            seg = spmm_segment(coo, x)
+            torch.cuda.synchronize()
+            for what, r in (("plain spmm_ell", ref), ("spmm_segment", seg)):
+                err = (out - r).abs()
+                check(bool((err <= 1e-4 + 1e-3 * r.abs()).all()),
+                      f"ell_spmm d={d} align={row_align} f32 vs {what}: max abs err "
+                      f"{err.max().item():.3e}")
+            check(bool((out[17] == 0).all()) and bool((out[n - 3] == 0).all()),
+                  "an isolated node's row is not zero")
+            e32 = (out - ref).abs().max().item()
+            worst = max(worst, e32)
+            xb = x.bfloat16()
+            outb, refb = spmm_ell_cuda(ell, xb), spmm_ell(ell, xb)
+            torch.cuda.synchronize()
+            check(outb.dtype == torch.bfloat16, "bf16 table did not come back as bf16")
+            eb = (outb.float() - refb.float()).abs()
+            check(bool((eb <= 1e-4 + 2.0 ** -7 * refb.float().abs()).all()),
+                  f"ell_spmm d={d} align={row_align} bf16: beyond one ulp of the "
+                  f"plain version (max abs err {eb.max().item():.3e})")
+            log(f"[kernel] ell_spmm d={d} row_align={row_align} buckets {shapes}: "
+                f"f32 max abs err {e32:.3e} vs plain, "
+                f"{(out - seg).abs().max().item():.3e} vs spmm_segment; bf16 max abs "
+                f"err {eb.max().item():.3e}")
+    return worst
+
+
+def check_block_topk(s_k, i_k, s_p, i_p, what: str) -> float:
+    """Kernel candidates against the plain version's, both (nb, Q, k): scores
+    within 1e-5; an index may differ only where the plain scores of
+    neighbouring ranks lie within 2e-6 (the kernel's FMA chain and the matmul
+    sum in different orders, which can swap such a pair). Returns the largest
+    score difference."""
+    live = s_p > -1e29
+    diff_s = torch.where(live, (s_k - s_p).abs(), torch.zeros_like(s_p))
+    check(bool((diff_s <= 1e-5).all()) and bool(((s_k > -1e29) == live).all()),
+          f"{what}: scores differ from the plain version by {diff_s.max().item():.3e}")
+    diff = i_k != i_p
+    inf = torch.full_like(s_p[..., :1], float("inf"))
+    prev = torch.cat([inf, s_p[..., :-1]], dim=-1)
+    nxt = torch.cat([s_p[..., 1:], -inf], dim=-1)
+    tie = ((s_p - prev).abs() <= 2e-6) | ((s_p - nxt).abs() <= 2e-6)
+    check(bool((~diff | tie).all()),
+          f"{what}: an index differs from the plain version without a near tie")
+    return diff_s.max().item()
+
+
+def mips_block_phase() -> float:
+    """Phase 3, kernel B3: ``mips_block_topk`` against its plain version on
+    the card, then the whole ``method="pallas"`` lane against ``flat``."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops.bpr import normalize_embedding
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_mips import (
+        mips_block_topk, mips_block_topk_plain)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.topk import NEG_INF, mips_topk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    nq, n, block = 250, 10_001, 4096           # Q % 8 != 0, N % block != 0
+    worst = 0.0
+    for d in (64, 100):
+        q = normalize_embedding(torch.randn(nq, d, device="cuda", generator=gen))
+        c = normalize_embedding(torch.randn(n, d, device="cuda", generator=gen))
+        # planted exact ties: copies of one row in one block and across blocks
+        c[4000] = c[12]
+        c[9000] = c[12]
+        c[13] = c[12]
+        q[7] = c[12]
+        mask = (torch.rand(nq, n, device="cuda", generator=gen) < 0.1).to(torch.int8)
+        mask[:, [12, 13, 4000, 9000]] = 0
+        mask[5] = 1
+        mask[5, [3, 5000, 5001]] = 0            # three live columns in all
+        mask[6] = 1                             # none at all
+        for k in (1, 10, 100):
+            for m in (None, mask):
+                what = f"mips_block d={d} k={k} mask={'int8' if m is not None else 'none'}"
+                s_k, i_k = mips_block_topk(q, c, k, block=block, mask=m)
+                s_p, i_p = mips_block_topk_plain(q, c, k, block=block, mask=m)
+                torch.cuda.synchronize()
+                check(s_k.shape == (3, nq, k) and i_k.dtype == torch.int32, f"{what}: shape")
+                worst = max(worst, check_block_topk(s_k, i_k, s_p, i_p, what))
+                check(bool((i_k < n).all()) and bool((i_k >= 0).all()),
+                      f"{what}: a column outside the catalog")
+                # exact ties: equal scores keep ascending columns (query 7
+                # scores 1.0 against its four copies)
+                same = s_k[:, :, 1:] == s_k[:, :, :-1]
+                live = s_k[:, :, 1:] > -1e29
+                check(bool((i_k[:, :, 1:] > i_k[:, :, :-1])[same & live].all()),
+                      f"{what}: tied scores not in ascending column order")
+                check(torch.equal(i_k[:, 7, :3], i_p[:, 7, :3]),
+                      f"{what}: the planted ties' indices differ from the plain version")
+                if k >= 2:
+                    check(i_k[0, 7, :2].tolist() == [12, 13],
+                          f"{what}: planted tie order {i_k[0, 7, :2].tolist()}")
+                if m is not None:
+                    check(bool((s_k[:, 6] == NEG_INF).all())
+                          and i_k[:, 6, 0].tolist() == [0, block, 2 * block],
+                          f"{what}: a fully masked row")
+                    flat_i = i_k.permute(1, 0, 2).reshape(nq, -1).long()
+                    flat_live = s_k.permute(1, 0, 2).reshape(nq, -1) > -1e29
+                    check(not bool((m.bool().gather(1, flat_i) & flat_live).any()),
+                          f"{what}: an excluded column was returned")
+                    if k == 10:
+                        check(sorted(i_k[:, 5][s_k[:, 5] > -1e29].tolist()) == [3, 5000, 5001],
+                              f"{what}: the row with three live columns")
+                # the whole lane against the flat method
+                s_b, i_b = mips_topk(q, c, k=k, block=block, method="pallas",
+                                     exclude_mask=m, normalize=False)
+                s_f, i_f = mips_topk(q, c, k=k, method="flat", exclude_mask=m,
+                                     normalize=False)
+                check_block_topk(s_b[None], i_b[None], s_f[None], i_f[None], what + " merged")
+        log(f"[kernel] mips_block d={d}: k in (1, 10, 100) x mask none/int8 agree "
+            f"with the plain version and with method='flat' (Q {nq}, N {n}, block "
+            f"{block}; max score diff {worst:.3e}; planted ties in ascending order)")
+    return worst
+
+
+def ell_bound(ell, d: int, itemsize: int, bw: float):
+    """Least time (ms) of one hop over these blocks, from their data: the
+    slots that hold an edge read once (id + weight, 8 bytes), the one padding
+    id that ends a row short of its bucket's width, each row's node id, the
+    table read once and written once; 2 d operations per edge. The padding
+    behind a row's first padding id is not needed, so it is not counted. Also
+    returns the time if every gather were charged its d·itemsize bytes, and
+    the time of reading every slot, padding included."""
+    slots = sum(b.nbr.numel() for b in ell.blocks)
+    rows = sum(b.node_ids.numel() for b in ell.blocks)
+    edges = sum(int((b.nbr != ell.num_nodes).sum()) for b in ell.blocks)
+    ends = sum(int((b.nbr[:, -1] == ell.num_nodes).sum()) for b in ell.blocks)
+    table = ell.num_nodes * d * itemsize
+    byts = edges * 8 + ends * 4 + rows * 4 + 2 * table
+    flops = 2.0 * d * edges
+    t_bytes, t_ops = byts / bw * 1e3, flops / F32_FLOPS * 1e3
+    gathered = (edges * 8 + ends * 4 + rows * 4 + edges * d * itemsize + table) / bw * 1e3
+    all_slots = (slots * 8 + rows * 4 + 2 * table) / bw * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            byts, flops, slots, edges, gathered, all_slots)
+
+
+def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
+    """Phase 5b: eval and propagated serving at ML-25M width with the trained
+    checkpoint. Returns the kernel rows of ``ell_spmm`` and ``mips_block``."""
+    from movie_recommender_system_with_gnns_tpu_torch.data import native
+    from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph, EllGraph
+    from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import (
+        LightGCNParams, propagate)
+    from movie_recommender_system_with_gnns_tpu_torch.ops import _build, bpr, cuda_mips
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import (
+        ell_spmm_block, row_split, spmm_ell_cuda)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import (
+        DeviceCOO, DeviceELL, spmm_ell, spmm_segment)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.topk import NEG_INF
+    from movie_recommender_system_with_gnns_tpu_torch.serving.recommend import (
+        batch_recommend_users, compute_serving_tables)
+    from movie_recommender_system_with_gnns_tpu_torch.training.checkpoint import load_params
+    from movie_recommender_system_with_gnns_tpu_torch.training.evaluate import (
+        _np_group_by_user, evaluate_full_ranking)
+
+    launches = _build.LAUNCHES
+    train_e, _, test_e = splits
+    nu, ni = data.num_users, data.num_items
+    n, d, layers = nu + ni, FULL["dim"], cfg.model.num_layers
+    trained, _ = load_params(ckpt_path, device="cuda")
+
+    # propagated serving tables through the ELL SpMM kernel
+    launches.clear()
+    t0 = time.time()
+    tables = compute_serving_tables(trained, train_e, cfg, mode="propagated")
+    torch.cuda.synchronize()
+    t_tables = time.time() - t0
+    t0 = time.time()
+    g = EllGraph.build(train_e, n)
+    t_ell = time.time() - t0
+    ell = DeviceELL.from_host(g, "cuda")
+    shapes = [(b.rows, b.width) for b in g.blocks]
+    # a bucket whose rows are split launches two kernels: gather, then reduce
+    per_hop = sum(1 if row_split(r, wd) == 1 else 2 for r, wd in shapes)
+    check(launches["ell_spmm"] == layers * per_hop,
+          f"ell_spmm launched {launches['ell_spmm']} kernels for {layers} hops of "
+          f"{per_hop} over {len(shapes)} buckets")
+    coo = DeviceCOO.from_host(COOGraph.build(train_e, n), "cuda")
+    ref_u, ref_i = propagate(trained, coo, spmm_segment, layers, cfg.model.readout)
+    err_t = max((tables.user_emb - ref_u).abs().max().item(),
+                (tables.item_emb - ref_i).abs().max().item())
+    scale_t = max(ref_u.abs().max().item(), ref_i.abs().max().item())
+    check(err_t <= 1e-4 and err_t <= 1e-3 * scale_t and bool(
+        torch.isfinite(tables.user_emb).all() & torch.isfinite(tables.item_emb).all()),
+        f"propagated tables differ from spmm_segment propagation by {err_t:.3e} "
+        f"(largest entry {scale_t:.3e})")
+    log(f"[eval] compute_serving_tables(propagated), {layers} hops over {n} nodes, "
+        f"{train_e.shape[1]} directed train edges: {t_tables:.2f} s (EllGraph.build "
+        f"alone {t_ell:.2f} s on the host); ELL buckets (rows, width) {shapes}, "
+        f"padding ratio {g.padding_ratio:.3f}; max abs err vs spmm_segment "
+        f"propagation {err_t:.3e} (largest entry {scale_t:.3e})")
+
+    # full-ranking eval: layer-0, then propagated tables
+    for name, kw in (("layer0", {}), ("propagated", dict(use_propagated=True, cfg=cfg))):
+        t0 = time.time()
+        recall, ndcg = evaluate_full_ranking(trained, train_e, test_e, nu, k=TOP_K,
+                                             max_users=EVAL["max_users"], **kw)
+        torch.cuda.synchronize()
+        tm = evaluate_full_ranking.last_timings
+        check(np.isfinite(recall) and np.isfinite(ndcg) and 0.0 <= recall <= 1.0
+              and 0.0 <= ndcg <= 1.0 and tm["eval_users"] == EVAL["max_users"],
+              f"evaluate_full_ranking {name}: recall {recall!r} ndcg {ndcg!r} {tm}")
+        log(f"[eval] evaluate_full_ranking {name} tables, {tm['eval_users']} sampled "
+            f"users, k={TOP_K}: Recall@{TOP_K} {recall:.6f}, NDCG@{TOP_K} {ndcg:.6f} in "
+            f"{time.time() - t0:.2f} s; last_timings {tm}")
+    path_launches = dict(launches)
+    check(path_launches["ell_spmm"] == 2 * layers * per_hop,
+          f"ell_spmm launches on the eval path: {path_launches}")
+    # the same evaluator on the host, fewer users, layer-0 tables
+    host = LightGCNParams(trained.user_emb.cpu(), trained.item_emb.cpu())
+    r_dev = evaluate_full_ranking(trained, train_e, test_e, nu, k=TOP_K,
+                                  max_users=EVAL["host_users"])
+    r_host = evaluate_full_ranking(host, train_e, test_e, nu, k=TOP_K,
+                                   max_users=EVAL["host_users"])
+    # the two matmuls sum in different orders: a near tie at rank k can move
+    # one hit of the few thousand ranks
+    check(abs(r_dev[0] - r_host[0]) <= 2e-3 and abs(r_dev[1] - r_host[1]) <= 2e-3,
+          f"evaluate_full_ranking on the card {r_dev} vs on the host {r_host}")
+    log(f"[eval] {EVAL['host_users']} users on the card {r_dev} vs on the host {r_host}")
+
+    # the per-block serving lane: 256 users, train-seen exclusion
+    launches.clear()
+    users = np.sort(np.random.default_rng(SEED + 7).choice(nu, EVAL["block_users"],
+                                                           replace=False))
+    ptr, items = _np_group_by_user(train_e, nu)
+    lens = np.diff(ptr)[users]
+    pairs = (np.concatenate([[0], np.cumsum(lens)]),
+             np.concatenate([items[ptr[u]:ptr[u + 1]] for u in users]))
+    s_b, i_b = batch_recommend_users(trained, users, top_k=TOP_K, exclude_pairs=pairs,
+                                     method="pallas")
+    s_r, i_r = batch_recommend_users(trained, users, top_k=TOP_K + 1, exclude_pairs=pairs,
+                                     method="twophase", score_dtype="float32")
+    torch.cuda.synchronize()
+    block_launches = dict(launches)
+    check(block_launches.get("mips_block", 0) == 1,
+          f"mips_block launches for one 256-user call: {block_launches}")
+    swaps = check_topk(s_b, i_b, s_r, i_r, torch.float32, d, "method='pallas' vs twophase")
+    seen = np.zeros((users.size, ni), bool)
+    seen[np.repeat(np.arange(users.size), lens), pairs[1]] = True
+    check(not seen[np.arange(users.size)[:, None], i_b.cpu().numpy()].any(),
+          "method='pallas' served a train-seen item")
+    log(f"[eval] batch_recommend_users(method='pallas'), {users.size} users, "
+        f"train-seen excluded: same items as method='twophase' in f32 ({swaps} rows "
+        f"with near-tie swaps); launches {block_launches}")
+
+    # 7c. ell_spmm per hop at the full graph: time, plain, library, bound
+    emb = torch.cat([trained.user_emb, trained.item_emb]).contiguous()
+    out_k, out_p = spmm_ell_cuda(ell, emb), spmm_ell(ell, emb)
+    b4_err = (out_k - out_p).abs().max().item()
+    # per element, relative: the trained table's entries are near 1e-3, so an
+    # absolute bound would let a dropped slot pass
+    check(bool(((out_k - out_p).abs() <= 1e-6 + 1e-3 * out_p.abs()).all()),
+          f"ell_spmm at the full graph vs plain: max abs err {b4_err:.3e} "
+          f"(largest entry {out_p.abs().max().item():.3e})")
+    del out_p
+    b4_dev, b4_kernel = profiled_ms(lambda: spmm_ell_cuda(ell, emb), 10, "ell_spmm_kernel")
+    b4_events = time_ms(lambda: spmm_ell_cuda(ell, emb), 10)
+    b4_plain = time_ms(lambda: spmm_ell(ell, emb), 3, warmup=1)
+    seg_ms = time_ms(lambda: spmm_segment(coo, emb), 5, warmup=1)
+    rowptr, col, w = native.build_csr(train_e[0], train_e[1], n)
+    # row pointers and columns in one index type (int32: E < 2^31), as the
+    # sparse library expects
+    csr = torch.sparse_csr_tensor(
+        *(torch.from_numpy(a).to("cuda") for a in (rowptr.astype(np.int32), col, w)),
+        size=(n, n))
+    out_l = torch.sparse.mm(csr, emb)
+    check(bool(((out_l - out_k).abs() <= 1e-6 + 1e-3 * out_l.abs()).all()),
+          "torch.sparse.mm on the CSR of the same matrix disagrees with ell_spmm")
+    lib_ms = time_ms(lambda: torch.sparse.mm(csr, emb), 10)
+    scratch = torch.empty_like(emb)
+    per_bucket = [time_ms(lambda blk=blk: ell_spmm_block(blk, emb, scratch, n), 10)
+                  for blk in ell.blocks]
+    b4_bound, b4_by, byts, flops, slots, edges, gathered, all_slots = ell_bound(
+        ell, d, 4, bw)
+    check(edges == train_e.shape[1], f"the ELL blocks hold {edges} edges, the train "
+          f"split {train_e.shape[1]}")
+    log(f"[kernel] ell_spmm, one hop at ({n} nodes, {edges} edges in {slots} ELL "
+        f"slots, d={d}, f32; {per_hop} kernel launches over {len(shapes)} buckets): "
+        f"{b4_dev:.4f} ms of device time per call (profiler; "
+        f"the gather kernels alone {b4_kernel:.4f} ms), {b4_events:.4f} ms by "
+        f"CUDA events; per bucket by events "
+        f"{[(wd, round(t, 4)) for (_, wd), t in zip(shapes, per_bucket)]} ms; plain "
+        f"spmm_ell {b4_plain:.4f} ms, spmm_segment {seg_ms:.4f} ms, torch.sparse.mm "
+        f"(CSR) {lib_ms:.4f} ms; bound {b4_bound:.4f} ms ({b4_by}: {byts / 1e6:.1f} MB "
+        f"compulsory: the edges' slots, one padding id per row, the table read and "
+        f"written; {flops / 1e9:.2f} GFLOP), {b4_bound / b4_dev:.3f} of the bound; "
+        f"reading every slot, padding included, would take {all_slots:.4f} ms; with "
+        f"every gather charged {gathered:.4f} ms; max abs err vs plain {b4_err:.3e}")
+    rows = [dict(name="ell_spmm", **KERNEL_ROWS["ell_spmm"],
+                 launches=path_launches["ell_spmm"], max_abs_err=b4_err, ms=b4_dev,
+                 plain_ms=b4_plain, bound_ms=b4_bound, bound_by=b4_by, library_ms=lib_ms,
+                 ms_method="device time of one hop (all buckets), torch.profiler",
+                 kernel_ms=b4_kernel, wrapper_ms=b4_events, segment_ms=seg_ms,
+                 widest_bucket=dict(rows=shapes[-1][0], width=shapes[-1][1],
+                                    ms=per_bucket[-1]))]
+    del csr, out_l, out_k, scratch, coo, ell
+
+    # 7d. mips_block per 256-query call: time, plain, library, bound
+    users_d = torch.as_tensor(users, device="cuda")
+    q = bpr.normalize_embedding(trained.user_emb[users_d]).contiguous()
+    c = bpr.normalize_embedding(trained.item_emb).contiguous()
+    mask = torch.from_numpy(seen).to("cuda").to(torch.int8).contiguous()
+    block = 4096
+    nb = -(-ni // block)
+    s_k, i_k = cuda_mips.mips_block_topk(q, c, TOP_K, block=block, mask=mask)
+    s_p, i_p = cuda_mips.mips_block_topk_plain(q, c, TOP_K, block=block, mask=mask)
+    b3_err = check_block_topk(s_k, i_k, s_p, i_p, "mips_block at the serving shape")
+    call = lambda: cuda_mips.mips_block_topk(q, c, TOP_K, block=block, mask=mask)
+    b3_dev, b3_kernel = profiled_ms(call, 20, "mips_block_kernel")
+    b3_events = time_ms(call, 20)
+    b3_plain = time_ms(lambda: cuda_mips.mips_block_topk_plain(
+        q, c, TOP_K, block=block, mask=mask), 5, warmup=1)
+    mb = mask.bool()
+    lib = lambda: torch.topk(torch.matmul(q, c.T).masked_fill_(mb, NEG_INF), TOP_K)
+    b3_lib = time_ms(lib, 20)
+    byts = (c.numel() + q.numel()) * 4 + mask.numel() + nb * users.size * TOP_K * 8
+    flops = 2.0 * users.size * ni * d
+    t_bytes, t_ops = byts / bw * 1e3, flops / F32_FLOPS * 1e3
+    b3_bound, b3_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[kernel] mips_block at (Q {users.size}, N {ni}, block {block} -> nb {nb}, "
+        f"d={d}, k={TOP_K}, int8 mask): {b3_dev:.4f} ms of device time per call "
+        f"(profiler; kernel alone {b3_kernel:.4f} ms), {b3_events:.4f} ms by CUDA "
+        f"events; plain {b3_plain:.4f} ms; torch.matmul + masked_fill_ + torch.topk "
+        f"{b3_lib:.4f} ms; bound {b3_bound:.4f} ms ({b3_by}: {byts / 1e6:.2f} MB, "
+        f"{flops / 1e9:.2f} GFLOP), {b3_bound / b3_dev:.3f} of the bound; max score "
+        f"diff vs plain {b3_err:.3e}")
+    rows.append(dict(name="mips_block", **KERNEL_ROWS["mips_block"],
+                     launches=block_launches["mips_block"], max_abs_err=b3_err,
+                     ms=b3_dev, plain_ms=b3_plain, bound_ms=b3_bound, bound_by=b3_by,
+                     library_ms=b3_lib,
+                     ms_method="device time of one call, torch.profiler",
+                     kernel_ms=b3_kernel, wrapper_ms=b3_events))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -434,7 +861,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    built = _build.build(*KERNEL_ROWS)
+    built = _build.build(*KERNEL_ROWS, "graphcore")
     for kname, path in built.items():
         log(f"[build] {kname}: {path.name} in {time.time() - t0:.1f} s")
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -444,6 +871,11 @@ def main() -> int:
     # 3. kernels against their plain versions
     kernel_err = kernel_phase()
     bpr_err = bpr_kernel_phase()
+    ell_err = ell_kernel_phase()
+    block_err = mips_block_phase()
+    if "--kernels-only" in sys.argv[1:]:
+        log(f"[done] kernels only: {time.time() - t_start:.1f} s")
+        return 0
 
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
@@ -582,7 +1014,8 @@ def main() -> int:
         torch.cuda.synchronize()
         t_dense = time.time() - t0
         dense = cc.adj is not None
-        log(f"[train] {cc.num_clusters} clusters: u_pad {cc.u_pad}, i_pad {cc.i_pad}, "
+        log(f"[train] native partitioner (greedy + 4 rounds of label-propagation "
+            f"refinement), {cc.num_clusters} clusters: u_pad {cc.u_pad}, i_pad {cc.i_pad}, "
             f"n_local {n_local}, triplet width {width}, "
             f"{int(cc.mask.sum())} valid triplets per epoch, edge retention "
             f"{retention:.4f}; partition {t_part:.1f} s, compact clusters "
@@ -761,6 +1194,11 @@ def main() -> int:
                          launch_ms=b1["launch"]))
         del cc, val, test, kargs, u_tab, i_tab, ni, acc, final
 
+        # 5b. eval and propagated serving at the same width
+        rows += new_path_phase(data, (train_e, val_e, test_e),
+                               cfg.train.checkpoint_path, cfg, bw)
+        log(f"[eval] phase 3 max errs: ell_spmm {ell_err:.3e}, mips_block {block_err:.3e}")
+
         # 6. trained -> served, then the CLI at a small synthetic size
         launches.clear()
         trained, tmeta = load_params(cfg.train.checkpoint_path, device="cuda")
@@ -792,8 +1230,9 @@ def main() -> int:
         users_file = WORK / "users.txt"
         batch_raw = small.raw_user_id(np.arange(2048))
         users_file.write_text("\n".join(map(str, batch_raw)) + "\n999999999\n")
-        for extra in (["train", "--fused-bpr"],
+        for extra in (["train", "--fused-bpr", "--full-eval", "--full-eval-users", "2000"],
                       ["recommend", "--user-id", str(int(small.user_ids[0]))],
+                      ["recommend", "--propagated", "--user-id", str(int(small.user_ids[0]))],
                       ["recommend", "--movie-id", str(int(small.movie_ids[0]))],
                       ["recommend", "--users-file", str(users_file),
                        "--out", str(WORK / "recs.csv")]):
@@ -810,8 +1249,9 @@ def main() -> int:
         meet_launches = dict(launches)
         log(f"[meet] kernel launches, trained -> served and the CLI: {meet_launches}")
         check(meet_launches.get("bpr_tile", 0) == SMALL["clusters"]
-              and meet_launches.get("score_chunkmax", 0) >= 2,
-              "the CLI phase did not go through both kernels")
+              and meet_launches.get("score_chunkmax", 0) >= 2
+              and meet_launches.get("ell_spmm", 0) >= TRAIN["layers"],
+              "the CLI phase did not go through its three kernels")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -11,8 +11,10 @@ The options are the JAX package's, so one command line, one checkpoint and one
 indexes dir serve both. ``--device`` picks the device (default ``cuda``;
 without a GPU, pass ``--device cpu``). ``train`` runs the compact cluster
 trainer (``--trainer compact``, the default) or the full-node one
-(``--trainer full``) with ``--optimizer adam``; ``--mesh``, ``--max-retries``,
-``--full-eval``, the history plot and ``eda`` are not ported yet.
+(``--trainer full``) with ``--optimizer adam``; ``--full-eval`` adds the
+full-ranking Recall@k / NDCG@k on the test split after training. ``recommend
+--propagated`` scores with the K-layer propagated tables. ``--mesh``,
+``--max-retries``, the history plot and ``eda`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -61,8 +63,7 @@ def cmd_train(args) -> int:
     from .training.train import create_train_state, save_histories, train_model
     from .utils.device import resolve_device
 
-    for flag, on in (("--mesh", args.mesh), ("--max-retries", args.max_retries > 0),
-                     ("--full-eval", args.full_eval)):
+    for flag, on in (("--mesh", args.mesh), ("--max-retries", args.max_retries > 0)):
         if on:
             print(f"train {flag} is not ported to the PyTorch package yet; run "
                   "it with movie_recommender_system_with_gnns_tpu.cli",
@@ -93,6 +94,17 @@ def cmd_train(args) -> int:
     state, hist = train_model(cfg, state, clusters, val, test,
                               save_checkpoint=save_cb)
     save_histories(hist, cfg.train.histories_dir)
+
+    if args.full_eval:
+        from .training.evaluate import evaluate_full_ranking
+
+        train_e, _, test_e = bundle.splits
+        recall, ndcg = evaluate_full_ranking(
+            state.params, train_e, test_e, data.num_users, k=args.full_eval_k,
+            max_users=args.full_eval_users)
+        print(f"Full-ranking test Recall@{args.full_eval_k}: {recall:.4f}, "
+              f"NDCG@{args.full_eval_k}: {ndcg:.4f}")
+        print(f"full-ranking eval timings: {evaluate_full_ranking.last_timings}")
     return 0
 
 
@@ -107,11 +119,13 @@ def _write_batch(path, raw_ids, valid, scores, items, data, top_k) -> None:
 
 
 def cmd_recommend(args) -> int:
-    """Load the data and split, load the checkpoint's layer-0 tables, print
-    top-k with train-seen items excluded (reference recommend.py:115-156)."""
+    """Load the data and split, load the checkpoint's layer-0 tables (or
+    propagate them over the train graph with ``--propagated``), print top-k
+    with train-seen items excluded (reference recommend.py:115-156)."""
     import numpy as np
 
-    from .serving.recommend import (batch_recommend_users, recommend_from_movie,
+    from .serving.recommend import (batch_recommend_users,
+                                    compute_serving_tables, recommend_from_movie,
                                     recommend_from_user, train_seen_items)
     from .training.checkpoint import load_params
     from .training.pipeline import load_and_split
@@ -124,6 +138,8 @@ def cmd_recommend(args) -> int:
         print(f"checkpoint {cfg.train.checkpoint_path} not found — train first")
         return 1
     params, _ = load_params(cfg.train.checkpoint_path, device)
+    if args.propagated:
+        params = compute_serving_tables(params, splits[0], cfg, mode="propagated")
 
     if args.users_file is not None:
         with open(args.users_file) as f:
@@ -222,11 +238,18 @@ def main(argv=None) -> int:
                     help="fused CUDA BPR loss+grad kernel (ops/cuda_bpr.py)")
     pt.add_argument("--mesh", default=None, help="not ported yet")
     pt.add_argument("--max-retries", type=int, default=0, help="not ported yet")
-    pt.add_argument("--full-eval", action="store_true", help="not ported yet")
+    pt.add_argument("--full-eval", action="store_true",
+                    help="post-training full-ranking Recall@k/NDCG@k on test")
+    pt.add_argument("--full-eval-k", type=int, default=10)
+    pt.add_argument("--full-eval-users", type=int, default=10_000,
+                    help="cap on evaluated users (a seeded sample)")
     pr = sub.add_parser("recommend", help="top-k retrieval")
     pr.add_argument("--user-id", type=int, default=None)
     pr.add_argument("--movie-id", type=int, default=None)
     pr.add_argument("--top-k", type=int, default=10)
+    pr.add_argument("--propagated", action="store_true",
+                    help="score with K-layer propagated embeddings instead of "
+                         "the reference's layer-0 tables")
     pr.add_argument("--users-file", default=None,
                     help="batch mode: file with one raw userId per line")
     pr.add_argument("--out", default=None, help="batch mode output CSV path")

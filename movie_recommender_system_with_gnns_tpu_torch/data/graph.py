@@ -1,20 +1,25 @@
 """Host-side graph structures (JAX package ``data/graph.py``): symmetric GCN edge
-weights and the normalized COO edge list that segment-sum propagation reads.
+weights, the normalized COO edge list that segment-sum propagation reads, and
+the degree-bucketed ELL layout that the ELL SpMM kernel reads.
 
   * :func:`gcn_norm`: ``w(s,d) = deg(s)^-1/2 · deg(d)^-1/2`` (PyG LGConv's
     ``gcn_norm`` with no self-loops); zero-degree nodes get weight 0.
   * :class:`COOGraph`: edges sorted by destination, padded to a static edge
     count with zero-weight edges that target the last node, so the arrays
     equal the JAX package's element for element.
+  * :class:`EllGraph`: nodes grouped into degree buckets; each bucket is a
+    dense (rows × width) neighbour-index / weight matrix padded to the
+    bucket's width. Padding slots point at the phantom row ``num_nodes`` with
+    weight 0. Arrays equal the JAX package's element for element.
 
-Pure NumPy; the arrays move to the device in ``ops/spmm.py::DeviceCOO``. The
-degree-bucketed ``EllGraph`` waits for the slice that ports the ELL SpMM kernel.
+Pure NumPy; the arrays move to the device in ``ops/spmm.py`` (``DeviceCOO``,
+``DeviceELL``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -74,6 +79,104 @@ class COOGraph:
             dst = np.concatenate([dst, np.full(pad - e, num_nodes - 1, np.int32)])
             w = np.concatenate([w, np.zeros(pad - e, np.float32)])
         return COOGraph(src=src, dst=dst, w=w, num_nodes=num_nodes, num_edges=e)
+
+
+@dataclass(frozen=True)
+class EllBlock:
+    """One degree bucket: ``rows`` nodes, each padded to ``width`` neighbours.
+
+    ``nbr`` (rows, width) int32 — neighbour node ids; padding entries point at
+    the phantom row ``num_nodes``. ``w`` (rows, width) float32 — edge weights,
+    zero on padding. ``node_ids`` (rows,) int32 — global node id of each row,
+    ``num_nodes`` on the rows that pad the bucket to ``row_align``.
+    """
+
+    node_ids: np.ndarray
+    nbr: np.ndarray
+    w: np.ndarray
+
+    @property
+    def rows(self) -> int:
+        return int(self.node_ids.shape[0])
+
+    @property
+    def width(self) -> int:
+        return int(self.nbr.shape[1])
+
+
+@dataclass(frozen=True)
+class EllGraph:
+    """Degree-bucketed ELL adjacency: the concatenation of the blocks covers
+    every node exactly once; ``inv_perm`` maps node id to its row in the
+    concatenated block order."""
+
+    blocks: List[EllBlock]
+    inv_perm: np.ndarray      # (num_nodes,) int32
+    num_nodes: int
+    num_edges: int
+
+    @staticmethod
+    def build(
+        edge_index: np.ndarray,
+        num_nodes: int,
+        width_buckets: Sequence[int] = (8, 32, 128, 512, 2048, 8192, 32768),
+        row_align: int = 8,
+    ) -> "EllGraph":
+        """Bucket nodes by degree; each node lands in the smallest bucket whose
+        width holds its whole neighbour list (none is dropped: the last
+        bucket's width is the true max degree rounded up to 8)."""
+        w_all = gcn_norm(edge_index, num_nodes)
+        dst = edge_index[1].astype(np.int64)
+        order = np.argsort(dst, kind="stable")
+        dst_s = dst[order]
+        src_s = edge_index[0, order].astype(np.int64)
+        ws = w_all[order]
+        deg = np.bincount(dst_s, minlength=num_nodes)
+        rowptr = np.concatenate([[0], np.cumsum(deg)])
+        max_deg = int(deg.max(initial=0))
+        widths = (sorted(set(int(w) for w in width_buckets if w < max_deg))
+                  + [max(_round_up(max_deg, 8), 8)])
+
+        # position of each edge within its destination's neighbour run
+        pos_in_row = np.arange(dst_s.shape[0], dtype=np.int64) - rowptr[dst_s]
+
+        blocks: List[EllBlock] = []
+        perm_rows: List[np.ndarray] = []
+        lo = 0
+        for wd in widths:
+            sel = (np.flatnonzero((deg > lo) & (deg <= wd)) if lo > 0
+                   else np.flatnonzero(deg <= wd))
+            lo = wd
+            if sel.size == 0:
+                continue
+            rows = _round_up(sel.size, row_align)
+            nbr = np.full((rows, wd), num_nodes, dtype=np.int32)
+            bw = np.zeros((rows, wd), dtype=np.float32)
+            # every edge whose destination is in this bucket
+            row_of = np.full(num_nodes, -1, dtype=np.int64)
+            row_of[sel] = np.arange(sel.size)
+            emask = row_of[dst_s] >= 0
+            r = row_of[dst_s[emask]]
+            c = pos_in_row[emask]
+            nbr[r, c] = src_s[emask]
+            bw[r, c] = ws[emask]
+            node_ids = np.concatenate(
+                [sel, np.full(rows - sel.size, num_nodes, np.int64)])
+            blocks.append(EllBlock(node_ids=node_ids.astype(np.int32), nbr=nbr, w=bw))
+            perm_rows.append(node_ids)
+
+        concat = np.concatenate(perm_rows) if perm_rows else np.zeros(0, np.int64)
+        inv_perm = np.zeros(num_nodes, dtype=np.int32)
+        valid = concat < num_nodes
+        inv_perm[concat[valid]] = np.flatnonzero(valid)
+        return EllGraph(blocks=blocks, inv_perm=inv_perm, num_nodes=num_nodes,
+                        num_edges=int(edge_index.shape[1]))
+
+    @property
+    def padding_ratio(self) -> float:
+        """ELL slots over true edges."""
+        slots = sum(b.rows * b.width for b in self.blocks)
+        return slots / max(self.num_edges, 1)
 
 
 def build_csr(edge_index: np.ndarray, num_nodes: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

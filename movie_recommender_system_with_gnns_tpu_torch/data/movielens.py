@@ -10,8 +10,8 @@ because the port imports nothing of that package. Everything returns plain
   * 90/5/5 split with persisted val/test indices,
     train derived by setdiff on reload              — dataset_handler.py:144-253
 
-The CSV load reads through pandas; the native mmap reader of the JAX package
-(``data/native.py``) is not bound in the port.
+``ratings.csv`` is read by the host graph runtime's mmap reader
+(``data/native.py``), or through pandas when ``reader="pandas"`` asks for it.
 """
 
 from __future__ import annotations
@@ -117,17 +117,29 @@ def load_movielens(
     ratings_path: str,
     movies_path: Optional[str] = None,
     min_rating: float = 4.0,
+    reader: str = "native",
 ) -> MovieLensData:
     """Load MovieLens CSVs: ``rating >= min_rating`` filter,
-    first-appearance-ordered dense id maps, undirected doubling."""
-    if pd is None:
-        raise RuntimeError("pandas is required to read MovieLens CSVs")
-    ratings = pd.read_csv(ratings_path, usecols=["userId", "movieId", "rating"])
-    ratings = ratings[ratings["rating"] >= min_rating]
-    user_raw = ratings["userId"].to_numpy()
-    movie_raw = ratings["movieId"].to_numpy()
+    first-appearance-ordered dense id maps, undirected doubling.
+
+    ``reader="native"`` (default) parses ``ratings.csv`` with the host graph
+    runtime (mmap + threads, filter fused; raises if the library cannot be
+    built); ``reader="pandas"`` reads it through pandas."""
+    if reader == "native":
+        from . import native
+
+        user_raw, movie_raw = native.load_ratings_csv(ratings_path, min_rating)
+    elif reader == "pandas":
+        if pd is None:
+            raise RuntimeError("pandas is required for reader='pandas'")
+        ratings = pd.read_csv(ratings_path, usecols=["userId", "movieId", "rating"])
+        ratings = ratings[ratings["rating"] >= min_rating]
+        user_raw = ratings["userId"].to_numpy()
+        movie_raw = ratings["movieId"].to_numpy()
+    else:
+        raise ValueError(f"unknown reader {reader!r}")
     movies = (pd.read_csv(movies_path, usecols=["movieId", "title"])
-              if movies_path else None)
+              if pd is not None and movies_path else None)
     # first-appearance order, like a dict comprehension over .unique()
     first_user_ids = user_raw[np.sort(np.unique(user_raw, return_index=True)[1])]
     first_movie_ids = movie_raw[np.sort(np.unique(movie_raw, return_index=True)[1])]

@@ -7,13 +7,15 @@ Cluster-GCN paper). Each cluster's edge_index is remapped back to GLOBAL node id
 (dataset_handler.py:277-282), so clusters partition *edges* while the embedding
 tables stay global — exactly the contract our trainer keeps.
 
-METIS-free replacements, pure NumPy (the JAX package's NumPy path, array for
-array; its optional C++ binding with label-propagation refinement is not
-ported yet):
+METIS-free replacements:
 
   * :func:`partition_bipartite_greedy` (default) — degree-balanced user assignment
-    + majority-vote item assignment. One streaming pass, high intra-cluster edge
-    retention on power-law bipartite graphs; the spiritual METIS stand-in.
+    + majority-vote item assignment, then label-propagation refinement. High
+    intra-cluster edge retention on power-law bipartite graphs; the spiritual
+    METIS stand-in. It runs in the host graph runtime ``native/graphcore.cpp``
+    (``data/native.py``, built at first use); ``backend="numpy"`` asks for the
+    pure-NumPy path instead, which has the greedy pass and the balance pass
+    but NO refiner and keeps far fewer edges.
   * :func:`partition_edges_random` — uniform random edge partition: keeps every
     edge across the epoch (no cluster-GCN edge loss) at the cost of subgraph
     locality. Often trains better; offered as a config choice.
@@ -25,7 +27,7 @@ Both return, per cluster, a global-id edge array — feed to
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -53,13 +55,16 @@ def partition_bipartite_greedy(
     num_parts: int,
     seed: int = 0,
     balance_tol: float = 0.0,
+    backend: str = "native",
 ) -> List[np.ndarray]:
     """Partition nodes, keep intra-cluster edges (Cluster-GCN semantics).
 
     1. users are sorted by degree (desc) and dealt snake-wise over parts so user
        degree mass balances;
     2. each item joins the part holding the plurality of its edges;
-    3. edges survive iff part(user) == part(item) — mirrored edges (item→user)
+    3. (native backend) label-propagation refinement moves nodes towards the
+       part that holds most of their neighbours, under a capacity;
+    4. edges survive iff part(user) == part(item) — mirrored edges (item→user)
        survive symmetrically, so subgraphs stay undirected.
 
     ``balance_tol`` > 0 adds a kept-edge balance pass capping every part's
@@ -69,7 +74,7 @@ def partition_bipartite_greedy(
     u, it = forward_half(edge_index, num_users)
     part_of_user, part_of_item = partition_assignments(
         edge_index, num_users, num_nodes, num_parts, seed=seed,
-        balance_tol=balance_tol, uv=(u, it))
+        balance_tol=balance_tol, uv=(u, it), backend=backend)
     ep = part_of_user[u]
     keep = ep == part_of_item[it]
     u_k, it_k, p_k = u[keep], it[keep], ep[keep]
@@ -91,15 +96,45 @@ def partition_assignments(
     seed: int = 0,
     balance_tol: float = 0.0,
     uv: Tuple[np.ndarray, np.ndarray] = None,
+    refine_rounds: Optional[int] = None,
+    slack: Optional[float] = None,
+    backend: str = "native",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Node→part assignments (part_of_user, part_of_item) — the raw output of
     the greedy partitioner, exposed for consumers that need the node partition
     itself (e.g. hybrid block-diagonal propagation) rather than kept-edge
     subgraphs. ``uv`` optionally supplies a precomputed :func:`forward_half`
-    result to avoid a second O(E) pass."""
+    result to avoid a second O(E) pass.
+
+    ``backend="native"`` (default) runs ``native/graphcore.cpp`` through
+    ``data/native.py``: greedy init, ``refine_rounds`` (default 4) rounds of
+    label propagation under a capacity of ``slack`` (default 1.15) × the mean
+    part size, then the balance pass. It raises if the library cannot be
+    built or loaded; nothing falls back. ``backend="numpy"`` is the pure-NumPy
+    path: it has NO refiner, so ``refine_rounds``/``slack`` must be left
+    unset there, and on a power-law graph it keeps a small fraction of the
+    edges the native path keeps."""
     # operate on the user→item half; mirror at the end
     u, it = uv if uv is not None else forward_half(edge_index, num_users)
     num_items = num_nodes - num_users
+
+    if backend == "native":
+        from . import native
+
+        kw = {}
+        if refine_rounds is not None:
+            kw["refine_rounds"] = refine_rounds
+        if slack is not None:
+            kw["slack"] = slack
+        part_of_user, part_of_item, _ = native.partition_greedy(
+            u, it, num_users, num_items, num_parts, seed,
+            balance_tol=balance_tol, **kw)
+        return part_of_user, part_of_item
+    if backend != "numpy":
+        raise ValueError(f"unknown partition backend {backend!r}")
+    if refine_rounds is not None or slack is not None:
+        raise ValueError("backend='numpy' has no refiner: refine_rounds and "
+                         "slack apply to backend='native' only")
 
     u_deg = np.bincount(u, minlength=num_users)
     order = np.argsort(-u_deg, kind="stable")

@@ -1,12 +1,19 @@
-"""Build helper for the port's CUDA kernels: ``nvcc`` by hand into a shared
-library with a plain C interface, loaded with ``ctypes``.
+"""Build helper for the port's native code: a compiler run by hand into a
+shared library with a plain C interface, loaded with ``ctypes``.
 
-Each ``csrc/<name>.cu`` builds at first use into ``<package>/build/`` (listed
-in ``.gitignore``) as ``lib<name>-<hash>.so``, where the hash covers the
-source and the flags, so an edited source rebuilds and a stale library is
-never loaded. ``nvcc``'s output (``-Xptxas -v``: registers, shared memory,
-spills) is kept beside the library as ``.log``. A failed build raises with
-``nvcc``'s stderr.
+Two routes, one build directory:
+
+  * ``csrc/<name>.cu``, the CUDA kernels, through ``nvcc`` for ``sm_90a``;
+  * the host C++ sources named in :data:`HOST_SOURCES` (the graph runtime
+    ``native/graphcore.cpp``) through ``g++`` without ``-march=native``, so
+    the library runs on whatever host loads it.
+
+Each source builds at first use into ``<package>/build/`` (listed in
+``.gitignore``) as ``lib<name>-<hash>.so``, where the hash covers the source
+and the flags, so an edited source rebuilds and a stale library is never
+loaded. Nothing is written beside the sources. The compiler's output (for
+``nvcc``, ``-Xptxas -v``: registers, shared memory, spills) is kept beside the
+library as ``.log``. A failed build raises with the compiler's stderr.
 """
 
 from __future__ import annotations
@@ -18,13 +25,18 @@ import shutil
 import subprocess
 from collections import Counter
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")
+#: host C++ libraries by name: source path (everything else is csrc/<name>.cu)
+HOST_SOURCES: Dict[str, Path] = {
+    "graphcore": PACKAGE_DIR.parent / "native" / "graphcore.cpp",
+}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -44,16 +56,33 @@ def _nvcc() -> str:
     return str(cand)
 
 
+def _host_compiler() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if not found:
+        raise RuntimeError("no C++ compiler (g++, or $CXX) on PATH; it is "
+                           "needed to build the port's host graph runtime")
+    return found
+
+
+def _recipe(name: str) -> Tuple[Path, Tuple[str, ...]]:
+    """(source, flags) of a library; the compiler is looked up only when a
+    build is needed."""
+    if name in HOST_SOURCES:
+        return HOST_SOURCES[name], HOST_FLAGS
+    return CSRC / f"{name}.cu", NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for the current sources."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    """Where the library of ``name`` lives for the current source and flags."""
+    source, flags = _recipe(name)
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> Dict[str, Path]:
-    """Compile every named source whose library is missing, one ``nvcc`` per
-    source, all started together; returns {name: library path}."""
+    """Compile every named source whose library is missing, one compiler
+    process per source, all started together; returns {name: library path}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     for name in names:
@@ -61,7 +90,9 @@ def build(*names: str) -> Dict[str, Path]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        source, flags = _recipe(name)
+        compiler = _host_compiler() if name in HOST_SOURCES else _nvcc()
+        cmd: List[str] = [compiler, *flags, "-o", str(tmp), str(source)]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.PIPE, text=True),
                          tmp, out)
@@ -71,16 +102,16 @@ def build(*names: str) -> Dict[str, Path]:
         out.with_suffix(".log").write_text(stdout + stderr)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            errors.append(f"{name}: nvcc exited {proc.returncode}\n{stderr}")
+            errors.append(f"{name}: compiler exited {proc.returncode}\n{stderr}")
         else:
             os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
     if errors:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+        raise RuntimeError("native build failed:\n" + "\n".join(errors))
     return {name: library_path(name) for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``name``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)[name]))

@@ -1,4 +1,6 @@
-"""Exact two-phase MIPS top-k with a fused CUDA pass 1.
+"""MIPS top-k through the port's two hand-written scoring kernels.
+
+**Fused two-phase lane.**
 
 Pass 1, :func:`score_chunkmax`, is the hand-written kernel
 ``csrc/score_chunkmax.cu`` (it replaces the JAX package's
@@ -12,6 +14,17 @@ top-k. Exact by chunk containment (``ops/topk.py::twophase_select``).
 :func:`score_chunkmax_plain`, only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises. ``LAUNCHES["score_chunkmax"]`` counts kernel
 launches.
+
+**Per-block lane.** :func:`mips_block_topk` is the hand-written kernel
+``csrc/mips_block.cu`` (it replaces ``ops/pallas_mips.py::_mips_block_kernel``):
+per catalog block of ``block`` rows, the f32 scores of every query with pad
+columns and excluded items at ``NEG_INF``, and the block's top-k taken in the
+same kernel, the lowest column winning ties; only (nb, Q, k) candidates reach
+device memory. :func:`mips_topk_block` (the counterpart of
+``mips_topk_pallas``) normalizes, launches and merges the candidates with
+``ops/topk.py::merge_topk``. The plain version,
+:func:`mips_block_topk_plain`, is taken only for tensors on the CPU;
+``LAUNCHES["mips_block"]`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -25,7 +38,7 @@ import torch.nn.functional as F
 from ..utils.device import as_dtype
 from ._build import LAUNCHES
 from .bpr import normalize_embedding
-from .topk import NEG_INF, DTypeLike, _topk_lowest_first
+from .topk import NEG_INF, DTypeLike, _topk_lowest_first, merge_topk
 
 CHUNK = 128   # chunk width of pass 2 == the kernel's output tile edge
 _MASK_NONE, _MASK_INT8, _MASK_PACKED = 0, 1, 2
@@ -210,3 +223,125 @@ def mips_topk_fused(
     vs, vi = _topk_lowest_first(sel.reshape(nq, kc * CHUNK), k)
     chunk = torch.gather(ci, 1, vi // CHUNK)
     return vs.float(), chunk * CHUNK + vi % CHUNK
+
+
+# ---------------------------------------------------------------------------
+# per-block lane: scores and the block's top-k in one kernel
+# ---------------------------------------------------------------------------
+
+
+def mips_block_topk_plain(q: torch.Tensor, c: torch.Tensor, k: int,
+                          block: int = 4096, mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the per-block kernel, same arguments and
+    outputs: (scores (nb, Q, k) f32, global column ids (nb, Q, k) int32).
+
+    ``q @ c.T`` in f32 over the catalog padded to whole blocks, ``NEG_INF`` on
+    pad columns and where ``mask`` (Q, N) is non-zero, then each block's k
+    best by a stable descending sort (the lowest column wins ties). A rank
+    whose value is ``NEG_INF`` names the block's first column: the kernel's
+    k rounds of max-and-retire leave every column at ``NEG_INF`` once the
+    live ones are taken, and the lowest of them is the block's first."""
+    nq, n = q.shape[0], c.shape[0]
+    pad = (-n) % block
+    nb = (n + pad) // block
+    s = q.float() @ F.pad(c.float(), (0, 0, 0, pad)).T            # (Q, nb·block)
+    dead = (torch.arange(n + pad, device=q.device) >= n).expand(nq, -1)
+    if mask is not None:
+        dead = dead | F.pad(mask != 0, (0, pad))
+    s = s.masked_fill(dead, NEG_INF)
+    vs, pos = _topk_lowest_first(s.view(nq, nb, block), k)        # (Q, nb, k)
+    first = (torch.arange(nb, device=q.device) * block)[None, :, None]
+    idx = torch.where(vs == NEG_INF, first, pos + first)
+    return (vs.permute(1, 0, 2).contiguous(),
+            idx.permute(1, 0, 2).to(torch.int32).contiguous())
+
+
+def _block_library() -> ctypes.CDLL:
+    from . import _build
+
+    lib = _build.load("mips_block")
+    fn = lib.mips_block
+    if fn.argtypes is None:
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, p]
+        fn.restype = ctypes.c_int
+        lib.mips_block_error_string.argtypes = [ctypes.c_int]
+        lib.mips_block_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def mips_block_topk(q: torch.Tensor, c: torch.Tensor, k: int,
+                    block: int = 4096, mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-block scores and top-k in one launch: (scores (nb, Q, k) f32,
+    global column ids (nb, Q, k) int32), nb = ⌈N / block⌉.
+
+    q (Q, d), c (N, d): contiguous f32; ``mask`` (Q, N) one-byte, non-zero =
+    excluded; 1 ≤ k ≤ block. The score tile of 8 queries lives in shared
+    memory, so ``block`` is at most about 7,000 columns."""
+    if not 1 <= k <= block:
+        raise ValueError(f"need 1 <= k <= block, got k={k} block={block}")
+    if q.device.type == "cpu":
+        return mips_block_topk_plain(q, c, k, block, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"mips_block_topk runs on cuda or cpu tensors, got {q.device}")
+    nq, d = q.shape
+    n = c.shape[0]
+    for name, t in (("q", q), ("c", c)):
+        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != d
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be contiguous float32 (rows, {d}) on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if nq == 0 or n == 0:
+        raise ValueError(f"empty query or catalog: Q={nq} N={n}")
+    if mask is not None:
+        if (mask.dtype not in (torch.int8, torch.uint8, torch.bool)
+                or mask.shape != (nq, n) or not mask.is_contiguous()
+                or mask.device != q.device):
+            raise ValueError(f"mask must be contiguous one-byte ({nq}, {n}) on "
+                             f"{q.device}, got {mask.dtype} {tuple(mask.shape)}")
+    nb = -(-n // block)
+    os_ = torch.empty((nb, nq, k), dtype=torch.float32, device=q.device)
+    oi_ = torch.empty((nb, nq, k), dtype=torch.int32, device=q.device)
+    lib = _block_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mips_block(q.data_ptr(), c.data_ptr(),
+                             None if mask is None else mask.data_ptr(),
+                             os_.data_ptr(), oi_.data_ptr(), nq, n, d, k, block,
+                             stream)
+    if err != 0:
+        raise RuntimeError(f"mips_block launch failed: cudaError {err} "
+                           f"({lib.mips_block_error_string(err).decode()})")
+    LAUNCHES["mips_block"] += 1
+    return os_, oi_
+
+
+def mips_topk_block(
+    query: torch.Tensor,       # (Q, d)
+    catalog: torch.Tensor,     # (N, d)
+    k: int = 10,
+    block: int = 4096,
+    normalize: bool = True,
+    exclude_mask: Optional[torch.Tensor] = None,   # (Q, N) bool/int8 — 1 = exclude
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MIPS top-k through the per-block kernel; returns (scores (Q, k) f32,
+    indices (Q, k) int64).
+
+    Same signature and semantics as the JAX package's
+    ``ops/pallas_mips.py::mips_topk_pallas``: rows normalized in f32, exact
+    f32 scores, each block's candidates merged by
+    :func:`ops.topk.merge_topk`. The (Q, N) score matrix never reaches device
+    memory."""
+    q = normalize_embedding(query) if normalize else query
+    c = normalize_embedding(catalog) if normalize else catalog
+    mask = None
+    if exclude_mask is not None:
+        mask = exclude_mask.contiguous()
+        if mask.dtype not in (torch.int8, torch.uint8, torch.bool):
+            mask = mask.to(torch.int8)
+    os_, oi_ = mips_block_topk(q.float().contiguous(), c.float().contiguous(), k,
+                               block=block, mask=mask)
+    vs, vi = merge_topk(os_, oi_, k)
+    return vs, vi.long()

@@ -69,17 +69,26 @@ def mips_topk(
                        (Q, k + block) merge: no (Q, N) intermediate;
       * ``auto``     — twophase while the (Q, N) score matrix fits
                        ``max_flat_bytes``, else blocked;
-      * ``pallas``   — not ported (ROADMAP queue B, kernel B3): raises.
+      * ``pallas``   — the hand-written per-block CUDA kernel (scores and the
+                       block's top-k in one launch, ``block`` 4096 by default;
+                       ``ops/cuda_mips.py::mips_topk_block``), candidates
+                       merged by :func:`merge_topk`; exact f32. The name is
+                       the JAX package's, so configs and calls carry over.
 
     ``score_dtype`` ("bfloat16", "float32" or a torch dtype) scores in that
     type after the f32 normalization; the top-k is exact w.r.t. those scores.
     """
     sd = as_dtype(score_dtype)
     if method == "pallas":
-        raise NotImplementedError(
-            "method='pallas' needs the per-block top-k kernel "
-            "(ops/pallas_mips.py::_mips_block_kernel of the JAX package), "
-            "which is not ported yet: ROADMAP queue B, kernel B3")
+        if sd is not None:
+            # the kernel scores in f32; handing it f32 operands after a bf16
+            # request would misreport the numerics
+            raise ValueError("score_dtype is not supported with method='pallas' "
+                             "(the kernel fixes its own compute dtype)")
+        from .cuda_mips import mips_topk_block
+
+        return mips_topk_block(query, catalog, k=k, block=block or 4096,
+                               normalize=normalize, exclude_mask=exclude_mask)
     if method == "fused":
         if block is not None:
             raise ValueError("method='fused' tiles internally; 'block' "

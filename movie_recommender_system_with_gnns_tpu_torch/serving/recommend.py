@@ -11,6 +11,8 @@ batch (JAX package ``serving/recommend.py``).
 
 Batched serving (:class:`ServingIndex`, :func:`batch_recommend_users`) runs
 the fused lane (``ops/cuda_mips.py``) when the tables are on the GPU.
+:func:`compute_serving_tables` offers the LightGCN-paper protocol besides:
+tables propagated over the train graph before scoring.
 """
 
 from __future__ import annotations
@@ -31,22 +33,67 @@ _MASK_TILE = 2048
 _BUILD_ROWS = 32768
 
 
-def compute_serving_tables(params: LightGCNParams, train_edges=None, cfg=None,
-                           mode: str = "layer0") -> LightGCNParams:
-    """Embedding tables used for retrieval scoring.
+def compute_serving_tables(
+    params: LightGCNParams,
+    train_edges: Optional[np.ndarray] = None,
+    cfg=None,
+    mode: str = "layer0",
+    chunk_budget_bytes: int = 2 << 30,
+    mesh=None,
+) -> LightGCNParams:
+    """Embedding tables used for retrieval scoring, on the device of ``params``.
 
-    ``mode='layer0'`` is the reference contract: the raw trained tables.
-    ``mode='propagated'`` (tables propagated over the train graph) is not
-    ported yet and raises.
+    ``mode='layer0'`` (default) is the reference contract: the raw trained
+    tables. ``mode='propagated'`` runs the K-layer propagation over the train
+    graph first (the LightGCN-paper serving protocol), with
+    ``cfg.model.num_layers`` and ``cfg.model.readout``.
+
+    Tables on a CUDA device propagate through the degree-bucketed ELL layout
+    and the hand-written SpMM kernel (``ops/cuda_spmm.py``), which gathers rows
+    and builds no (E, d) message tensor. Tables on the CPU propagate through
+    ``spmm_segment``, in edge chunks once the message tensor would exceed
+    ``chunk_budget_bytes``. ``mesh`` (sharded propagation) is not ported.
     """
     if mode == "layer0":
         return params
-    if mode == "propagated":
+    if mode != "propagated":
+        raise ValueError(f"unknown serving mode {mode!r}")
+    if train_edges is None or cfg is None:
+        raise ValueError("propagated serving needs train_edges + cfg")
+    if mesh is not None:
         raise NotImplementedError(
-            "propagated serving tables (LightGCN propagation over the train "
-            "graph) are not ported yet (ROADMAP queue A, eval and the rest of "
-            "serving)")
-    raise ValueError(f"unknown serving mode {mode!r}")
+            "mesh-sharded propagation is not ported to the PyTorch package "
+            "(ROADMAP queue A 8: multi-device paths)")
+    from ..models.lightgcn import propagate
+
+    dev = params.user_emb.device
+    n = params.user_emb.shape[0] + params.item_emb.shape[0]
+    d = params.user_emb.shape[1]
+    e = train_edges.shape[1]
+    if dev.type == "cuda":
+        from ..data.graph import EllGraph
+        from ..ops.cuda_spmm import select_spmm
+        from ..ops.spmm import DeviceELL
+
+        graph = DeviceELL.from_host(EllGraph.build(train_edges, n), dev)
+        spmm = select_spmm(n, d)
+    else:
+        from ..data.graph import COOGraph
+        from ..ops.spmm import DeviceCOO, make_spmm_chunked, spmm_segment
+
+        chunks = max(1, int(np.ceil(e * d * 4 / chunk_budget_bytes)))
+        if chunks > 1:
+            per = -(-e // chunks)
+            per = ((per + 127) // 128) * 128
+            graph = DeviceCOO.from_host(
+                COOGraph.build(train_edges, n, pad_to=per * chunks), dev)
+            spmm = make_spmm_chunked(chunks)
+        else:
+            graph = DeviceCOO.from_host(COOGraph.build(train_edges, n), dev)
+            spmm = spmm_segment
+    fu, fi = propagate(params, graph, spmm, cfg.model.num_layers,
+                       cfg.model.readout)
+    return LightGCNParams(fu, fi)
 
 
 def _exclusion_mask(num_cols: int, excluded: Optional[Sequence[int]],

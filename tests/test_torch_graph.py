@@ -1,9 +1,10 @@
 """Host graph, partition and cluster arrays of the port against the JAX
 package's: the same numpy inputs must give equal arrays, element for element.
 
-The JAX package takes its native partitioner when the library is built; the
-port carries the NumPy path, so these tests switch the JAX package to its
-NumPy path (``torch_parity.numpy_partitioner``) before comparing partitions.
+Both packages partition natively by default (``tests/test_torch_native.py``
+holds those assignments equal). The NumPy path is compared here: the JAX
+package is switched to it (``torch_parity.numpy_partitioner``) and the port is
+asked for it with ``backend="numpy"``.
 """
 
 import numpy as np
@@ -92,10 +93,12 @@ def test_partition_greedy_numpy_path(data, monkeypatch, num_parts, balance_tol):
     n = data.num_users + data.num_items
     kw = dict(seed=1, balance_tol=balance_tol)
     for a, b in zip(
-            tpart.partition_assignments(data.edge_index, data.num_users, n, num_parts, **kw),
+            tpart.partition_assignments(data.edge_index, data.num_users, n, num_parts,
+                                        backend="numpy", **kw),
             jpart.partition_assignments(data.edge_index, data.num_users, n, num_parts, **kw)):
         _assert_same(a, b)
-    tp = tpart.partition_bipartite_greedy(data.edge_index, data.num_users, n, num_parts, **kw)
+    tp = tpart.partition_bipartite_greedy(data.edge_index, data.num_users, n, num_parts,
+                                          backend="numpy", **kw)
     jp = jpart.partition_bipartite_greedy(data.edge_index, data.num_users, n, num_parts, **kw)
     assert len(tp) == len(jp) == num_parts
     for a, b in zip(tp, jp):

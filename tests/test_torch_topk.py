@@ -4,7 +4,9 @@ mode; the port's fused lane runs its kernel's plain version (CPU tensors).
 
 Tolerances: f32 scores within rtol 1e-6 (the two frameworks sum the products
 in different orders, which moves a score by an ulp or so) and identical
-indices; bf16 as in ``torch_parity.assert_topk_bf16_close``.
+indices; bf16 as in ``torch_parity.assert_topk_bf16_close``. The per-block
+lane (``method="pallas"``) is held to the Pallas kernel run in interpret mode:
+indices equal, scores within 1e-5.
 """
 
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ from movie_recommender_system_with_gnns_tpu.ops import topk as J
 from movie_recommender_system_with_gnns_tpu.ops.pallas_mips import (
     mips_topk_fused as j_fused,
 )
+from movie_recommender_system_with_gnns_tpu.ops.pallas_mips import mips_topk_pallas
 from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_mips
 from movie_recommender_system_with_gnns_tpu_torch.ops import topk as T
 from torch_parity import assert_topk_bf16_close
@@ -169,8 +172,10 @@ def test_full_sort_scores_matches_jax(rng):
 
 def test_unported_and_rejected_options(rng):
     q, c, _ = _inputs(rng, 4, 100, 8)
-    with pytest.raises(NotImplementedError, match="kernel B3"):
-        T.mips_topk(_t(q), _t(c), k=3, method="pallas")
+    with pytest.raises(ValueError, match="score_dtype is not supported"):
+        T.mips_topk(_t(q), _t(c), k=3, method="pallas", score_dtype="bfloat16")
+    with pytest.raises(ValueError, match="k <= block"):
+        T.mips_topk(_t(q), _t(c), k=65, method="pallas", block=64)
     with pytest.raises(ValueError):
         T.mips_topk(_t(q), _t(c), k=3, method="fused", block=64)
     with pytest.raises(ValueError):
@@ -198,3 +203,61 @@ def test_score_chunkmax_plain_semantics(rng):
     assert torch.equal(s[:, 8:200], ref[:, 8:200])
     with pytest.raises(ValueError, match="cuda or cpu"):
         cuda_mips.score_chunkmax(q.bfloat16().to("meta"), c.bfloat16().to("meta"), 200)
+
+
+@pytest.mark.parametrize("case", ["plain", "ragged", "masked", "ties", "starved", "k1", "k100"])
+def test_block_topk_matches_pallas_interpret(rng, case):
+    """``method="pallas"`` on CPU tensors (the kernel's plain version) against
+    ``mips_topk_pallas`` in interpret mode: a catalog that is no multiple of
+    the block, an exclusion mask that bans each query's best item, exact ties
+    (duplicated catalog rows: the lowest index must come first), and rows with
+    fewer than k live columns (the dead ranks repeat the first block's first
+    column, as the kernel's loop leaves them)."""
+    n = 300 if case != "ragged" else 333
+    k = {"k1": 1, "k100": 100}.get(case, 7)
+    q, c, mask = _inputs(rng, 9, n, 16)
+    m = None
+    if case == "masked":
+        m = mask
+    if case == "ties":
+        c[150] = c[3]
+        c[290] = c[3]
+        c[64] = c[65]
+    if case == "starved":
+        m = np.ones((9, n), bool)
+        m[:, [5, 140, 141]] = False      # three live columns, k = 7
+        m[4] = True                      # and one query with none at all
+    s_j, i_j = mips_topk_pallas(jnp.asarray(q), jnp.asarray(c), k=k, block=128,
+                                exclude_mask=None if m is None else jnp.asarray(m))
+    s_t, i_t = T.mips_topk(_t(q), _t(c), k=k, block=128, method="pallas",
+                           exclude_mask=None if m is None else _t(m))
+    assert s_t.dtype == torch.float32 and i_t.dtype == torch.int64
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=0, atol=1e-5)
+    assert (i_t.numpy() < n).all()
+    if case == "masked":
+        assert not m[np.arange(9)[:, None], i_t.numpy()].any()
+    if case == "starved":
+        assert (s_t[4] == T.NEG_INF).all() and (i_t[4] == 0).all()
+        assert sorted(i_t[0, :3].tolist()) == [5, 140, 141]
+
+
+def test_block_topk_plain_layout_and_flat_agreement(rng):
+    """The per-block candidates: (nb, Q, k) f32 scores and int32 GLOBAL column
+    ids, each block's own best first; merged, they equal the flat top-k."""
+    q, c, mask = _inputs(rng, 6, 500, 8)
+    qn = torch.nn.functional.normalize(_t(q))
+    cn = torch.nn.functional.normalize(_t(c))
+    os_, oi_ = cuda_mips.mips_block_topk(qn, cn, 4, block=128, mask=_t(mask).to(torch.int8))
+    assert os_.shape == oi_.shape == (4, 6, 4)
+    assert os_.dtype == torch.float32 and oi_.dtype == torch.int32
+    for j in range(4):
+        live = os_[j] > T.NEG_INF
+        assert ((oi_[j] >= 128 * j) & (oi_[j] < 128 * (j + 1)))[live].all()
+    assert (os_[:, :, :-1] >= os_[:, :, 1:]).all()
+    s_b, i_b = T.mips_topk(_t(q), _t(c), k=4, block=128, method="pallas", exclude_mask=_t(mask))
+    s_f, i_f = T.mips_topk(_t(q), _t(c), k=4, method="flat", exclude_mask=_t(mask))
+    assert torch.equal(i_b, i_f)
+    np.testing.assert_allclose(s_b.numpy(), s_f.numpy(), rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cuda_mips.mips_block_topk(qn.to("meta"), cn.to("meta"), 4)

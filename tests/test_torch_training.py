@@ -27,7 +27,7 @@ from movie_recommender_system_with_gnns_tpu_torch.training import pipeline as tp
 from movie_recommender_system_with_gnns_tpu_torch.training import train as ttrain
 from movie_recommender_system_with_gnns_tpu_torch.training.compact import CompactClusters
 
-from torch_parity import CLUSTER_FIELDS, both_params, numpy_partitioner, to_np
+from torch_parity import CLUSTER_FIELDS, both_params, to_np
 
 
 @pytest.mark.parametrize("grad_scale", [1e-3, 30.0])
@@ -85,8 +85,7 @@ def _pipeline_cfgs(tmp_path, trainer, **train):
                     model=TModel(**model), train=TTrain(**train)))
 
 
-def test_prepare_training_data_compact_matches_jax(tmp_path, monkeypatch):
-    numpy_partitioner(monkeypatch)
+def test_prepare_training_data_compact_matches_jax(tmp_path):
     cfg_j, cfg_t = _pipeline_cfgs(tmp_path, "compact", dense_adjacency_max_nodes=4096)
     bj = jpipe.prepare_training_data(cfg_j)
     bt = tpipe.prepare_training_data(cfg_t, device="cpu")
@@ -123,10 +122,9 @@ def test_prepare_training_data_routes(tmp_path):
             tpipe.prepare_training_data(cfg.replace(train=TTrain(**bad)), device="cpu")
 
 
-def test_full_node_steps_match_jax(tmp_path, monkeypatch):
+def test_full_node_steps_match_jax(tmp_path):
     """Five full-node train steps from the same tables, batches and injected
     negatives: parameters within 1e-5 after every step."""
-    numpy_partitioner(monkeypatch)
     cfg_j, cfg_t = _pipeline_cfgs(tmp_path, "full")
     bj = jpipe.prepare_training_data(cfg_j)
     bt = tpipe.prepare_training_data(cfg_t, device="cpu")
@@ -285,8 +283,7 @@ def test_cli_train_then_recommend(tmp_path, capsys, extra):
     assert capsys.readouterr().out == out_t and "Top 10" in out_t
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2x2"], ["--max-retries", "1"],
-                                   ["--full-eval"]])
+@pytest.mark.parametrize("flags", [["--mesh", "2x2"], ["--max-retries", "1"]])
 def test_cli_train_unported_flags(tmp_path, capsys, flags):
     assert tcli.main(["--device", "cpu"] + _cli_args(tmp_path, "train", *flags)) == 2
     assert "not ported" in capsys.readouterr().err

@@ -73,8 +73,9 @@ def both_params(num_users, num_items, dim, seed=0, std=0.1):
 
 
 def numpy_partitioner(monkeypatch):
-    """Make the JAX package take its NumPy partitioner (the port's
-    counterpart) instead of the native library, for the current test only."""
+    """Make the JAX package take its NumPy partitioner instead of the native
+    library, for the current test only; the port's counterpart is
+    ``backend="numpy"``."""
     from movie_recommender_system_with_gnns_tpu.data import native
 
     monkeypatch.setattr(native, "available", lambda: False)

@@ -12,9 +12,12 @@ Phases:
      source) and the host graph runtime (``g++``), all started together;
   3. each kernel against its plain PyTorch version. ``score_chunkmax``: random
      normalized inputs, d in {64, 128, 256}, ragged N, masks none / int8 /
-     packed, bf16 and f32. ``bpr_tile``: d in {16, 64, 128, 256}, both losses,
-     ragged B, negatives all / none / partly in the cluster, one user in most
-     triplets, a masked tail, four negatives per positive, and the run-to-run
+     packed, bf16 and f32; then the bf16 lane at n_tile 1024, 3072 and 4096,
+     one 128-row band, a band count that does not divide over the SMs, d in
+     {8, 24, 320} and a last valid column inside a mask tile. ``bpr_tile``: d
+     in {16, 64, 128, 256}, both losses, ragged B, negatives all / none /
+     partly in the cluster, one user in most triplets, a masked tail, four
+     negatives per positive, and the run-to-run
      difference of two launches (the table gradients are summed by atomics).
      ``ell_spmm``: d in {16, 64, 100, 256}, f32 and bf16 tables, a graph with
      an isolated node and a hub whose bucket is grown to the max degree,
@@ -32,8 +35,9 @@ Phases:
      they fit the configured width (the segment path otherwise), then
      ``train_model`` for 2 epochs (compact trainer, fused BPR kernel, Adam,
      L = 3, d = 64) with the best-val checkpoint; one cluster's gradients
-     through the kernel against the plain route; a third, timed epoch and a
-     profiled window of steps;
+     through the kernel against the plain route (both on the f32 segment
+     path), and through its dense bf16 block against the segment path; a
+     third, timed epoch and a profiled window of steps;
   5b. eval and propagated serving at the same width, with the checkpoint of
      phase 5: ``compute_serving_tables(mode="propagated")`` through the ELL
      SpMM kernel against ``spmm_segment`` propagation, ``evaluate_full_ranking``
@@ -116,7 +120,9 @@ EVAL = dict(max_users=10_000, block_users=256, host_users=1_000)
 
 def check(cond, msg: str) -> None:
     if not cond:
+        # on both streams: a caller that keeps only one of them still sees why
         print(f"FAIL: {msg}", flush=True)
+        print(f"FAIL: {msg}", file=sys.stderr, flush=True)
         raise SystemExit(1)
 
 
@@ -168,67 +174,96 @@ def check_topk(s_k, i_k, s_ref, i_ref, dtype, d, what: str) -> int:
     return int(diff.any(dim=1).sum())
 
 
-def kernel_phase() -> float:
-    """Phase 3: kernel vs plain version at three depths, ragged N, three mask
-    modes, two score types. Returns the largest |kernel - plain| score."""
+def chunkmax_case(gen, d: int, nq: int, n: int, n_tile: int, dtypes, qp: int = 0,
+                  topk: bool = True) -> float:
+    """``score_chunkmax`` against its plain version on random normalized
+    inputs, masks none / int8 / packed, each dtype; then (``topk``) the whole
+    fused lane against its plain run on the host. Qp is ``qp`` (default: nq
+    rounded up to 128), Np is n rounded up to ``n_tile``. Returns the largest
+    |kernel - plain| score."""
     from movie_recommender_system_with_gnns_tpu_torch.ops.bpr import normalize_embedding
     from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_mips import (
         mips_topk_fused, score_chunkmax, score_chunkmax_plain)
     from movie_recommender_system_with_gnns_tpu_torch.ops.topk import (
         NEG_INF, pack_mask_tiles)
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    nq, n, n_tile, k = 1000, 3001, 2048, TOP_K
-    qp, np_ = 1024, 4096
+    pad = torch.nn.functional.pad
+    k = TOP_K
+    qp = qp or -(-nq // 128) * 128
+    np_ = -(-n // n_tile) * n_tile
+    q = torch.randn(nq, d, device="cuda", generator=gen)
+    c = torch.randn(n, d, device="cuda", generator=gen)
+    dense = torch.rand(nq, n, device="cuda", generator=gen) < 0.1
+    rows, cols = dense.nonzero(as_tuple=True)
+    packed = pack_mask_tiles(rows, cols, nq, n, n_tile)
+    int8 = dense.to(torch.int8)
     worst = 0.0
-    for d in (64, 128, 256):
-        q = torch.randn(nq, d, device="cuda", generator=gen)
-        c = torch.randn(n, d, device="cuda", generator=gen)
-        dense = torch.rand(nq, n, device="cuda", generator=gen) < 0.1
-        rows, cols = dense.nonzero(as_tuple=True)
-        packed = pack_mask_tiles(rows, cols, nq, n, n_tile)
-        int8 = dense.to(torch.int8)
-        for dtype in (torch.bfloat16, torch.float32):
-            qn = torch.nn.functional.pad(normalize_embedding(q).to(dtype), (0, 0, 0, qp - nq))
-            cn = torch.nn.functional.pad(normalize_embedding(c).to(dtype), (0, 0, 0, np_ - n))
-            for mode in ("none", "int8", "packed"):
-                what = f"d={d} {str(dtype)[6:]} mask={mode}"
-                kw = {}
-                if mode == "int8":
-                    kw["mask"] = torch.nn.functional.pad(int8, (0, np_ - n, 0, qp - nq))
-                elif mode == "packed":
-                    kw["mask_packed"] = torch.nn.functional.pad(packed, (0, 0, 0, qp - nq))
-                s_k, cm_k = score_chunkmax(qn, cn, n, n_tile=n_tile, **kw)
-                s_p, cm_p = score_chunkmax_plain(qn, cn, n, n_tile=n_tile, **kw)
-                torch.cuda.synchronize()
-                a, b = s_k.float(), s_p.float()
-                err = (a - b).abs()
-                check(bool((err <= score_tol(a, b, dtype, d)).all()),
-                      f"{what}: scores beyond one ulp of the plain version "
-                      f"(max |diff| {err.max().item():.3e})")
-                check(torch.equal(cm_k, s_k.view(qp, -1, 128).amax(-1)),
-                      f"{what}: chunk max is not the max of the stored tile")
-                banned = (torch.nn.functional.pad(int8, (0, np_ - n, 0, qp - nq)) != 0
-                          if mode != "none" else None)
-                neg = torch.tensor(NEG_INF, dtype=dtype).item()
-                pad_ok = bool((a[:, n:] == neg).all())
-                mask_ok = banned is None or bool((a[banned] == neg).all())
-                check(pad_ok and mask_ok, f"{what}: pad or masked column not NEG_INF")
-                worst = max(worst, err.max().item())
+    for dtype in dtypes:
+        qn = pad(normalize_embedding(q).to(dtype), (0, 0, 0, qp - nq))
+        cn = pad(normalize_embedding(c).to(dtype), (0, 0, 0, np_ - n))
+        for mode in ("none", "int8", "packed"):
+            what = (f"d={d} Q={nq} (Qp {qp}) N={n} (Np {np_}) n_tile={n_tile} "
+                    f"{str(dtype)[6:]} mask={mode}")
+            kw = {}
+            if mode == "int8":
+                kw["mask"] = pad(int8, (0, np_ - n, 0, qp - nq))
+            elif mode == "packed":
+                kw["mask_packed"] = pad(packed, (0, 0, 0, qp - nq))
+            s_k, cm_k = score_chunkmax(qn, cn, n, n_tile=n_tile, **kw)
+            s_p, cm_p = score_chunkmax_plain(qn, cn, n, n_tile=n_tile, **kw)
+            torch.cuda.synchronize()
+            a, b = s_k.float(), s_p.float()
+            err = (a - b).abs()
+            check(bool((err <= score_tol(a, b, dtype, d)).all()),
+                  f"{what}: scores beyond one ulp of the plain version "
+                  f"(max |diff| {err.max().item():.3e})")
+            check(torch.equal(cm_k, s_k.view(qp, -1, 128).amax(-1)),
+                  f"{what}: chunk max is not the max of the stored tile")
+            banned = (pad(int8, (0, np_ - n, 0, qp - nq)) != 0 if mode != "none" else None)
+            neg = torch.tensor(NEG_INF, dtype=dtype).item()
+            pad_ok = bool((a[:, n:] == neg).all())
+            mask_ok = banned is None or bool((a[banned] == neg).all())
+            check(pad_ok and mask_ok, f"{what}: pad or masked column not NEG_INF")
+            worst = max(worst, err.max().item())
+            msg = f"[kernel] {what}: max |s - plain| {err.max().item():.3e}, cm exact"
+            if topk:
                 # top-k through the whole fused lane vs its plain run on the host
                 mk = {} if mode == "none" else (
                     {"exclude_mask": int8} if mode == "int8" else
                     {"exclude_mask_packed": packed})
-                s_t, i_t = mips_topk_fused(q, c, k=k, score_dtype=dtype, **mk)
-                s_r, i_r = mips_topk_fused(q.cpu(), c.cpu(), k=k + 1, score_dtype=dtype,
+                s_t, i_t = mips_topk_fused(q, c, k=k, n_tile=n_tile, score_dtype=dtype, **mk)
+                s_r, i_r = mips_topk_fused(q.cpu(), c.cpu(), k=k + 1, n_tile=n_tile,
+                                           score_dtype=dtype,
                                            **{key: v.cpu() for key, v in mk.items()})
                 swaps = check_topk(s_t.cpu(), i_t.cpu(), s_r, i_r, dtype, d, what)
                 check(bool((i_t < n).all()), f"{what}: a pad column was returned")
                 if mode != "none":
                     check(not bool(dense.gather(1, i_t).any()),
                           f"{what}: an excluded item was returned")
-                log(f"[kernel] {what}: max |s - plain| {err.max().item():.3e}, "
-                    f"cm exact, top-{k} ok ({swaps} rows with near-tie swaps)")
+                msg += f", top-{k} ok ({swaps} rows with near-tie swaps)"
+            log(msg)
+    return worst
+
+
+def kernel_phase() -> float:
+    """Phase 3, kernel B2: kernel vs plain version at three depths, ragged N,
+    three mask modes, two score types; then the bf16 lane's edges: n_tile
+    1024, 3072 (one mask window per work unit) and 4096, one 128-row band
+    (fewer work units than SMs), a band count that does not divide over the
+    persistent blocks, d = 8 and 24 (TMA zero fill of the depth), d = 320
+    (band streamed, not resident) and N whose last valid column lies inside a
+    mask tile. Returns the largest |kernel - plain| score."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    both = (torch.bfloat16, torch.float32)
+    worst = 0.0
+    for d in (64, 128, 256):
+        worst = max(worst, chunkmax_case(gen, d, 1000, 3001, 2048, both, qp=1024))
+    bf16 = (torch.bfloat16,)
+    for d, nq, n, n_tile in ((64, 1000, 3001, 1024), (64, 100, 3001, 2048),
+                             (64, 1000, 5000, 4096), (64, 1000, 5000, 3072),
+                             (24, 17_000, 3001, 2048),
+                             (8, 1000, 5000, 2048), (320, 1000, 3001, 1024)):
+        worst = max(worst, chunkmax_case(gen, d, nq, n, n_tile, bf16, topk=nq <= 1000))
     return worst
 
 
@@ -927,8 +962,9 @@ def main() -> int:
             f"{[round(1e3 * t, 3) for t in times]} ms), "
             f"{DISPATCH / ms * 1e3:.0f} queries/s")
         log(f"[path] kernel launches on the serving path: {serve_launches}")
-        check(serve_launches.get("score_chunkmax", 0) > 0,
-              "score_chunkmax never launched on the serving path")
+        check(serve_launches.get("score_chunkmax", 0) == DISPATCHES + 1,
+              f"score_chunkmax launched {serve_launches.get('score_chunkmax', 0)} times "
+              f"for {DISPATCHES + 1} dispatches, not once each")
 
         # outputs: shape, finite, sorted, valid, not train-seen, plain agreement
         for users, s, i in outs:
@@ -1067,26 +1103,30 @@ def main() -> int:
         log(f"[train] train loss {hist['train_loss']}, val loss {hist['val_loss']}, "
             f"val recall {hist['val_recall']}, test recall {hist['test_recall']}")
 
-        # one cluster's gradients: the kernel route against the plain route
+        # one cluster's gradients: the kernel route against the plain route,
+        # both through the segment path, so that every step is f32 and the
+        # two differ only in summation order. (Through a bf16 adjacency the
+        # backward rounds the cotangent to bf16, and an f32 difference of one
+        # ulp between the atomics' orders can flip that rounding: a one-bf16-ulp
+        # difference that says nothing of the kernel.)
         cfg_plain = cfg.replace(train=TrainConfig(fused_bpr=False))
         adj_of = lambda c: None if cc.adj is None else cc.adj[c]
         gen_c = torch.Generator(device="cuda").manual_seed(SEED + 2)
         c_id = 7
         neg = sample_negative(gen_c, width, data.num_items)
         l_k, g_k = loss_and_grads(compact.compact_cluster_loss, state.params,
-                                  cc.cluster(c_id), neg, cfg, cc.u_pad, cc.i_pad,
-                                  adj_of(c_id))
-        l_p, g_p = loss_and_grads(compact.compact_cluster_loss, state.params,
+                                  cc.cluster(c_id), neg, cfg, cc.u_pad, cc.i_pad, None)
+        l_s, g_s = loss_and_grads(compact.compact_cluster_loss, state.params,
                                   cc.cluster(c_id), neg, cfg_plain, cc.u_pad,
-                                  cc.i_pad, adj_of(c_id))
-        ru, ri = rel_max(g_k.user_emb, g_p.user_emb), rel_max(g_k.item_emb, g_p.item_emb)
-        check(abs(l_k.item() - l_p.item()) <= 1e-5 * abs(l_p.item()) and ru < 1e-4
+                                  cc.i_pad, None)
+        ru, ri = rel_max(g_k.user_emb, g_s.user_emb), rel_max(g_k.item_emb, g_s.item_emb)
+        check(abs(l_k.item() - l_s.item()) <= 1e-5 * abs(l_s.item()) and ru < 1e-4
               and ri < 1e-4, f"cluster {c_id}: kernel route loss {l_k.item()!r} vs "
-              f"plain {l_p.item()!r}, grad rel err user {ru:.3e} item {ri:.3e}")
-        log(f"[train] cluster {c_id} step gradients, kernel route vs plain route: "
-            f"loss {l_k.item():.6f} vs {l_p.item():.6f}, rel err user {ru:.3e}, "
-            f"item {ri:.3e}")
-        del g_k, g_p
+              f"plain {l_s.item()!r}, grad rel err user {ru:.3e} item {ri:.3e}")
+        log(f"[train] cluster {c_id} step gradients, kernel route vs plain route "
+            f"(segment path, f32): loss {l_k.item():.6f} vs {l_s.item():.6f}, "
+            f"rel err user {ru:.3e}, item {ri:.3e}")
+        del g_k
 
         # the same cluster through a dense bf16 adjacency block (f32 result
         # from torch.mm's out_dtype) against the segment path: bf16 operand
@@ -1099,9 +1139,6 @@ def main() -> int:
         l_d, g_d = loss_and_grads(compact.compact_cluster_loss, state.params,
                                   cc.cluster(c_id), neg, cfg_plain, cc.u_pad,
                                   cc.i_pad, one.adj[0])
-        l_s, g_s = loss_and_grads(compact.compact_cluster_loss, state.params,
-                                  cc.cluster(c_id), neg, cfg_plain, cc.u_pad,
-                                  cc.i_pad, None)
         ri = rel_max(g_d.item_emb, g_s.item_emb)
         check(abs(l_d.item() - l_s.item()) < 5e-4 and ri < 5e-2,
               f"dense bf16 adjacency vs segment path: loss {l_d.item()!r} vs "

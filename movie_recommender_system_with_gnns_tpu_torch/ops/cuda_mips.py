@@ -30,6 +30,7 @@ device memory. :func:`mips_topk_block` (the counterpart of
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -83,11 +84,18 @@ def _library() -> ctypes.CDLL:
     fn = lib.score_chunkmax
     if fn.argtypes is None:
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [p, p, p, i32, i64, i32, p, p, i64, i64, i32, i64, i32, p]
+        fn.argtypes = [p, p, p, i32, i64, i32, p, p, i64, i64, i32, i64, i32, i32, p]
         fn.restype = ctypes.c_int
         lib.score_chunkmax_error_string.argtypes = [ctypes.c_int]
         lib.score_chunkmax_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: torch.device) -> int:
+    """SM count of a CUDA device: the bf16 lane runs one persistent block on
+    each SM."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def score_chunkmax(q: torch.Tensor, c: torch.Tensor, n: int,
@@ -117,8 +125,8 @@ def score_chunkmax(q: torch.Tensor, c: torch.Tensor, n: int,
     if qp % CHUNK or np_ % CHUNK or d % 8 or not 0 < n <= np_:
         raise ValueError(f"need Qp, Np multiples of {CHUNK}, d a multiple of 8 "
                          f"and 0 < n <= Np; got Qp={qp} Np={np_} d={d} n={n}")
-    if qp // CHUNK > 65535:
-        raise ValueError(f"Qp={qp} exceeds the grid's {65535 * CHUNK} rows")
+    if q.dtype == torch.float32 and qp // CHUNK > 65535:
+        raise ValueError(f"Qp={qp} exceeds the f32 lane's grid of {65535 * CHUNK} rows")
     for t in (q, c):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("q and c must be contiguous and 16-byte aligned")
@@ -153,9 +161,9 @@ def score_chunkmax(q: torch.Tensor, c: torch.Tensor, n: int,
         err = lib.score_chunkmax(
             q.data_ptr(), c.data_ptr(), None if m is None else m.data_ptr(),
             mode, ld, n_tile, s.data_ptr(), cm.data_ptr(), qp, np_, d, n,
-            int(q.dtype == torch.bfloat16), stream)
+            int(q.dtype == torch.bfloat16), _num_sms(q.device), stream)
     if err != 0:
-        raise RuntimeError(f"score_chunkmax launch failed: cudaError {err} "
+        raise RuntimeError(f"score_chunkmax launch failed: error {err} "
                            f"({lib.score_chunkmax_error_string(err).decode()})")
     LAUNCHES["score_chunkmax"] += 1
     return s, cm

@@ -9,19 +9,29 @@ lane (``method="pallas"``) is held to the Pallas kernel run in interpret mode:
 indices equal, scores within 1e-5.
 """
 
+import functools
+import importlib.util
+from pathlib import Path
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from movie_recommender_system_with_gnns_tpu.ops import topk as J
 from movie_recommender_system_with_gnns_tpu.ops.pallas_mips import (
     mips_topk_fused as j_fused,
 )
-from movie_recommender_system_with_gnns_tpu.ops.pallas_mips import mips_topk_pallas
-from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_mips
+from movie_recommender_system_with_gnns_tpu.ops.pallas_mips import (
+    _score_chunkmax_kernel,
+    mips_topk_pallas,
+)
+from movie_recommender_system_with_gnns_tpu_torch.ops import _build, cuda_mips
 from movie_recommender_system_with_gnns_tpu_torch.ops import topk as T
-from torch_parity import assert_topk_bf16_close
+from torch_parity import assert_topk_bf16_close, bf16_ulp
 
 
 def _t(x):
@@ -261,3 +271,108 @@ def test_block_topk_plain_layout_and_flat_agreement(rng):
     np.testing.assert_allclose(s_b.numpy(), s_f.numpy(), rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError, match="cuda or cpu"):
         cuda_mips.mips_block_topk(qn.to("meta"), cn.to("meta"), 4)
+
+
+def _pallas_score_chunkmax(q, c, n, n_tile, mask=None, packed=None, q_tile=32):
+    """The JAX package's ``_score_chunkmax_kernel`` through ``pl.pallas_call``
+    in interpret mode, with ``mips_topk_fused``'s BlockSpecs
+    (``ops/pallas_mips.py``) at a small query tile: (s (Qp, Np), cm (Np/128,
+    Qp)), chunk-major as the TPU kernel stores it."""
+    nqp, d = q.shape
+    np_ = c.shape[0]
+    spec = lambda shape, index: pl.BlockSpec(shape, index, memory_space=pltpu.VMEM)
+    in_specs = [spec((q_tile, d), lambda i, j, n_ref: (i, 0)),
+                spec((n_tile, d), lambda i, j, n_ref: (j, 0))]
+    args = [jnp.asarray(n, jnp.int32).reshape(1), q, c]
+    if packed is not None:
+        in_specs.append(spec((q_tile, n_tile // 8), lambda i, j, n_ref: (i, j)))
+        args.append(packed)
+    elif mask is not None:
+        in_specs.append(spec((q_tile, n_tile), lambda i, j, n_ref: (i, j)))
+        args.append(mask)
+    chunk = cuda_mips.CHUNK
+    return pl.pallas_call(
+        functools.partial(_score_chunkmax_kernel, has_mask=mask is not None or packed is not None,
+                          packed_mask=packed is not None),
+        interpret=True,
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1, grid=(nqp // q_tile, np_ // n_tile), in_specs=in_specs,
+            out_specs=(spec((q_tile, n_tile), lambda i, j, n_ref: (i, j)),
+                       spec((n_tile // chunk, q_tile), lambda i, j, n_ref: (j, i)))),
+        out_shape=(jax.ShapeDtypeStruct((nqp, np_), q.dtype),
+                   jax.ShapeDtypeStruct((np_ // chunk, nqp), q.dtype)),
+    )(*args)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("n_tile", [1024, 2048])
+@pytest.mark.parametrize("mode", ["none", "int8", "packed"])
+def test_score_chunkmax_matches_pallas_kernel(rng, mode, n_tile, d):
+    """Kernel B2's plain version (the wrapper on CPU tensors) against the TPU
+    kernel itself, run in interpret mode, on the same bf16 inputs: a ragged
+    catalog whose last valid column lies inside a mask tile, two query tiles.
+    Scores within one bf16 ulp (the two frameworks sum the f32 products in
+    different orders); pad and masked entries the rounded NEG_INF in both;
+    ``cm`` the transposed JAX ``cm`` within one ulp and exactly the max of
+    the port's own stored scores."""
+    nqp, n = 64, 1500
+    np_ = -(-n // n_tile) * n_tile
+    q = rng.standard_normal((nqp, d)).astype(np.float32)
+    c = np.pad(rng.standard_normal((n, d)).astype(np.float32), ((0, np_ - n), (0, 0)))
+    dense = np.zeros((nqp, np_), bool)
+    dense[:, :n] = rng.random((nqp, n)) < 0.1
+    qj, cj = jnp.asarray(q).astype(jnp.bfloat16), jnp.asarray(c).astype(jnp.bfloat16)
+    qt, ct = _t(q).bfloat16(), _t(c).bfloat16()
+    kj, kt = {}, {}
+    if mode == "int8":
+        kj["mask"] = jnp.asarray(dense.astype(np.int8))
+        kt["mask"] = _t(dense.astype(np.int8))
+    elif mode == "packed":
+        rows, cols = np.nonzero(dense)
+        kj["packed"] = J.pack_mask_tiles(jnp.asarray(rows), jnp.asarray(cols), num_rows=nqp,
+                                         num_items=n, n_tile=n_tile)
+        kt["mask_packed"] = T.pack_mask_tiles(_t(rows), _t(cols), nqp, n, n_tile)
+    s_j, cm_j = _pallas_score_chunkmax(qj, cj, n, n_tile, **kj)
+    s_t, cm_t = cuda_mips.score_chunkmax(qt, ct, n, n_tile=n_tile, **kt)
+    assert s_t.dtype == cm_t.dtype == torch.bfloat16
+    assert s_t.shape == (nqp, np_) and cm_t.shape == (nqp, np_ // 128)
+    a = s_t.float().numpy()
+    b = np.asarray(s_j.astype(jnp.float32))
+    ulp = np.maximum(bf16_ulp(a), bf16_ulp(b))
+    assert (np.abs(a - b) <= ulp).all()
+    neg = float(torch.tensor(T.NEG_INF, dtype=torch.bfloat16))
+    dead = np.zeros_like(dense)
+    dead[:, n:] = True
+    if mode != "none":
+        dead |= dense
+    assert (a[dead] == neg).all() and (b[dead] == neg).all()
+    assert (a[~dead] > neg).all()
+    cj_t = np.asarray(cm_j.astype(jnp.float32)).T
+    cmt = cm_t.float().numpy()
+    assert (np.abs(cmt - cj_t) <= np.maximum(bf16_ulp(cmt), bf16_ulp(cj_t))).all()
+    assert torch.equal(cm_t, s_t.view(nqp, -1, 128).amax(-1))
+
+
+def _probe_variants() -> dict:
+    """``VARIANTS`` of ``tools/probe_score_chunkmax.py`` (which imports only
+    torch at module level)."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "probe_score_chunkmax.py"
+    spec = importlib.util.spec_from_file_location("probe_score_chunkmax", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.VARIANTS
+
+
+_PROBE_VARIANTS = _probe_variants()
+
+
+@pytest.mark.parametrize("variant", sorted(_PROBE_VARIANTS))
+def test_probe_variant_patches_kernel_source(variant):
+    """Each variant of the B2 probe rewrites lines that the kernel source has
+    exactly once, and changes the source: the probe follows the kernel."""
+    src = (_build.CSRC / "score_chunkmax.cu").read_text()
+    text = src
+    for line, repl in _PROBE_VARIANTS[variant]:
+        assert src.count(line) == 1, line
+        text = text.replace(line, repl)
+    assert text != src

@@ -16,9 +16,11 @@ Phases:
      one 128-row band, a band count that does not divide over the SMs, d in
      {8, 24, 320} and a last valid column inside a mask tile. ``bpr_tile``: d
      in {16, 64, 128, 256}, both losses, ragged B, negatives all / none /
-     partly in the cluster, one user in most triplets, a masked tail, four
-     negatives per positive, and the run-to-run
-     difference of two launches (the table gradients are summed by atomics).
+     partly in the cluster, one user in most triplets, one item the positive
+     of over 800, negatives equal to their positive, a masked tail, every
+     triplet masked, four negatives per positive; every case bit-equal over
+     two calls and over two grids of pass 1; then timed at its reference
+     shape, pass by pass.
      ``ell_spmm``: d in {16, 64, 100, 256}, f32 and bf16 tables, a graph with
      an isolated node and a hub whose bucket is grown to the max degree,
      aligned and unaligned row counts. ``mips_block``: with and without mask,
@@ -312,9 +314,13 @@ def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
-def bpr_inputs(gen, d, u_pad, i_pad, b, neg_mode, dup=False, kneg=1):
+def bpr_inputs(gen, d, u_pad, i_pad, b, neg_mode, dup=False, kneg=1,
+               item_hub=False, loc_eq_pl=False, all_masked=False):
     """Random inputs of ``bpr_tile`` on the card: a masked tail of b // 5
-    triplets; ``dup`` puts one user into about 70 % of them."""
+    triplets (``all_masked``: all of them); ``dup`` puts one user into about
+    70 % of them, ``item_hub`` one item as the positive of about 30 % and the
+    negative of a tenth; ``loc_eq_pl`` makes every seventh negative its
+    triplet's positive, in the cluster."""
     dev = "cuda"
     rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen) * 0.1
     ints = lambda hi, n: torch.randint(0, hi, (n,), device=dev, generator=gen,
@@ -324,8 +330,13 @@ def bpr_inputs(gen, d, u_pad, i_pad, b, neg_mode, dup=False, kneg=1):
     if dup:
         ul = torch.where(torch.rand(b, device=dev, generator=gen) < 0.7,
                          torch.full_like(ul, 3), ul)
+    if item_hub:
+        pl = torch.where(torch.rand(b, device=dev, generator=gen) < 0.3,
+                         torch.full_like(pl, 5), pl)
     m = torch.ones(b, dtype=torch.int32, device=dev)
     m[b - b // 5:] = 0
+    if all_masked:
+        m.zero_()
     if kneg > 1:
         ul, pl, m = (t.repeat_interleave(kneg) for t in (ul, pl, m))
     n = b * kneg
@@ -333,18 +344,24 @@ def bpr_inputs(gen, d, u_pad, i_pad, b, neg_mode, dup=False, kneg=1):
     inc = {"all": torch.ones(n, dtype=torch.int32, device=dev),
            "none": torch.zeros(n, dtype=torch.int32, device=dev),
            "mixed": ints(2, n)}[neg_mode]
+    if item_hub:
+        loc[::10] = 5
+    if loc_eq_pl:
+        loc[::7], inc[::7] = pl[::7], 1
     return u_tab, i_tab, rnd(n, d), ul, pl, loc, inc, m
 
 
-def check_bpr(args, what: str, **kw):
+def check_bpr(args, what: str, **kw) -> float:
     """``bpr_tile`` against its plain version on the same tensors: loss within
     1e-5 relative, gradients within 1e-4 of the plain autograd gradients'
-    largest entry, masked rows' gni exactly zero. Returns (largest abs error,
-    largest difference between two launches)."""
+    largest entry, masked rows' gni exactly zero; and bit-equal outputs from
+    a second call and from pass 1 on 7 blocks. Returns the largest abs error."""
     from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_bpr
 
     out_k = cuda_bpr.bpr_tile(*args, **kw)
     again = cuda_bpr.bpr_tile(*args, **kw)
+    other_grid = cuda_bpr._launch(*args, kw["scale"], kw["bpr_coeff"], kw["loss"],
+                                  grid=7)
     out_p = cuda_bpr.bpr_tile_plain(*args, **kw)
     torch.cuda.synchronize()
     lk, lp = out_k[0].item(), out_p[0].item()
@@ -358,8 +375,10 @@ def check_bpr(args, what: str, **kw):
         worst = max(worst, (a - b).abs().max().item())
     check(bool((out_k[3][args[7] == 0] == 0).all()),
           f"{what}: a masked triplet's gni is not exactly zero")
-    rerun = max((a - b).abs().max().item() for a, b in zip(out_k[1:3], again[1:3]))
-    return worst, rerun
+    for name, a, b, c in zip(("loss", "gu", "gi", "gni"), out_k, again, other_grid):
+        check(torch.equal(a, b), f"{what}: two calls differ in {name}")
+        check(torch.equal(a, c), f"{what}: pass 1 on 7 blocks changes {name}")
+    return worst
 
 
 def bpr_bound(args, bw: float):
@@ -389,16 +408,16 @@ def bpr_bound(args, bw: float):
 
 
 def time_bpr(args, iters: int = 20, **kw) -> dict:
-    """Four times (ms per call) of ``bpr_tile`` on these inputs.
+    """Times (ms per call) of ``bpr_tile`` on these inputs.
 
     ``device``: what the card spends on one call of the wrapper, summed by the
-    profiler over everything the call enqueues (the fill of the zeroed loss
-    and gradient tables, the three small launches that make the weights, the
-    kernel). ``kernel``: the kernel's share of that. ``wrapper``: CUDA events
-    around ``iters`` calls of the wrapper. ``launch``: CUDA events around
-    ``iters`` calls of the bare launch function on buffers allocated once.
-    The last two hold the host's time to enqueue the work whenever the card
-    finishes it sooner, as it does here."""
+    profiler over everything the call enqueues (pass 1, the sort's kernels and
+    memsets, the row starts, pass 2); ``pass1``, ``sort``, ``starts`` and
+    ``pass2`` split it, and ``kernel`` is the three kernels of
+    ``csrc/bpr_tile.cu`` without the sort. ``kernels`` and ``memsets``: launches
+    per call. ``wrapper``: CUDA events around ``iters`` calls of the wrapper,
+    which hold the host's time to enqueue the work whenever the card finishes
+    it sooner."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -410,45 +429,80 @@ def time_bpr(args, iters: int = 20, **kw) -> dict:
         for _ in range(iters):
             call()
         torch.cuda.synchronize()
-    dev = [(e.self_device_time_total, e.key) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    kernel_us = sum(us for us, key in dev if "bpr_tile_kernel" in key)
-    check(kernel_us > 0, "the profiler recorded no bpr_tile kernel")
+    dev = [(e.self_device_time_total / (1e3 * iters), e.count / iters, e.key)
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    mem = lambda key: key.startswith(("Memset", "Memcpy"))
+    own = {p: sum(ms for ms, _, key in dev if f"bpr_{p}_kernel" in key)
+           for p in ("pass1", "row_starts", "pass2")}
+    check(all(ms > 0 for ms in own.values()),
+          f"the profiler missed a kernel of bpr_tile: {own}")
+    total = sum(ms for ms, _, _ in dev)
+    return dict(device=total, kernel=sum(own.values()), pass1=own["pass1"],
+                sort=total - sum(own.values()), starts=own["row_starts"],
+                pass2=own["pass2"], wrapper=wrapper_ms,
+                kernels=sum(n for _, n, key in dev if not mem(key)),
+                memsets=sum(n for _, n, key in dev if mem(key)),
+                split=[(round(ms, 4), n, key[:70]) for ms, n, key in sorted(dev)])
 
-    u_tab, i_tab, ni = args[:3]
-    w = cuda_bpr._weights(args[7], ni.shape[1], kw["bpr_coeff"], kw["loss"])
-    out = torch.zeros(1, device="cuda")
-    gu, gi, gni = (torch.zeros_like(t) for t in (u_tab, i_tab, ni))
-    launch_ms = time_ms(lambda: cuda_bpr._launch(*args, w, out, gu, gi, gni,
-                                                 kw["scale"], kw["loss"]), iters)
-    return dict(device=sum(us for us, _ in dev) / (1e3 * iters),
-                kernel=kernel_us / (1e3 * iters), wrapper=wrapper_ms,
-                launch=launch_ms)
+
+def log_bpr_time(what: str, t: dict, bound: float, by: str, byts: float,
+                 flops: float, plain_ms: float) -> None:
+    log(f"[kernel] bpr_tile at {what}: {t['device']:.4f} ms of device time per "
+        f"wrapper call (profiler): pass 1 {t['pass1']:.4f}, sort {t['sort']:.4f}, "
+        f"row starts {t['starts']:.4f}, pass 2 {t['pass2']:.4f} ms; "
+        f"{t['kernels']:.0f} kernel launches and {t['memsets']:.0f} memsets per "
+        f"call; {t['wrapper']:.4f} ms per wrapper call by CUDA events "
+        f"(host-bound); plain forward+backward {plain_ms:.4f} ms; bound "
+        f"{bound:.4f} ms ({by}: {byts / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP), "
+        f"{bound / t['device']:.3f} of the bound")
+    for ms, n, key in t["split"]:
+        log(f"[kernel]   {ms:.4f} ms  x{n:g}  {key}")
 
 
-def bpr_kernel_phase() -> float:
+def bpr_kernel_phase(bw: float) -> float:
     """Phase 3, kernel B1: every d, both losses, the three negative mixes,
-    then heavy duplication and four negatives per positive; B is ragged
-    (not a multiple of the block's 8 triplets) and has a masked tail."""
+    then a user hub, an item hub, negatives equal to their positive, an
+    all-masked call and four negatives per positive; B is ragged (not a
+    multiple of the block's 8 triplets) and has a masked tail. Then the
+    kernel's reference shape, the width a refined partition gives (about 40 %
+    of the edges kept in 100 clusters), timed: random inputs, every triplet
+    valid, 2 % of the negatives in the cluster."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_bpr
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = 0.0
     for d in (16, 64, 128, 256):
         scale = 1.0 / 16.0
-        errs, reruns, n = [], [], 0
+        errs = []
         for loss in ("reference", "standard"):
             kw = dict(scale=scale, bpr_coeff=5e-3, loss=loss)
             cases = [dict(neg_mode=mode) for mode in ("all", "none", "mixed")]
-            cases += [dict(neg_mode="mixed", dup=True), dict(neg_mode="mixed", kneg=4)]
+            cases += [dict(neg_mode="mixed", dup=True),
+                      dict(neg_mode="mixed", item_hub=True),
+                      dict(neg_mode="mixed", loc_eq_pl=True),
+                      dict(neg_mode="mixed", all_masked=True),
+                      dict(neg_mode="mixed", kneg=4)]
             for case in cases:
                 args = bpr_inputs(gen, d, u_pad=384, i_pad=640, b=4099, **case)
-                e, r = check_bpr(args, f"bpr_tile d={d} {loss} {case}", **kw)
-                errs.append(e)
-                reruns.append(r)
-                n += 1
+                if case.get("item_hub"):
+                    check(int(((args[4] == 5) & (args[7] != 0)).sum()) >= 800,
+                          "the item hub has fewer than 800 positives")
+                errs.append(check_bpr(args, f"bpr_tile d={d} {loss} {case}", **kw))
         worst = max(worst, max(errs))
-        log(f"[kernel] bpr_tile d={d}: {n} cases agree with the plain version "
-            f"(max abs err {max(errs):.3e}; two launches differ by at most "
-            f"{max(reruns):.3e} in gu/gi)")
+        log(f"[kernel] bpr_tile d={d}: {len(errs)} cases agree with the plain "
+            f"version (max abs err {max(errs):.3e}), each bit-equal over two "
+            f"calls and over two grids of pass 1")
+    kw = dict(scale=1.0 / 16.0, bpr_coeff=5e-3, loss="reference")
+    wide = list(bpr_inputs(gen, 64, u_pad=1792, i_pad=1152, b=40_960,
+                           neg_mode="mixed"))
+    wide[7] = torch.ones_like(wide[7])
+    wide[6] = (torch.rand(40_960, device="cuda", generator=gen) < 0.02).to(torch.int32)
+    worst = max(worst, check_bpr(wide, "bpr_tile at the reference shape", **kw))
+    t = time_bpr(wide, **kw)
+    log_bpr_time("its reference shape (u_pad 1792, i_pad 1152, B 40960 all "
+                 "valid, 2 % of the negatives in the cluster, d=64, random "
+                 "inputs)", t, *bpr_bound(wide, bw),
+                 time_ms(lambda: cuda_bpr.bpr_tile_plain(*wide, **kw), 5, warmup=1))
     return worst
 
 
@@ -905,7 +959,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     kernel_err = kernel_phase()
-    bpr_err = bpr_kernel_phase()
+    bpr_err = bpr_kernel_phase(bw)
     ell_err = ell_kernel_phase()
     block_err = mips_block_phase()
     if "--kernels-only" in sys.argv[1:]:
@@ -1107,8 +1161,8 @@ def main() -> int:
         # both through the segment path, so that every step is f32 and the
         # two differ only in summation order. (Through a bf16 adjacency the
         # backward rounds the cotangent to bf16, and an f32 difference of one
-        # ulp between the atomics' orders can flip that rounding: a one-bf16-ulp
-        # difference that says nothing of the kernel.)
+        # ulp between the two routes' summation orders can flip that rounding:
+        # a one-bf16-ulp difference that says nothing of the kernel.)
         cfg_plain = cfg.replace(train=TrainConfig(fused_bpr=False))
         adj_of = lambda c: None if cc.adj is None else cc.adj[c]
         gen_c = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -1184,51 +1238,29 @@ def main() -> int:
             kargs = (u_tab, i_tab, ni, ul, pl, loc, inc.to(torch.int32),
                      mask.to(torch.int32))
         kw = dict(scale=scale, bpr_coeff=cfg.train.bpr_coeff, loss="reference")
-        b1_err, b1_rerun = check_bpr(kargs, f"bpr_tile at cluster {c_id}'s shape", **kw)
+        b1_err = check_bpr(kargs, f"bpr_tile at cluster {c_id}'s shape", **kw)
         b1 = time_bpr(kargs, **kw)
+        check(b1["kernels"] <= 8, f"bpr_tile enqueues {b1['kernels']} kernels per call")
         b1_plain = time_ms(lambda: cuda_bpr.bpr_tile_plain(*kargs, **kw), 5, warmup=1)
         valid, in_cl = int(mask.sum()), int((inc & mask).sum())
         d = FULL["dim"]
         b1_bound, b1_by, byts, flops = bpr_bound(kargs, bw)
-        log(f"[kernel] bpr_tile at (u_pad {cc.u_pad}, i_pad {cc.i_pad}, B {width} "
-            f"of which {valid} valid and {in_cl} negatives in the cluster, d={d}): "
-            f"{b1['device']:.4f} ms of device time per wrapper call (profiler: "
-            f"zero fill, weight ops and the kernel), of which the kernel "
-            f"{b1['kernel']:.4f} ms; {b1['wrapper']:.4f} ms per wrapper call and "
-            f"{b1['launch']:.4f} ms per bare launch by CUDA events (both "
-            f"host-bound); plain forward+backward {b1_plain:.4f} ms; bound "
-            f"{b1_bound:.4f} ms ({b1_by}: {byts / 1e6:.2f} MB, "
-            f"{flops / 1e6:.1f} MFLOP), {b1_bound / b1['device']:.3f} of the "
-            f"bound ({b1_bound / b1['kernel']:.3f} for the kernel alone); max abs "
-            f"err {b1_err:.3e}, two launches differ by {b1_rerun:.3e} (phase 3 "
-            f"max err {bpr_err:.3e})")
-        # the kernel's reference shape, the width a refined partition gives
-        # (about 40 % of the edges kept in 100 clusters): random inputs, every
-        # triplet valid
-        wide = list(bpr_inputs(gen_c, d, u_pad=1792, i_pad=1152, b=40_960,
-                               neg_mode="mixed"))
-        wide[7] = torch.ones_like(wide[7])
-        wide[6] = (torch.rand(40_960, device="cuda", generator=gen_c) < 0.02).to(torch.int32)
-        check_bpr(wide, "bpr_tile at the reference shape", **kw)
-        wt = time_bpr(wide, **kw)
-        w_bound, w_by, wb, wf = bpr_bound(wide, bw)
-        log(f"[kernel] bpr_tile at its reference shape (u_pad 1792, i_pad 1152, "
-            f"B 40960 all valid, 2 % of the negatives in the cluster, d={d}, "
-            f"random inputs): {wt['device']:.4f} ms of device time per wrapper "
-            f"call, of which the kernel {wt['kernel']:.4f} ms; "
-            f"{wt['wrapper']:.4f} ms per wrapper call and {wt['launch']:.4f} ms "
-            f"per bare launch by CUDA events; plain "
-            f"{time_ms(lambda: cuda_bpr.bpr_tile_plain(*wide, **kw), 5, warmup=1):.4f} ms; "
-            f"bound {w_bound:.4f} ms ({w_by}: {wb / 1e6:.2f} MB, "
-            f"{wf / 1e6:.1f} MFLOP), {w_bound / wt['device']:.3f} of the bound")
-        del wide
+        log_bpr_time(f"cluster {c_id}'s shape (u_pad {cc.u_pad}, i_pad {cc.i_pad}, "
+                     f"B {width} of which {valid} valid and {in_cl} negatives in "
+                     f"the cluster, d={d})", b1, b1_bound, b1_by, byts, flops, b1_plain)
+        log(f"[kernel] bpr_tile at cluster {c_id}'s shape: max abs err "
+            f"{b1_err:.3e}, bit-equal over two calls and two grids of pass 1 "
+            f"(phase 3 max err {bpr_err:.3e})")
         rows.append(dict(name="bpr_tile", **KERNEL_ROWS["bpr_tile"],
                          launches=train_launches["bpr_tile"], max_abs_err=b1_err,
                          ms=b1["device"], plain_ms=b1_plain, bound_ms=b1_bound,
                          bound_by=b1_by, library_ms=None,
                          ms_method="device time of one wrapper call, torch.profiler",
-                         kernel_ms=b1["kernel"], wrapper_ms=b1["wrapper"],
-                         launch_ms=b1["launch"]))
+                         launches_per_call=b1["kernels"],
+                         memsets_per_call=b1["memsets"], kernel_ms=b1["kernel"],
+                         pass1_ms=b1["pass1"], sort_ms=b1["sort"],
+                         starts_ms=b1["starts"], pass2_ms=b1["pass2"],
+                         wrapper_ms=b1["wrapper"]))
         del cc, val, test, kargs, u_tab, i_tab, ni, acc, final
 
         # 5b. eval and propagated serving at the same width

@@ -1,7 +1,7 @@
 """Fused BPR triplet loss for one compact cluster: loss and all embedding
-gradients from one hand-written CUDA kernel.
+gradients from hand-written CUDA kernels.
 
-The kernel, ``csrc/bpr_tile.cu``, replaces the JAX package's
+The kernels, ``csrc/bpr_tile.cu``, replace the JAX package's
 ``ops/pallas_bpr.py::_bpr_tile_kernel``. Per valid triplet it gathers the
 cluster's ``[propagated ‖ initial]`` user and item rows and the negative's
 final row (``propagated[loc]`` when the negative lies in the cluster, else
@@ -20,8 +20,10 @@ exact f32 values (the TPU kernel rounds them to bf16).
   * :func:`fused_bpr_loss_plain` is the same loss as row gathers and autograd
     (the row-gather route of ``training/compact.py::_triplet_loss``).
 
-The table gradients are summed with f32 atomics, so their last bits change
-from run to run.
+No float is summed by atomics: pass 1 writes each triplet's row gradients,
+a stable sort lists each table row's triplets, and pass 2 sums every row and
+the loss in an order fixed by the data, so two calls on the same inputs give
+bit-equal outputs.
 """
 
 from __future__ import annotations
@@ -47,22 +49,6 @@ def fused_bpr_supported(u_pad: int, i_pad: int, d: int) -> bool:
     not), so no table size is too large; only the row width is bounded.
     """
     return 0 < d <= MAX_DIM
-
-
-@functools.lru_cache(maxsize=64)
-def _weight_numerators(device: torch.device, d: int, bpr_coeff: float,
-                       loss: str) -> torch.Tensor:
-    """[−1/10 or 1, coeff/d] on ``device``; cached so a step uploads nothing."""
-    return torch.tensor([-0.1 if loss == "reference" else 1.0, bpr_coeff / d],
-                        dtype=torch.float32, device=device)
-
-
-def _weights(m: torch.Tensor, d: int, bpr_coeff: float, loss: str) -> torch.Tensor:
-    """[w1, w2] on the device, with no host sync: the masked means'
-    denominators folded into the per-triplet weights, w1 = −1/(10·count)
-    (reference: −mean(sp)/10 + reg) or 1/count (standard: mean(sp) + reg),
-    w2 = coeff/(count·d), count = max(sum(m), 1)."""
-    return _weight_numerators(m.device, d, bpr_coeff, loss) / m.sum().clamp_min(1)
 
 
 def fused_bpr_loss_plain(fu, u_rows, fi, i_rows, ni, user_local, pos_local,
@@ -103,18 +89,37 @@ def _library() -> ctypes.CDLL:
     fn = lib.bpr_tile
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p] * 13 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-                                  ctypes.c_int, p]
+        fn.argtypes = [p] * 16 + [ctypes.c_size_t, ctypes.c_int64] + [
+            ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [p]
         fn.restype = ctypes.c_int
+        lib.bpr_tile_temp_bytes.argtypes = [ctypes.c_int64, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_size_t)]
+        lib.bpr_tile_temp_bytes.restype = ctypes.c_int
         lib.bpr_tile_error_string.argtypes = [ctypes.c_int]
         lib.bpr_tile_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: cudaError {err} "
+                           f"({lib.bpr_tile_error_string(err).decode()})")
+
+
+@functools.lru_cache(maxsize=64)
+def _sort_temp_bytes(b: int, rows: int) -> int:
+    """Bytes of scratch the sort of ``3 b`` keys over ``rows + 1`` values needs."""
+    lib = _library()
+    out = ctypes.c_size_t(0)
+    _check(lib, lib.bpr_tile_temp_bytes(b, rows, ctypes.byref(out)),
+           "bpr_tile_temp_bytes")
+    return out.value
+
+
 def bpr_tile(u_tab, i_tab, ni, ul, pl, loc, inc, m, *, scale: float,
              bpr_coeff: float, loss: str = "reference"
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One launch: (loss (), gu (u_pad, 2d), gi (i_pad, 2d), gni (B, d)).
+    """One call: (loss (), gu (u_pad, 2d), gi (i_pad, 2d), gni (B, d)).
 
     u_tab (u_pad, 2d), i_tab (i_pad, 2d), ni (B, d): contiguous f32;
     ul, pl, loc (local rows, in range), inc (in-cluster flag) and m (validity)
@@ -146,37 +151,48 @@ def bpr_tile(u_tab, i_tab, ni, ul, pl, loc, inc, m, *, scale: float,
             raise ValueError(f"{name} must be contiguous int32 ({b},) on "
                              f"{u_tab.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
-
-    w = _weights(m, d, bpr_coeff, loss)
-    nu, nit = u_tab.numel(), i_tab.numel()
-    # loss, gu and gi share one zeroed buffer: one memset per launch
-    zeros = torch.zeros(nu + nit + 1, dtype=torch.float32, device=u_tab.device)
-    gu = zeros[:nu].view_as(u_tab)
-    gi = zeros[nu:nu + nit].view_as(i_tab)
-    out = zeros[nu + nit:]
-    gni = torch.empty_like(ni)
-    _launch(u_tab, i_tab, ni, ul, pl, loc, inc, m, w, out, gu, gi, gni,
-            scale, loss)
-    return out[0], gu, gi, gni
+    if 3 * b >= 2 ** 31 - 1:
+        raise ValueError(f"bpr_tile takes fewer than 2**31 / 3 triplets, got {b}")
+    return _launch(u_tab, i_tab, ni, ul, pl, loc, inc, m, scale, bpr_coeff, loss)
 
 
-def _launch(u_tab, i_tab, ni, ul, pl, loc, inc, m, w, out, gu, gi, gni,
-            scale: float, loss: str) -> None:
-    """Enqueue the kernel on the current stream: validated inputs, the weights
-    ``w`` (2,), zeroed ``out`` (1,), ``gu`` and ``gi``, and ``gni`` to fill."""
+def _launch(u_tab, i_tab, ni, ul, pl, loc, inc, m, scale: float,
+            bpr_coeff: float, loss: str, grid: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Enqueue pass 1, the sort, the row starts and pass 2 on the current
+    stream for validated inputs; every output and scratch buffer comes from
+    ``torch.empty``. ``grid`` > 0 sets pass 1's block count (the outputs do
+    not depend on it)."""
     lib = _library()
     b, d = ni.shape
-    with torch.cuda.device(u_tab.device):
-        stream = torch.cuda.current_stream(u_tab.device).cuda_stream
+    u_pad, i_pad = u_tab.shape[0], i_tab.shape[0]
+    dev = u_tab.device
+    nu, nit = u_tab.numel(), i_tab.numel()
+    outs = torch.empty(nu + nit + 1, dtype=torch.float32, device=dev)
+    gu = outs[:nu].view_as(u_tab)
+    gi = outs[nu:nu + nit].view_as(i_tab)
+    out = outs[nu + nit:]
+    gni = torch.empty_like(ni)
+    # lt (B, 2) first, so its float2 loads stay aligned, then the scratch
+    # rows (3B, d); keys, keys', order, order' of 3B each (rounded up to 32)
+    # and the row starts (u_pad + i_pad + 1)
+    floats = torch.empty(2 * b + 3 * b * d, dtype=torch.float32, device=dev)
+    ints = torch.empty(4 * (-(-3 * b // 32) * 32) + u_pad + i_pad + 1,
+                       dtype=torch.int32, device=dev)
+    temp_bytes = _sort_temp_bytes(b, u_pad + i_pad)
+    temp = torch.empty(max(temp_bytes, 1), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bpr_tile(
             u_tab.data_ptr(), i_tab.data_ptr(), ni.data_ptr(), ul.data_ptr(),
             pl.data_ptr(), loc.data_ptr(), inc.data_ptr(), m.data_ptr(),
-            w.data_ptr(), out.data_ptr(), gu.data_ptr(), gi.data_ptr(),
-            gni.data_ptr(), b, d, float(scale), int(loss == "reference"), stream)
-    if err != 0:
-        raise RuntimeError(f"bpr_tile launch failed: cudaError {err} "
-                           f"({lib.bpr_tile_error_string(err).decode()})")
+            out.data_ptr(), gu.data_ptr(), gi.data_ptr(), gni.data_ptr(),
+            floats[2 * b:].data_ptr(), floats.data_ptr(), ints.data_ptr(),
+            temp.data_ptr(), temp_bytes, b, d, u_pad, i_pad, float(scale),
+            float(bpr_coeff), int(loss == "reference"), int(grid), stream)
+    _check(lib, err, "bpr_tile launch")
     LAUNCHES["bpr_tile"] += 1
+    return out[0], gu, gi, gni
 
 
 class _FusedBPR(torch.autograd.Function):

@@ -374,11 +374,8 @@ def test_bpr_tile_outputs_and_autograd_function(loss):
 
 
 def test_bpr_tile_weights_and_support():
-    m = torch.tensor([1, 1, 0, 1], dtype=torch.int32)
-    w = cuda_bpr._weights(m, 8, 5e-3, "reference")
-    np.testing.assert_allclose(to_np(w), [-1 / 30, 5e-3 / 24], rtol=1e-6)
-    w = cuda_bpr._weights(torch.zeros(4, dtype=torch.int32), 8, 5e-3, "standard")
-    np.testing.assert_allclose(to_np(w), [1.0, 5e-3 / 8], rtol=1e-6)   # max(count, 1)
+    # (the weights from the valid count, max(count, 1) included, are held by
+    # the two-pass mirror below)
     # no table-size limit on this card, only the row width
     assert cuda_bpr.fused_bpr_supported(10 ** 6, 10 ** 6, 64)
     assert not cuda_bpr.fused_bpr_supported(128, 128, 513)
@@ -386,3 +383,165 @@ def test_bpr_tile_weights_and_support():
         cuda_bpr.bpr_tile(*(torch.zeros(1, 2),) * 2, torch.zeros(1, 1),
                           *(torch.zeros(1, dtype=torch.int32),) * 5,
                           scale=1.0, bpr_coeff=0.0, loss="other")
+
+
+# ------------------------------------- kernel B1's two passes, mirrored (CPU)
+#
+# ``csrc/bpr_tile.cu`` step by step in PyTorch: pass 1's unweighted per-triplet
+# rows and keys, the stable sort and row starts, pass 2's 8-way round-robin
+# partials per row and its fixed-order loss, the weights from the valid count.
+# The CUDA source cannot run here, so this settles its algebra against
+# ``bpr_tile_plain``. Tolerance: 1e-5 of the largest entry, since f32 sums are
+# taken in another order; an output that is all zeros must be exactly zero.
+
+WARPS, THREADS = 8, 256
+
+
+def _mirror_keys(ul, pl, loc, inc, m, u_pad, i_pad):
+    """Pass 1's sort keys: role r of triplet t at entry r·B + t; the table row
+    (users first, then items) or the sentinel u_pad + i_pad."""
+    valid, incl = m != 0, inc != 0
+    sentinel = torch.full_like(ul, u_pad + i_pad)
+    return torch.cat([torch.where(valid, ul, sentinel),
+                      torch.where(valid, u_pad + pl, sentinel),
+                      torch.where(valid & incl, u_pad + loc, sentinel)])
+
+
+def _mirror_incidence(keys, rows):
+    """(order, start): the entries sorted stably by key, and start[r] = first
+    sorted position with key >= r for r in [0, rows]."""
+    order = torch.sort(keys, stable=True).indices
+    start = torch.searchsorted(keys[order], torch.arange(rows + 1, dtype=keys.dtype))
+    return order, start
+
+
+def _mirror_bpr_tile(u_tab, i_tab, ni, ul, pl, loc, inc, m, *, scale, bpr_coeff, loss):
+    b, d = ni.shape
+    u_pad, i_pad = u_tab.shape[0], i_tab.shape[0]
+    ref = loss == "reference"
+    gain, c1, coeff_d = (10.0 if ref else -1.0), (-0.1 if ref else 1.0), bpr_coeff / d
+    valid, incl = m != 0, inc != 0
+    # pass 1: unweighted row gradients (w1 taken as 1), lt, gni but for 1/count
+    uf, ui = u_tab[ul, :d], u_tab[ul, d:]
+    pf, pi = i_tab[pl, :d], i_tab[pl, d:]
+    nf = torch.where(incl[:, None], i_tab[loc, :d], ni * scale)
+    dot = lambda a, c: (a * c).sum(1, keepdim=True)
+    if ref:
+        iu, ip, in_ = (dot(x, x).rsqrt() for x in (uf, pf, nf))
+    else:
+        iu = ip = in_ = torch.ones(b, 1)
+    cp, cn = dot(uf, pf) * iu * ip, dot(uf, nf) * iu * in_
+    x = gain * (cp - cn)
+    sp = torch.nn.functional.softplus(x)
+    g = gain * torch.sigmoid(x)
+    if ref:
+        a, bb, cc = uf * iu, pf * ip, nf * in_
+        s_u = g * iu * ((bb - cc) - (cp - cn) * a)
+        s_p = g * ip * (a - cp * bb)
+        s_n = -g * in_ * (a - cn * cc)
+    else:
+        s_u, s_p, s_n = g * (pf - nf), g * uf, -g * uf
+    reg = dot(ui, ui) + dot(pi, pi) + dot(ni, ni)
+    lt = torch.where(valid[:, None], torch.cat([sp, reg], 1), 0.0)
+    gni_pre = 2 * coeff_d * ni + torch.where(incl[:, None], 0.0, scale * c1 * s_n)
+    gni_pre = torch.where(valid[:, None], gni_pre, 0.0)
+    scratch = torch.cat([s_u, s_p, s_n])
+    # the sort and the row starts; the count is start[u_pad]
+    rows = u_pad + i_pad
+    order, start = _mirror_incidence(_mirror_keys(ul, pl, loc, inc, m, u_pad, i_pad), rows)
+    cnt = float(max(int(start[u_pad]), 1))
+    w1, w2 = c1 / cnt, coeff_d / cnt
+    # pass 2, block 0: strided per-thread partials, then a fixed tree
+    acc = torch.nn.functional.pad(lt, (0, 0, 0, -b % THREADS)).view(-1, THREADS, 2)
+    acc = acc.cumsum(0)[-1]
+    h = THREADS // 2
+    while h:
+        acc = acc[:h] + acc[h:2 * h]
+        h //= 2
+    out = w1 * acc[0, 0] + w2 * acc[0, 1]
+    # table rows: warp w sums entries w, w + 8, ... in list order
+    grad = torch.zeros(rows, 2 * d)
+    own = torch.cat([u_tab, i_tab])[:, d:]
+    for r in range(rows):
+        lst = order[start[r]:start[r + 1]]
+        if lst.numel() == 0:
+            continue
+        parts = [scratch[lst[w::WARPS]].cumsum(0)[-1] if lst[w::WARPS].numel()
+                 else torch.zeros(d) for w in range(WARPS)]
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        n_own = int((lst < 2 * b).sum())
+        grad[r, :d] = w1 * total
+        grad[r, d:] = 2.0 * w2 * n_own * own[r] if n_own else 0.0
+    return out, grad[:u_pad], grad[u_pad:], gni_pre / cnt
+
+
+def _mirror_inputs(case, d, seed):
+    """Random ``bpr_tile`` inputs on the CPU with a masked tail of b // 5."""
+    rng = np.random.default_rng(seed)
+    u_pad, i_pad, b = 40, 56, 1100
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.1)
+    ints = lambda hi, n: torch.from_numpy(rng.integers(0, hi, n).astype(np.int32))
+    u_tab, i_tab = f(u_pad, 2 * d), f(i_pad, 2 * d)
+    ul, pl, loc, inc = ints(u_pad, b), ints(i_pad, b), ints(i_pad, b), ints(2, b)
+    m = torch.ones(b, dtype=torch.int32)
+    m[b - b // 5:] = 0
+    if case == "user_hub":       # user 3 in about 900 valid triplets
+        ul[: 900] = 3
+    elif case == "item_hub":     # item 5 the positive of 850, negative of more
+        pl[: 850] = 5
+        loc[::3] = 5
+    elif case == "loc_eq_pl":    # in-cluster negatives equal to the positive
+        loc[::7], inc[::7] = pl[::7], 1
+    elif case == "all_masked":
+        m.zero_()
+    elif case == "four_negatives":
+        ul, pl, m = (t[: b // 4].repeat_interleave(4) for t in (ul, pl, m))
+    ni = f(b, d)
+    return u_tab, i_tab, ni, ul, pl, loc, inc, m
+
+
+MIRROR_CASES = ["mixed", "user_hub", "item_hub", "loc_eq_pl", "all_masked",
+                "four_negatives"]
+
+
+@pytest.mark.parametrize("d", [16, 64, 100])
+@pytest.mark.parametrize("loss", ["reference", "standard"])
+@pytest.mark.parametrize("case", MIRROR_CASES)
+def test_bpr_tile_two_pass_mirror(case, loss, d):
+    args = _mirror_inputs(case, d, seed=MIRROR_CASES.index(case) + d)
+    kw = dict(scale=1 / 16, bpr_coeff=5e-3, loss=loss)
+    got = _mirror_bpr_tile(*args, **kw)
+    want = cuda_bpr.bpr_tile_plain(*args, **kw)
+    for name, a, ref in zip(("loss", "gu", "gi", "gni"), got, want):
+        err = float((a - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), (name, err)
+    if case == "all_masked":
+        assert all(not bool(t.any()) for t in got)
+    assert not bool(got[3][args[7] == 0].any())
+
+
+@pytest.mark.parametrize("case", ["mixed", "item_hub", "loc_eq_pl", "all_masked",
+                                  "four_negatives"])
+def test_bpr_tile_incidence_lists(case):
+    """Each row's list holds its triplets in role order, each role in ascending
+    t; row starts and the valid count agree with numpy."""
+    u_tab, i_tab, ni, ul, pl, loc, inc, m = _mirror_inputs(case, 16, seed=1)
+    u_pad, i_pad, b = u_tab.shape[0], i_tab.shape[0], ni.shape[0]
+    rows = u_pad + i_pad
+    keys = _mirror_keys(ul, pl, loc, inc, m, u_pad, i_pad)
+    order, start = _mirror_incidence(keys, rows)
+    k = keys.numpy()
+    np.testing.assert_array_equal(order.numpy(), np.argsort(k, kind="stable"))
+    counts = np.bincount(k, minlength=rows + 1)
+    np.testing.assert_array_equal(start.numpy(), np.concatenate([[0], np.cumsum(counts)[:-1]]))
+    assert int(start[u_pad]) == int((m != 0).sum())
+    valid = (m != 0).numpy()
+    hub = 5 if case == "item_hub" else int(pl[0])
+    lst = order[start[u_pad + hub]:start[u_pad + hub + 1]].numpy()
+    pos = np.flatnonzero(valid & (pl.numpy() == hub)) + b
+    neg = np.flatnonzero(valid & (inc.numpy() != 0) & (loc.numpy() == hub)) + 2 * b
+    np.testing.assert_array_equal(lst, np.concatenate([pos, neg]))
+    if case == "item_hub":
+        assert len(pos) >= 800

@@ -18,9 +18,13 @@ Phases:
      in {16, 64, 128, 256}, both losses, ragged B, negatives all / none /
      partly in the cluster, one user in most triplets, one item the positive
      of over 800, negatives equal to their positive, a masked tail, every
-     triplet masked, four negatives per positive; every case bit-equal over
-     two calls and over two grids of pass 1; then timed at its reference
-     shape, pass by pass.
+     triplet masked, four negatives per positive (also through the trainer's
+     grouped lists); each case with the lists ``bpr_incidence`` builds from
+     its own inputs, bit-equal over two calls and over two grids of pass 1;
+     then timed at its reference shape, pass by pass. ``sorted_index_add``:
+     repeated ids, a row with hundreds of entries, rows with none, d in
+     {16, 64, 100} f32 and d = 64 bf16, bit-equal to the plain version's
+     sequential sum on the host and over two calls.
      ``ell_spmm``: d in {16, 64, 100, 256}, f32 and bf16 tables, a graph with
      an isolated node and a hub whose bucket is grown to the max degree,
      aligned and unaligned row counts. ``mips_block``: with and without mask,
@@ -38,8 +42,10 @@ Phases:
      ``train_model`` for 2 epochs (compact trainer, fused BPR kernel, Adam,
      L = 3, d = 64) with the best-val checkpoint; one cluster's gradients
      through the kernel against the plain route (both on the f32 segment
-     path), and through its dense bf16 block against the segment path; a
-     third, timed epoch and a profiled window of steps;
+     path), and through its dense bf16 block against the segment path; one
+     step run twice from the same state, bit-equal in parameters and Adam
+     moments, on the dense bf16 block and on the segment path; a third,
+     timed epoch and a profiled window of steps;
   5b. eval and propagated serving at the same width, with the checkpoint of
      phase 5: ``compute_serving_tables(mode="propagated")`` through the ELL
      SpMM kernel against ``spmm_segment`` propagation, ``evaluate_full_ranking``
@@ -114,6 +120,11 @@ KERNEL_ROWS = {
         route="cuda",
         source="movie_recommender_system_with_gnns_tpu_torch/csrc/mips_block.cu",
         replaces="movie_recommender_system_with_gnns_tpu/ops/pallas_mips.py:30"),
+    # no Pallas kernel: the XLA scatter-add of the negatives' row gradients
+    "sorted_index_add": dict(
+        route="cuda",
+        source="movie_recommender_system_with_gnns_tpu_torch/csrc/sorted_index_add.cu",
+        replaces="movie_recommender_system_with_gnns_tpu/training/compact.py:538"),
 }
 #: the eval / propagated-serving path: sampled eval users, users of the
 #: per-block serving call, users re-evaluated on the host
@@ -351,17 +362,20 @@ def bpr_inputs(gen, d, u_pad, i_pad, b, neg_mode, dup=False, kneg=1,
     return u_tab, i_tab, rnd(n, d), ul, pl, loc, inc, m
 
 
-def check_bpr(args, what: str, **kw) -> float:
-    """``bpr_tile`` against its plain version on the same tensors: loss within
-    1e-5 relative, gradients within 1e-4 of the plain autograd gradients'
-    largest entry, masked rows' gni exactly zero; and bit-equal outputs from
-    a second call and from pass 1 on 7 blocks. Returns the largest abs error."""
+def check_bpr(args, what: str, incidence, also=(), **kw) -> float:
+    """``bpr_tile`` with the lists ``incidence`` against its plain version on
+    the same tensors: loss within 1e-5 relative, gradients within 1e-4 of the
+    plain autograd gradients' largest entry, masked rows' gni exactly zero;
+    and bit-equal outputs from a second call, from pass 1 on 7 blocks and
+    from each other list of the same triplets in ``also``. Returns the
+    largest abs error."""
     from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_bpr
 
-    out_k = cuda_bpr.bpr_tile(*args, **kw)
-    again = cuda_bpr.bpr_tile(*args, **kw)
-    other_grid = cuda_bpr._launch(*args, kw["scale"], kw["bpr_coeff"], kw["loss"],
-                                  grid=7)
+    out_k = cuda_bpr.bpr_tile(*args, incidence=incidence, **kw)
+    again = cuda_bpr.bpr_tile(*args, incidence=incidence, **kw)
+    other_grid = cuda_bpr._launch(*args, incidence, kw["scale"], kw["bpr_coeff"],
+                                  kw["loss"], grid=7)
+    others = [cuda_bpr.bpr_tile(*args, incidence=o, **kw) for o in also]
     out_p = cuda_bpr.bpr_tile_plain(*args, **kw)
     torch.cuda.synchronize()
     lk, lp = out_k[0].item(), out_p[0].item()
@@ -378,6 +392,10 @@ def check_bpr(args, what: str, **kw) -> float:
     for name, a, b, c in zip(("loss", "gu", "gi", "gni"), out_k, again, other_grid):
         check(torch.equal(a, b), f"{what}: two calls differ in {name}")
         check(torch.equal(a, c), f"{what}: pass 1 on 7 blocks changes {name}")
+    for o in others:
+        for name, a, b in zip(("loss", "gu", "gi", "gni"), out_k, o):
+            check(torch.equal(a, b), f"{what}: other lists of the same triplets "
+                  f"change {name}")
     return worst
 
 
@@ -407,49 +425,64 @@ def bpr_bound(args, bw: float):
             byts, flops)
 
 
-def time_bpr(args, iters: int = 20, **kw) -> dict:
-    """Times (ms per call) of ``bpr_tile`` on these inputs.
-
-    ``device``: what the card spends on one call of the wrapper, summed by the
-    profiler over everything the call enqueues (pass 1, the sort's kernels and
-    memsets, the row starts, pass 2); ``pass1``, ``sort``, ``starts`` and
-    ``pass2`` split it, and ``kernel`` is the three kernels of
-    ``csrc/bpr_tile.cu`` without the sort. ``kernels`` and ``memsets``: launches
-    per call. ``wrapper``: CUDA events around ``iters`` calls of the wrapper,
-    which hold the host's time to enqueue the work whenever the card finishes
-    it sooner."""
+def device_split(fn, iters: int):
+    """[(ms per call, launches per call, name)] of everything ``fn`` enqueues,
+    by torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_bpr
-
-    call = lambda: cuda_bpr.bpr_tile(*args, **kw)
-    wrapper_ms = time_ms(call, iters)
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            call()
+            fn()
         torch.cuda.synchronize()
-    dev = [(e.self_device_time_total / (1e3 * iters), e.count / iters, e.key)
-           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [(e.self_device_time_total / (1e3 * iters), e.count / iters, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def time_bpr(args, incidence, neg_prep=None, iters: int = 20, **kw) -> dict:
+    """Times (ms per call) of ``bpr_tile`` on these inputs and lists.
+
+    ``device``: what the card spends on one call of the wrapper, summed by the
+    profiler over everything the call enqueues (pass 1, pass 2); ``pass1``
+    and ``pass2`` split it. ``kernels`` and ``memsets``: launches per call.
+    ``wrapper``: CUDA events around ``iters`` calls of the wrapper, which hold
+    the host's time to enqueue the work whenever the card finishes it sooner.
+    ``neg_prep`` (the step's negative sort and the kernel's negative row
+    starts, which the trainer runs once per step outside the call) is timed
+    apart: ``neg_sort`` (the sort and its index cast), ``neg_starts`` (the
+    searchsorted and the gather of each local item row's run bounds)."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_bpr
+
+    call = lambda: cuda_bpr.bpr_tile(*args, incidence=incidence, **kw)
+    wrapper_ms = time_ms(call, iters)
+    dev = device_split(call, iters)
     mem = lambda key: key.startswith(("Memset", "Memcpy"))
     own = {p: sum(ms for ms, _, key in dev if f"bpr_{p}_kernel" in key)
-           for p in ("pass1", "row_starts", "pass2")}
+           for p in ("pass1", "pass2")}
     check(all(ms > 0 for ms in own.values()),
           f"the profiler missed a kernel of bpr_tile: {own}")
-    total = sum(ms for ms, _, _ in dev)
-    return dict(device=total, kernel=sum(own.values()), pass1=own["pass1"],
-                sort=total - sum(own.values()), starts=own["row_starts"],
-                pass2=own["pass2"], wrapper=wrapper_ms,
-                kernels=sum(n for _, n, key in dev if not mem(key)),
-                memsets=sum(n for _, n, key in dev if mem(key)),
-                split=[(round(ms, 4), n, key[:70]) for ms, n, key in sorted(dev)])
+    out = dict(device=sum(ms for ms, _, _ in dev), pass1=own["pass1"],
+               pass2=own["pass2"], wrapper=wrapper_ms,
+               kernels=sum(n for _, n, key in dev if not mem(key)),
+               memsets=sum(n for _, n, key in dev if mem(key)),
+               split=[(round(ms, 4), n, key[:70]) for ms, n, key in sorted(dev)])
+    if neg_prep is not None:
+        prep = device_split(neg_prep, iters)
+        starts = lambda key: "searchsorted" in key or "ndex" in key
+        out.update(neg_sort=sum(ms for ms, _, key in prep if not starts(key)),
+                   neg_starts=sum(ms for ms, _, key in prep if starts(key)),
+                   neg_kernels=sum(n for _, n, key in prep if not mem(key)),
+                   neg_memsets=sum(n for _, n, key in prep if mem(key)),
+                   neg_split=[(round(ms, 4), n, key[:70]) for ms, n, key in sorted(prep)])
+    return out
 
 
 def log_bpr_time(what: str, t: dict, bound: float, by: str, byts: float,
                  flops: float, plain_ms: float) -> None:
     log(f"[kernel] bpr_tile at {what}: {t['device']:.4f} ms of device time per "
-        f"wrapper call (profiler): pass 1 {t['pass1']:.4f}, sort {t['sort']:.4f}, "
-        f"row starts {t['starts']:.4f}, pass 2 {t['pass2']:.4f} ms; "
+        f"wrapper call (profiler): pass 1 {t['pass1']:.4f}, pass 2 {t['pass2']:.4f} ms; "
         f"{t['kernels']:.0f} kernel launches and {t['memsets']:.0f} memsets per "
         f"call; {t['wrapper']:.4f} ms per wrapper call by CUDA events "
         f"(host-bound); plain forward+backward {plain_ms:.4f} ms; bound "
@@ -457,6 +490,14 @@ def log_bpr_time(what: str, t: dict, bound: float, by: str, byts: float,
         f"{bound / t['device']:.3f} of the bound")
     for ms, n, key in t["split"]:
         log(f"[kernel]   {ms:.4f} ms  x{n:g}  {key}")
+    if "neg_sort" in t:
+        log(f"[kernel] the step's negative sort (once per step, outside the call): "
+            f"{t['neg_sort']:.4f} ms, then the kernel's negative row starts "
+            f"{t['neg_starts']:.4f} ms; {t['neg_kernels']:.0f} kernels and "
+            f"{t['neg_memsets']:.0f} memsets; call + sort + starts "
+            f"{t['device'] + t['neg_sort'] + t['neg_starts']:.4f} ms")
+        for ms, n, key in t["neg_split"]:
+            log(f"[kernel]   {ms:.4f} ms  x{n:g}  {key}")
 
 
 def bpr_kernel_phase(bw: float) -> float:
@@ -487,22 +528,93 @@ def bpr_kernel_phase(bw: float) -> float:
                 if case.get("item_hub"):
                     check(int(((args[4] == 5) & (args[7] != 0)).sum()) >= 800,
                           "the item hub has fewer than 800 positives")
-                errs.append(check_bpr(args, f"bpr_tile d={d} {loss} {case}", **kw))
+                lists = cuda_bpr.bpr_incidence(*args[3:], 384, 640)
+                # four negatives: the trainer's grouped lists give the same bits
+                grouped = [cuda_bpr.bpr_incidence(*args[3:], 384, 640, kneg=4)
+                           ] if case.get("kneg") else []
+                errs.append(check_bpr(args, f"bpr_tile d={d} {loss} {case}", lists,
+                                      also=grouped, **kw))
         worst = max(worst, max(errs))
         log(f"[kernel] bpr_tile d={d}: {len(errs)} cases agree with the plain "
             f"version (max abs err {max(errs):.3e}), each bit-equal over two "
-            f"calls and over two grids of pass 1")
+            f"calls and over two grids of pass 1 (four negatives: and over the "
+            f"grouped lists)")
     kw = dict(scale=1.0 / 16.0, bpr_coeff=5e-3, loss="reference")
     wide = list(bpr_inputs(gen, 64, u_pad=1792, i_pad=1152, b=40_960,
                            neg_mode="mixed"))
     wide[7] = torch.ones_like(wide[7])
     wide[6] = (torch.rand(40_960, device="cuda", generator=gen) < 0.02).to(torch.int32)
-    worst = max(worst, check_bpr(wide, "bpr_tile at the reference shape", **kw))
-    t = time_bpr(wide, **kw)
+    lists = cuda_bpr.bpr_incidence(*wide[3:], 1792, 1152)
+    worst = max(worst, check_bpr(wide, "bpr_tile at the reference shape", lists, **kw))
+    t = time_bpr(wide, lists, **kw)
     log_bpr_time("its reference shape (u_pad 1792, i_pad 1152, B 40960 all "
                  "valid, 2 % of the negatives in the cluster, d=64, random "
                  "inputs)", t, *bpr_bound(wide, bw),
                  time_ms(lambda: cuda_bpr.bpr_tile_plain(*wide, **kw), 5, warmup=1))
+    return worst
+
+
+def scatter_kernel_phase() -> float:
+    """Phase 3, ``sorted_index_add``: repeated ids over 5,000 rows, the upper
+    half with none, a hub of 301 entries and the last row used; d 16 / 64 /
+    100 in f32 and 64 in bf16. Bit-equal to the plain version's sequential
+    sum on the host and over two calls; f32 within 1e-5 of the largest entry
+    of ``index_add_`` on the card (its atomics sum in another order). Then
+    ``gather_rows`` and ``scatter_rows``: values and gradients bit-equal to
+    the host's ``index_select`` / ``index_add``. Returns the largest abs
+    error against ``index_add_`` on the card."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_scatter as cs
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rows, n = 5000, 12_001
+    worst = 0.0
+    for d, dtype in ((16, torch.float32), (64, torch.float32), (100, torch.float32),
+                     (64, torch.bfloat16)):
+        what = f"sorted_index_add d={d} {str(dtype)[6:]}"
+        idx = torch.randint(0, rows // 2, (n,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        idx[::40] = 11
+        idx[:3] = rows - 1
+        x = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+        order, starts = cs.sort_rows(idx, rows)
+        out = cs.sorted_index_add(x, order, starts, rows)
+        again = cs.sorted_index_add(x, order, starts, rows)
+        host = cs.sorted_index_add_plain(x.cpu(), order.cpu(), starts.cpu(), rows)
+        card = torch.zeros(rows, d, dtype=dtype, device="cuda").index_add_(0, idx, x)
+        torch.cuda.synchronize()
+        check(out.dtype == dtype and out.shape == (rows, d), f"{what}: shape or type")
+        check(torch.equal(out, again), f"{what}: two calls differ")
+        check(torch.equal(out.cpu(), host),
+              f"{what}: differs from the plain version's sequential sum on the host "
+              f"(max abs {(out.cpu().float() - host.float()).abs().max().item():.3e})")
+        check(not bool(out[rows // 2:rows - 1].any()), f"{what}: a row with no entry is not zero")
+        err = (out.float() - card.float()).abs().max().item()
+        if dtype == torch.float32:
+            check(err <= 1e-5 * card.abs().max().item(),
+                  f"{what}: {err:.3e} from index_add_ on the card")
+            worst = max(worst, err)
+        log(f"[kernel] {what}: {n} entries over {rows} rows (hub of "
+            f"{int((idx == 11).sum())}): bit-equal to the plain version on the host "
+            f"and over two calls; max abs err vs index_add_ on the card {err:.3e}")
+    x = torch.randn(rows, 64, device="cuda", generator=gen)
+    g = torch.randn(n, 64, device="cuda", generator=gen)
+    a = x.clone().requires_grad_(True)
+    y = cs.gather_rows(a, idx, order, starts)
+    (ga,) = torch.autograd.grad((y * g).sum(), a)
+    b = x.cpu().requires_grad_(True)
+    (gb,) = torch.autograd.grad((b.index_select(0, idx.cpu()) * g.cpu()).sum(), b)
+    check(torch.equal(y.cpu(), x.cpu().index_select(0, idx.cpu())) and torch.equal(ga.cpu(), gb),
+          "gather_rows: value or gradient differs from the host's index_select")
+    a = g.clone().requires_grad_(True)
+    y = cs.scatter_rows(a, idx, order, starts, rows)
+    (ga,) = torch.autograd.grad((y * x).sum(), a)
+    b = g.cpu().requires_grad_(True)
+    ref = torch.zeros(rows, 64).index_add(0, idx.cpu(), b)
+    (gb,) = torch.autograd.grad((ref * x.cpu()).sum(), b)
+    check(torch.equal(y.detach().cpu(), ref.detach()) and torch.equal(ga.cpu(), gb),
+          "scatter_rows: value or gradient differs from the host's index_add")
+    log("[kernel] gather_rows / scatter_rows: values and gradients bit-equal to the "
+        "host's index_select / index_add")
     return worst
 
 
@@ -920,7 +1032,8 @@ def main() -> int:
         edge_retention, partition_bipartite_greedy)
     from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import init_params
     from movie_recommender_system_with_gnns_tpu_torch.ops import (
-        _build, bpr, cuda_bpr, cuda_mips)
+        _build, bpr, cuda_bpr, cuda_mips, cuda_scatter)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_scatter import sort_rows
     from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import sample_negative
     from movie_recommender_system_with_gnns_tpu_torch.serving.recommend import (
         _MASK_TILE, ServingIndex)
@@ -930,8 +1043,8 @@ def main() -> int:
     from movie_recommender_system_with_gnns_tpu_torch.training.pipeline import (
         densify_if_fits)
     from movie_recommender_system_with_gnns_tpu_torch.training.train import (
-        build_eval_batch, create_train_state, epoch_generator, loss_and_grads,
-        train_model)
+        TrainState, build_eval_batch, create_train_state, epoch_generator,
+        loss_and_grads, train_model)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -956,10 +1069,13 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build]   {line.strip()}")
+            elif "Compiling entry function" in line:
+                log(f"[build]   {line.strip()[:120]}")
 
     # 3. kernels against their plain versions
     kernel_err = kernel_phase()
     bpr_err = bpr_kernel_phase(bw)
+    scatter_err = scatter_kernel_phase()
     ell_err = ell_kernel_phase()
     block_err = mips_block_phase()
     if "--kernels-only" in sys.argv[1:]:
@@ -1147,6 +1263,12 @@ def main() -> int:
         check(train_launches.get("bpr_tile", 0) == steps,
               f"bpr_tile launched {train_launches.get('bpr_tile', 0)} times, "
               f"expected one per step ({steps})")
+        # per step: the negatives' gradient rows; on the segment path also
+        # each hop's message sum and its gather's backward
+        scatters = steps * (1 + (0 if dense else 2 * TRAIN["layers"]))
+        check(train_launches.get("sorted_index_add", 0) == scatters,
+              f"sorted_index_add launched {train_launches.get('sorted_index_add', 0)} "
+              f"times, expected {scatters}")
         check(all(np.isfinite(v) for key in hist for v in hist[key]),
               f"a loss or metric is not finite: {hist}")
         check(hist["train_loss"][1] < hist["train_loss"][0],
@@ -1201,8 +1323,37 @@ def main() -> int:
             f"{l_d.item():.6f} vs {l_s.item():.6f}, item grad rel err {ri:.3e}")
         del one, g_d, g_s
 
-        # a third epoch, timed alone (no eval), then a profiled window of steps
+        # one step twice from the same state, order and negatives: parameters
+        # and Adam moments bit-equal, on the dense bf16 block (the main path)
+        # and on the segment path
         epoch_fn = compact.make_compact_epoch_fn(cfg)
+        copy = lambda st: TrainState(
+            type(st.params)(*(t.clone() for t in st.params)),
+            type(st.opt_state)(st.opt_state.count,
+                               type(st.params)(*(t.clone() for t in st.opt_state.mu)),
+                               type(st.params)(*(t.clone() for t in st.opt_state.nu))),
+            st.step)
+        for path, cc_p in (("dense bf16" if dense else "segment", cc),
+                           ("segment", dataclasses.replace(cc, adj=None))):
+            before = dict(launches)
+            runs = [epoch_fn(copy(state), cc_p, None, perm=[c_id], neg=neg[None])[0]
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            a, b = runs
+            pairs = list(zip(a.params + a.opt_state.mu + a.opt_state.nu,
+                             b.params + b.opt_state.mu + b.opt_state.nu))
+            same = [torch.equal(x, y) for x, y in pairs]
+            check(all(same), f"cluster {c_id}'s step on the {path} path is not "
+                  f"bit-equal over two runs (params and moments equal: {same})")
+            check(not torch.equal(a.params.item_emb, state.params.item_emb),
+                  f"the {path} step changed nothing")
+            n_sc = launches["sorted_index_add"] - before.get("sorted_index_add", 0)
+            log(f"[train] cluster {c_id}, one step run twice on the {path} path: "
+                f"parameters and Adam moments bit-equal ({n_sc // 2} sorted_index_add "
+                f"launches per step)")
+            del runs, a, b, pairs
+
+        # a third epoch, timed alone (no eval), then a profiled window of steps
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, loss3 = epoch_fn(state, cc, epoch_generator(cfg, TRAIN["epochs"],
@@ -1237,10 +1388,19 @@ def main() -> int:
             loc, inc = compact._neg_local_index(item_ids, neg, cc.i_pad)
             kargs = (u_tab, i_tab, ni, ul, pl, loc, inc.to(torch.int32),
                      mask.to(torch.int32))
+            # the trainer's lists: the cluster's, and the step's negative runs
+            lists = cc.lists(c_id)
+            neg_prep = lambda: compact.step_incidence(
+                lists, sort_rows(neg, data.num_items))
+            step_lists = neg_prep()
         kw = dict(scale=scale, bpr_coeff=cfg.train.bpr_coeff, loss="reference")
-        b1_err = check_bpr(kargs, f"bpr_tile at cluster {c_id}'s shape", **kw)
-        b1 = time_bpr(kargs, **kw)
-        check(b1["kernels"] <= 8, f"bpr_tile enqueues {b1['kernels']} kernels per call")
+        b1_err = check_bpr(kargs, f"bpr_tile at cluster {c_id}'s shape", step_lists,
+                           also=[cuda_bpr.bpr_incidence(*kargs[3:], cc.u_pad, cc.i_pad)],
+                           **kw)
+        b1 = time_bpr(kargs, step_lists, neg_prep=neg_prep, **kw)
+        check(b1["kernels"] <= 2 and b1["memsets"] == 0,
+              f"bpr_tile enqueues {b1['kernels']} kernels and {b1['memsets']} "
+              f"memsets per call")
         b1_plain = time_ms(lambda: cuda_bpr.bpr_tile_plain(*kargs, **kw), 5, warmup=1)
         valid, in_cl = int(mask.sum()), int((inc & mask).sum())
         d = FULL["dim"]
@@ -1249,19 +1409,60 @@ def main() -> int:
                      f"B {width} of which {valid} valid and {in_cl} negatives in "
                      f"the cluster, d={d})", b1, b1_bound, b1_by, byts, flops, b1_plain)
         log(f"[kernel] bpr_tile at cluster {c_id}'s shape: max abs err "
-            f"{b1_err:.3e}, bit-equal over two calls and two grids of pass 1 "
-            f"(phase 3 max err {bpr_err:.3e})")
+            f"{b1_err:.3e}, bit-equal over two calls, two grids of pass 1 and "
+            f"the lists bpr_incidence builds from the same arrays (phase 3 max "
+            f"err {bpr_err:.3e})")
         rows.append(dict(name="bpr_tile", **KERNEL_ROWS["bpr_tile"],
                          launches=train_launches["bpr_tile"], max_abs_err=b1_err,
                          ms=b1["device"], plain_ms=b1_plain, bound_ms=b1_bound,
                          bound_by=b1_by, library_ms=None,
                          ms_method="device time of one wrapper call, torch.profiler",
                          launches_per_call=b1["kernels"],
-                         memsets_per_call=b1["memsets"], kernel_ms=b1["kernel"],
-                         pass1_ms=b1["pass1"], sort_ms=b1["sort"],
-                         starts_ms=b1["starts"], pass2_ms=b1["pass2"],
+                         memsets_per_call=b1["memsets"], pass1_ms=b1["pass1"],
+                         pass2_ms=b1["pass2"], step_neg_sort_ms=b1["neg_sort"],
+                         step_neg_starts_ms=b1["neg_starts"],
                          wrapper_ms=b1["wrapper"]))
-        del cc, val, test, kargs, u_tab, i_tab, ni, acc, final
+
+        # 7e. sorted_index_add at the step's negatives: their gradient rows
+        # over the catalog (B entries, 59,047 rows, d 64, f32)
+        order, starts = sort_rows(neg, data.num_items)
+        g_rows = torch.randn(width, d, device="cuda", generator=gen_c)
+        sc = lambda: cuda_scatter.sorted_index_add(g_rows, order, starts, data.num_items)
+        out_k = sc()
+        out_h = cuda_scatter.sorted_index_add_plain(g_rows.cpu(), order.cpu(),
+                                                    starts.cpu(), data.num_items)
+        lib = lambda: torch.zeros(data.num_items, d, device="cuda").index_add_(0, neg, g_rows)
+        out_l = lib()
+        torch.cuda.synchronize()
+        sc_err = (out_k - out_l).abs().max().item()
+        check(torch.equal(out_k.cpu(), out_h) and torch.equal(out_k, sc())
+              and sc_err <= 1e-5 * out_l.abs().max().item(),
+              f"sorted_index_add at the step's negatives: {sc_err:.3e} from "
+              f"index_add_, or not bit-equal to the host's plain version")
+        sc_dev, _ = profiled_ms(sc, 20, "sorted_index_add_kernel")
+        sc_events = time_ms(sc, 20)
+        sc_plain = time_ms(lambda: cuda_scatter.sorted_index_add_plain(
+            g_rows, order, starts, data.num_items), 5, warmup=1)
+        sc_lib = time_ms(lib, 20)
+        byts = (width * d * 4 + 4 * width + 4 * (data.num_items + 1)
+                + data.num_items * d * 4)
+        t_bytes, t_ops = byts / bw * 1e3, width * d / F32_FLOPS * 1e3
+        sc_bound, sc_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[kernel] sorted_index_add at the step's negatives ({width} entries, "
+            f"{int(torch.unique(neg).numel())} distinct, over {data.num_items} rows, "
+            f"d={d}, f32): {sc_dev:.4f} ms of device time per call (profiler), "
+            f"{sc_events:.4f} ms by CUDA events; plain {sc_plain:.4f} ms; "
+            f"zeros + index_add_ {sc_lib:.4f} ms; bound {sc_bound:.4f} ms ({sc_by}: "
+            f"{byts / 1e6:.2f} MB), {sc_bound / sc_dev:.3f} of the bound; max abs err vs "
+            f"index_add_ {sc_err:.3e}, bit-equal to the host's plain version "
+            f"(phase 3 max err {scatter_err:.3e})")
+        rows.append(dict(name="sorted_index_add", **KERNEL_ROWS["sorted_index_add"],
+                         launches=train_launches["sorted_index_add"],
+                         max_abs_err=sc_err, ms=sc_dev, plain_ms=sc_plain,
+                         bound_ms=sc_bound, bound_by=sc_by, library_ms=sc_lib,
+                         ms_method="device time of one call, torch.profiler",
+                         wrapper_ms=sc_events))
+        del cc, val, test, kargs, u_tab, i_tab, ni, acc, final, g_rows, out_k, out_l
 
         # 5b. eval and propagated serving at the same width
         rows += new_path_phase(data, (train_e, val_e, test_e),
@@ -1318,9 +1519,10 @@ def main() -> int:
         meet_launches = dict(launches)
         log(f"[meet] kernel launches, trained -> served and the CLI: {meet_launches}")
         check(meet_launches.get("bpr_tile", 0) == SMALL["clusters"]
+              and meet_launches.get("sorted_index_add", 0) >= SMALL["clusters"]
               and meet_launches.get("score_chunkmax", 0) >= 2
               and meet_launches.get("ell_spmm", 0) >= TRAIN["layers"],
-              "the CLI phase did not go through its three kernels")
+              "the CLI phase did not go through its four kernels")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -5,13 +5,19 @@ Two routes, one build directory:
 
   * ``csrc/<name>.cu``, the CUDA kernels, through ``nvcc`` for ``sm_90a``;
   * the host C++ sources named in :data:`HOST_SOURCES` (the graph runtime
+    ``csrc/graphcore.cpp``, a byte-equal copy of the JAX package's
     ``native/graphcore.cpp``) through ``g++`` without ``-march=native``, so
     the library runs on whatever host loads it.
 
-Each source builds at first use into ``<package>/build/`` (listed in
-``.gitignore``) as ``lib<name>-<hash>.so``, where the hash covers the source
-and the flags, so an edited source rebuilds and a stale library is never
-loaded. Nothing is written beside the sources. The compiler's output (for
+Every source lies inside the package (its package data), so an installed
+port builds as a checkout does. Each source builds at first use into
+``<package>/build/`` (listed in ``.gitignore``), or, where that cannot be
+written (an install owned by another user), into a per-user cache,
+``$XDG_CACHE_HOME`` or ``~/.cache``, under
+``movie_recommender_system_with_gnns_tpu_torch/<hash of the package path>``;
+as ``lib<name>-<hash>.so``, where the hash covers the source and the flags,
+so an edited source rebuilds and a stale library is never loaded. Nothing is
+written beside the sources. The compiler's output (for
 ``nvcc``, ``-Xptxas -v``: registers, shared memory, spills) is kept beside the
 library as ``.log``. A failed build raises with the compiler's stderr.
 """
@@ -29,14 +35,32 @@ from typing import Dict, List, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")
 #: host C++ libraries by name: source path (everything else is csrc/<name>.cu)
 HOST_SOURCES: Dict[str, Path] = {
-    "graphcore": PACKAGE_DIR.parent / "native" / "graphcore.cpp",
+    "graphcore": CSRC / "graphcore.cpp",
 }
+
+
+def _writable(path: Path) -> bool:
+    """Whether ``path`` is, or could be made, a directory this user writes."""
+    while not path.exists():
+        path = path.parent
+    return path.is_dir() and os.access(path, os.W_OK | os.X_OK)
+
+
+def choose_build_dir(preferred: Path) -> Path:
+    """``preferred`` when it can be written, else the per-user cache."""
+    if _writable(preferred):
+        return preferred
+    cache = os.environ.get("XDG_CACHE_HOME") or str(Path.home() / ".cache")
+    key = hashlib.sha256(str(PACKAGE_DIR).encode()).hexdigest()[:16]
+    return Path(cache) / PACKAGE_DIR.name / key
+
+
+BUILD_DIR = choose_build_dir(PACKAGE_DIR / "build")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -20,22 +20,25 @@ exact f32 values (the TPU kernel rounds them to bf16).
   * :func:`fused_bpr_loss_plain` is the same loss as row gathers and autograd
     (the row-gather route of ``training/compact.py::_triplet_loss``).
 
-No float is summed by atomics: pass 1 writes each triplet's row gradients,
-a stable sort lists each table row's triplets, and pass 2 sums every row and
-the loss in an order fixed by the data, so two calls on the same inputs give
-bit-equal outputs.
+No float is summed by atomics: each table row's triplets come with the call
+as lists (:class:`BprIncidence`; the compact trainer keeps the user and
+positive lists per cluster and takes the negatives' from the step's one sort,
+other callers build them with :func:`bpr_incidence`), pass 1 writes each
+triplet's gradient coefficients, and pass 2 sums every row and the loss in
+an order fixed by the data, so two calls on the same inputs give bit-equal
+outputs.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ._build import LAUNCHES
 from .bpr import select_bpr_loss
+from .cuda_scatter import sort_rows
 
 MAX_DIM = 512   # lanes stride over d with at most 16 elements each
 
@@ -82,6 +85,46 @@ def bpr_tile_plain(u_tab, i_tab, ni, ul, pl, loc, inc, m, *, scale: float,
     return out.detach(), gu, gi, gni
 
 
+class BprIncidence(NamedTuple):
+    """Each table row's triplets, as the kernel reads them (int32 on the
+    kernel's device). A user or positive entry ``e`` stands for the ``kneg``
+    triplets ``e·kneg + k``; every list holds its triplets in ascending order.
+
+    user_order / user_start (u_pad + 1): each user row's valid triplets, and
+    ``user_start[u_pad]·kneg`` is the valid count; pos_order / pos_start
+    (i_pad + 1): each item row's valid positive triplets; neg_order /
+    neg_range (2·i_pad): item row ``r``'s in-cluster negatives are
+    ``neg_order[neg_range[r]:neg_range[i_pad + r]]``, masked ones skipped.
+    """
+
+    user_order: torch.Tensor
+    user_start: torch.Tensor
+    pos_order: torch.Tensor
+    pos_start: torch.Tensor
+    neg_order: torch.Tensor
+    neg_range: torch.Tensor
+    kneg: int = 1
+
+
+def bpr_incidence(ul, pl, loc, inc, m, u_pad: int, i_pad: int,
+                  kneg: int = 1) -> BprIncidence:
+    """The lists of one call's triplets, by stable sorts on their device.
+
+    ``kneg > 1`` is the trainer's layout (users, positives and the mask
+    repeated per group of ``kneg`` triplets): the user and positive lists are
+    built from each group's first triplet, with entries that stand for the
+    whole group. The negative lists hold the valid in-cluster triplets of each
+    local item row (``loc`` where ``inc``)."""
+    valid = m != 0
+    sentinel = lambda keys, ok, rows: torch.where(ok, keys, torch.full_like(keys, rows))
+    vk = valid[::kneg]
+    user_order, user_start = sort_rows(sentinel(ul[::kneg], vk, u_pad), u_pad)
+    pos_order, pos_start = sort_rows(sentinel(pl[::kneg], vk, i_pad), i_pad)
+    neg_order, neg_start = sort_rows(sentinel(loc, valid & (inc != 0), i_pad), i_pad)
+    return BprIncidence(user_order, user_start, pos_order, pos_start, neg_order,
+                        torch.cat([neg_start[:-1], neg_start[1:]]), kneg)
+
+
 def _library() -> ctypes.CDLL:
     from . import _build
 
@@ -89,42 +132,43 @@ def _library() -> ctypes.CDLL:
     fn = lib.bpr_tile
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p] * 16 + [ctypes.c_size_t, ctypes.c_int64] + [
-            ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [p]
+        fn.argtypes = [p] * 20 + [ctypes.c_int64] + [ctypes.c_int] * 4 + [
+            ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [p]
         fn.restype = ctypes.c_int
-        lib.bpr_tile_temp_bytes.argtypes = [ctypes.c_int64, ctypes.c_int,
-                                            ctypes.POINTER(ctypes.c_size_t)]
-        lib.bpr_tile_temp_bytes.restype = ctypes.c_int
         lib.bpr_tile_error_string.argtypes = [ctypes.c_int]
         lib.bpr_tile_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: cudaError {err} "
-                           f"({lib.bpr_tile_error_string(err).decode()})")
-
-
-@functools.lru_cache(maxsize=64)
-def _sort_temp_bytes(b: int, rows: int) -> int:
-    """Bytes of scratch the sort of ``3 b`` keys over ``rows + 1`` values needs."""
-    lib = _library()
-    out = ctypes.c_size_t(0)
-    _check(lib, lib.bpr_tile_temp_bytes(b, rows, ctypes.byref(out)),
-           "bpr_tile_temp_bytes")
-    return out.value
+def _check_incidence(inc: BprIncidence, b: int, u_pad: int, i_pad: int,
+                     device) -> None:
+    if inc.kneg < 1 or b % inc.kneg:
+        raise ValueError(f"incidence kneg={inc.kneg} does not divide B={b}")
+    groups = b // inc.kneg
+    want = dict(user_order=groups, user_start=u_pad + 1, pos_order=groups,
+                pos_start=i_pad + 1, neg_order=b, neg_range=2 * i_pad)
+    for name, n in want.items():
+        t = getattr(inc, name)
+        if (t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous()
+                or t.device != device or t.shape[0] < n
+                or (name.endswith(("start", "range")) and t.shape[0] != n)):
+            raise ValueError(f"incidence.{name} must be contiguous int32 1-D with "
+                             f"{n} entries on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def bpr_tile(u_tab, i_tab, ni, ul, pl, loc, inc, m, *, scale: float,
-             bpr_coeff: float, loss: str = "reference"
+             bpr_coeff: float, loss: str = "reference",
+             incidence: Optional[BprIncidence] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One call: (loss (), gu (u_pad, 2d), gi (i_pad, 2d), gni (B, d)).
 
     u_tab (u_pad, 2d), i_tab (i_pad, 2d), ni (B, d): contiguous f32;
     ul, pl, loc (local rows, in range), inc (in-cluster flag) and m (validity)
-    are contiguous int32 (B,). The index values are not checked on the device:
-    callers build them from the cluster's host arrays and ``searchsorted``.
+    are contiguous int32 (B,). ``incidence`` lists each row's triplets; left
+    None it is built by :func:`bpr_incidence` from these arrays. The index
+    values and the lists are not checked against each other on the device:
+    callers build both from the same cluster.
     """
     if loss not in ("reference", "standard"):
         raise ValueError(f"unknown loss {loss!r}")
@@ -151,18 +195,22 @@ def bpr_tile(u_tab, i_tab, ni, ul, pl, loc, inc, m, *, scale: float,
             raise ValueError(f"{name} must be contiguous int32 ({b},) on "
                              f"{u_tab.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
-    if 3 * b >= 2 ** 31 - 1:
-        raise ValueError(f"bpr_tile takes fewer than 2**31 / 3 triplets, got {b}")
-    return _launch(u_tab, i_tab, ni, ul, pl, loc, inc, m, scale, bpr_coeff, loss)
+    if b >= 2 ** 31 - 1:
+        raise ValueError(f"bpr_tile takes fewer than 2**31 triplets, got {b}")
+    u_pad, i_pad = u_tab.shape[0], i_tab.shape[0]
+    if incidence is None:
+        incidence = bpr_incidence(ul, pl, loc, inc, m, u_pad, i_pad)
+    _check_incidence(incidence, b, u_pad, i_pad, u_tab.device)
+    return _launch(u_tab, i_tab, ni, ul, pl, loc, inc, m, incidence, scale,
+                   bpr_coeff, loss)
 
 
-def _launch(u_tab, i_tab, ni, ul, pl, loc, inc, m, scale: float,
-            bpr_coeff: float, loss: str, grid: int = 0
+def _launch(u_tab, i_tab, ni, ul, pl, loc, inc, m, incidence: BprIncidence,
+            scale: float, bpr_coeff: float, loss: str, grid: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Enqueue pass 1, the sort, the row starts and pass 2 on the current
-    stream for validated inputs; every output and scratch buffer comes from
-    ``torch.empty``. ``grid`` > 0 sets pass 1's block count (the outputs do
-    not depend on it)."""
+    """Enqueue pass 1 and pass 2 on the current stream for validated inputs;
+    every output and scratch buffer comes from ``torch.empty``. ``grid`` > 0
+    sets pass 1's block count (the outputs do not depend on it)."""
     lib = _library()
     b, d = ni.shape
     u_pad, i_pad = u_tab.shape[0], i_tab.shape[0]
@@ -173,24 +221,21 @@ def _launch(u_tab, i_tab, ni, ul, pl, loc, inc, m, scale: float,
     gi = outs[nu:nu + nit].view_as(i_tab)
     out = outs[nu + nit:]
     gni = torch.empty_like(ni)
-    # lt (B, 2) first, so its float2 loads stay aligned, then the scratch
-    # rows (3B, d); keys, keys', order, order' of 3B each (rounded up to 32)
-    # and the row starts (u_pad + i_pad + 1)
-    floats = torch.empty(2 * b + 3 * b * d, dtype=torch.float32, device=dev)
-    ints = torch.empty(4 * (-(-3 * b // 32) * 32) + u_pad + i_pad + 1,
-                       dtype=torch.int32, device=dev)
-    temp_bytes = _sort_temp_bytes(b, u_pad + i_pad)
-    temp = torch.empty(max(temp_bytes, 1), dtype=torch.uint8, device=dev)
+    # pass 1's per-triplet records: ru (B, 4) first, for its 16-byte loads,
+    # then lt, rp and rn (B, 2) each; un (B,)
+    floats = torch.empty(10 * b, dtype=torch.float32, device=dev)
+    ints = torch.empty(b, dtype=torch.int32, device=dev)
+    ptr = lambda t: t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bpr_tile(
-            u_tab.data_ptr(), i_tab.data_ptr(), ni.data_ptr(), ul.data_ptr(),
-            pl.data_ptr(), loc.data_ptr(), inc.data_ptr(), m.data_ptr(),
-            out.data_ptr(), gu.data_ptr(), gi.data_ptr(), gni.data_ptr(),
-            floats[2 * b:].data_ptr(), floats.data_ptr(), ints.data_ptr(),
-            temp.data_ptr(), temp_bytes, b, d, u_pad, i_pad, float(scale),
-            float(bpr_coeff), int(loss == "reference"), int(grid), stream)
-    _check(lib, err, "bpr_tile launch")
+            *map(ptr, (u_tab, i_tab, ni, ul, pl, loc, inc, m, *incidence[:6],
+                       out, gu, gi, gni, floats, ints)),
+            b, d, u_pad, i_pad, incidence.kneg, float(scale), float(bpr_coeff),
+            int(loss == "reference"), int(grid), stream)
+    if err != 0:
+        raise RuntimeError(f"bpr_tile launch failed: cudaError {err} "
+                           f"({lib.bpr_tile_error_string(err).decode()})")
     LAUNCHES["bpr_tile"] += 1
     return out[0], gu, gi, gni
 
@@ -201,12 +246,12 @@ class _FusedBPR(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, fu, u_rows, fi, i_rows, ni, ul, pl, loc, inc, m,
-                scale, bpr_coeff, loss):
+                scale, bpr_coeff, loss, incidence):
         u_tab = torch.cat([fu, u_rows], dim=1)
         i_tab = torch.cat([fi, i_rows], dim=1)
         out, gu, gi, gni = bpr_tile(u_tab, i_tab, ni.contiguous(), ul, pl, loc,
                                     inc, m, scale=scale, bpr_coeff=bpr_coeff,
-                                    loss=loss)
+                                    loss=loss, incidence=incidence)
         ctx.save_for_backward(gu, gi, gni)
         return out
 
@@ -215,17 +260,20 @@ class _FusedBPR(torch.autograd.Function):
         gu, gi, gni = ctx.saved_tensors
         d = gni.shape[1]
         return (gu[:, :d] * ct, gu[:, d:] * ct, gi[:, :d] * ct, gi[:, d:] * ct,
-                gni * ct) + (None,) * 8
+                gni * ct) + (None,) * 9
 
 
 def fused_bpr_loss(fu, u_rows, fi, i_rows, ni, user_local, pos_local, loc,
                    in_cluster, mask, *, scale: float, bpr_coeff: float,
-                   loss: str = "reference") -> torch.Tensor:
+                   loss: str = "reference",
+                   incidence: Optional[BprIncidence] = None) -> torch.Tensor:
     """BPR loss (``ops/bpr.py::bpr_loss`` / ``bpr_loss_standard`` semantics)
     through the fused kernel; differentiable w.r.t. the five embedding
     arguments. fu/u_rows (u_pad, d), fi/i_rows (i_pad, d), ni (B, d) f32;
-    user_local, pos_local, loc integer (B,); in_cluster, mask bool (B,)."""
+    user_local, pos_local, loc integer (B,); in_cluster, mask bool (B,).
+    ``incidence``: the rows' lists (the compact trainer passes the cluster's
+    and the step's); left None, :func:`bpr_incidence` builds them."""
     i32 = lambda t: t.to(torch.int32).contiguous()
     return _FusedBPR.apply(fu, u_rows, fi, i_rows, ni, i32(user_local),
                            i32(pos_local), i32(loc), i32(in_cluster), i32(mask),
-                           float(scale), float(bpr_coeff), loss)
+                           float(scale), float(bpr_coeff), loss, incidence)

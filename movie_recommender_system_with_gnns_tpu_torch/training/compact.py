@@ -12,7 +12,7 @@ cluster's COMPACT node space:
   * gather the cluster's user/item rows from the global tables (one gather per
     table; autograd turns it into one scatter-add per table on backward);
   * run the K-layer propagation over local ids (small tensors): dense-Â
-    matmuls when the clusters carry ``adj``, gather + ``index_add`` otherwise;
+    matmuls when the clusters carry ``adj``, gather + row sum otherwise;
   * negatives stay reference-semantics: sampled uniformly over the FULL item
     catalog (helpers.py:79-80). An out-of-cluster negative receives no
     messages under cluster propagation, so its final embedding is analytically
@@ -20,7 +20,17 @@ cluster's COMPACT node space:
     row, resolved by a ``searchsorted`` membership probe.
 
 With ``TrainConfig.fused_bpr`` the triplet loss and its gradients come from
-the hand-written kernel behind ``ops/cuda_bpr.py::fused_bpr_loss``. The epoch
+the hand-written kernel behind ``ops/cuda_bpr.py::fused_bpr_loss``.
+
+A step is run-to-run deterministic on the card: every scatter of repeated
+rows sums in an order fixed by the data. ``build_compact_clusters`` lists, once
+per cluster on the host, the stable orders of the segment path's ``src`` and
+``dst`` and the fused kernel's user and positive incidence
+(:class:`ClusterLists`); each step sorts its negatives once
+(``ops/cuda_scatter.py::sort_rows``), and that order serves both the
+negatives' gradient scatter (``gather_rows``) and the kernel's negative
+lists. The gathers of ``user_ids``/``item_ids`` repeat only padding ids, whose
+gradient rows are exact zeros, so their atomic scatter adds nothing. The epoch
 is a Python loop over the clusters (the JAX package fuses it into one
 ``lax.scan``); per-step host work and synchronisation are kept out of it.
 ``optimizer="adam"`` only: the lazy/hybrid Adam variants, exact-feasible
@@ -31,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,10 +50,54 @@ from ..config import Config
 from ..data.graph import gcn_norm
 from ..models.lightgcn import LightGCNParams
 from ..ops.bpr import select_bpr_loss
+from ..ops.cuda_scatter import gather_rows, scatter_rows, sort_rows
 from ..ops.sampling import check_negatives_mode, sample_negative
 from ..ops.topk import DTypeLike
 from ..utils.device import DeviceLike, as_dtype, resolve_device
 from .train import TrainState, loss_and_grads, make_optimizer
+
+
+class ClusterLists(NamedTuple):
+    """One cluster's row lists (int32), as ``ops/cuda_scatter.py::sort_rows``
+    gives them: a stable order of an index array and its row starts.
+
+    ``src``/``dst`` over the ``n_local`` compact nodes (the segment path's
+    gather and sum); ``user_local``/``pos_local`` of the valid triplets over
+    ``u_pad``/``i_pad`` rows (the fused kernel's user and positive incidence,
+    a masked triplet keyed to the sentinel row); ``neg_keys`` (2·i_pad) the
+    ids that bound each local item row's run among the step's sorted
+    negatives: ``item_ids``, then ``item_ids + 1`` on a valid row and
+    ``item_ids`` on a padding row (an empty run)."""
+
+    src_order: torch.Tensor
+    src_start: torch.Tensor
+    dst_order: torch.Tensor
+    dst_start: torch.Tensor
+    user_order: torch.Tensor
+    user_start: torch.Tensor
+    pos_order: torch.Tensor
+    pos_start: torch.Tensor
+    neg_keys: torch.Tensor
+
+
+def _np_sort_rows(keys: np.ndarray, rows: int) -> Tuple[np.ndarray, np.ndarray]:
+    """NumPy twin of ``sort_rows``: (stable order, row starts), int32."""
+    order = np.argsort(keys, kind="stable")
+    starts = np.searchsorted(keys[order], np.arange(rows + 1), side="left")
+    return order.astype(np.int32), starts.astype(np.int32)
+
+
+def _np_cluster_lists(item_ids, src, dst, user_local, pos_local, mask,
+                      u_pad: int, i_pad: int) -> Tuple[np.ndarray, ...]:
+    """:class:`ClusterLists`' fields for one cluster's host arrays; a valid
+    item row is the first of its id (padding repeats the last valid id)."""
+    n_local = u_pad + i_pad
+    valid = np.ones(len(item_ids), bool)
+    valid[1:] = item_ids[1:] != item_ids[:-1]
+    return (*_np_sort_rows(src, n_local), *_np_sort_rows(dst, n_local),
+            *_np_sort_rows(np.where(mask, user_local, u_pad), u_pad),
+            *_np_sort_rows(np.where(mask, pos_local, i_pad), i_pad),
+            np.concatenate([item_ids, item_ids + valid]).astype(np.int32))
 
 
 @dataclass(frozen=True)
@@ -79,6 +133,8 @@ class CompactClusters:
     # optional densified Â per cluster (K, n_local, n_local): turns the
     # propagation into matmuls (see densify_adjacency)
     adj: Optional[torch.Tensor] = None
+    # per-cluster row lists (ClusterLists' fields, each stacked over clusters)
+    row_lists: Optional[ClusterLists] = None
 
     @property
     def num_clusters(self) -> int:
@@ -88,6 +144,13 @@ class CompactClusters:
         """The 8-tuple :func:`compact_cluster_loss` takes for cluster ``c``."""
         return (self.user_ids[c], self.item_ids[c], self.src[c], self.dst[c],
                 self.w[c], self.user_local[c], self.pos_local[c], self.mask[c])
+
+    def lists(self, c: int) -> Optional[ClusterLists]:
+        """Cluster ``c``'s :class:`ClusterLists`, the ``lists`` argument of
+        :func:`compact_cluster_loss` (None when the clusters carry none)."""
+        if self.row_lists is None:
+            return None
+        return ClusterLists(*(t[c] for t in self.row_lists))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -106,7 +169,8 @@ def build_compact_clusters(
     Also builds the inverse user map (``user_cluster``/``user_slot``);
     ``users_disjoint`` records whether each user really appears in at most one
     cluster (true for the greedy node partition, false for random edge
-    partitions)."""
+    partitions); and each cluster's :class:`ClusterLists`, by NumPy stable
+    argsorts."""
     dev = resolve_device(device)
     parts = [p for p in parts if p.shape[1] > 0]
     infos = []
@@ -138,6 +202,7 @@ def build_compact_clusters(
     edge_counts = np.zeros(k, np.float32)
     user_valid = np.zeros((k, u_pad), bool)
     item_valid = np.zeros((k, i_pad), bool)
+    lists = []
 
     n_local = u_pad + i_pad
     user_cluster = np.full(num_users, -1, np.int32)
@@ -169,6 +234,8 @@ def build_compact_clusters(
         edge_counts[c] = float(ecount)
         user_valid[c, : len(uu)] = True
         item_valid[c, : len(ii)] = True
+        lists.append(_np_cluster_lists(item_ids[c], src[c], dst[c], user_local[c],
+                                       pos_local[c], mask[c], u_pad, i_pad))
 
     t = lambda a: torch.from_numpy(a).to(dev)
     return CompactClusters(
@@ -178,7 +245,19 @@ def build_compact_clusters(
         item_valid=t(item_valid), u_pad=u_pad, i_pad=i_pad,
         user_cluster=t(user_cluster), user_slot=t(user_slot),
         users_disjoint=users_disjoint,
+        row_lists=ClusterLists(*(t(np.stack(f)) for f in zip(*lists))),
     )
+
+
+def cluster_lists(cluster: Tuple, u_pad: int, i_pad: int) -> ClusterLists:
+    """:class:`ClusterLists` of a :meth:`CompactClusters.cluster` tuple, listed
+    on the host as ``build_compact_clusters`` lists them and moved to the
+    tuple's device; for callers that hold a cluster's arrays but not its
+    lists."""
+    (_, item_ids, src, dst, _, user_local, pos_local, mask) = cluster
+    host = (t.cpu().numpy() for t in (item_ids, src, dst, user_local, pos_local, mask))
+    return ClusterLists(*(torch.from_numpy(a).to(src.device)
+                          for a in _np_cluster_lists(*host, u_pad, i_pad)))
 
 
 def densify_adjacency(cc: CompactClusters, dtype: DTypeLike = torch.bfloat16,
@@ -262,27 +341,35 @@ class _LowPrecisionAdjMatmul(torch.autograd.Function):
         return None, _LowPrecisionAdjMatmul._mm(adj.T, g).to(ctx.x_dtype)
 
 
-def _one_hop(cur, src, dst, w, adj, n_local):
-    """One propagation hop in the cluster's compact node space."""
+def _one_hop(cur, src, dst, w, adj, n_local, lists: Optional[ClusterLists] = None):
+    """One propagation hop in the cluster's compact node space. The segment
+    path gathers and sums its messages through ``lists``' stable orders of
+    ``src`` and ``dst`` (sorted here when None), so both directions sum in an
+    order fixed by the data."""
     if adj is not None:
         if adj.dtype == cur.dtype:
             return adj @ cur
         return _LowPrecisionAdjMatmul.apply(adj, cur)
-    msg = cur.index_select(0, src) * w[:, None].to(cur.dtype)
-    out = torch.zeros((n_local, cur.shape[1]), dtype=cur.dtype, device=cur.device)
-    return out.index_add(0, dst, msg)
+    if lists is None:
+        src_lists, dst_lists = sort_rows(src, n_local), sort_rows(dst, n_local)
+    else:
+        src_lists = (lists.src_order, lists.src_start)
+        dst_lists = (lists.dst_order, lists.dst_start)
+    msg = gather_rows(cur, src, *src_lists) * w[:, None].to(cur.dtype)
+    return scatter_rows(msg, dst, *dst_lists, n_local)
 
 
-def _propagate_local(emb, src, dst, w, adj, num_layers, n_local, corr=None):
+def _propagate_local(emb, src, dst, w, adj, num_layers, n_local, corr=None,
+                     lists: Optional[ClusterLists] = None):
     """Compact-space propagation: dense-Â matmuls when ``adj`` is present,
-    gather + ``index_add`` otherwise. Returns the layer-summed accumulator.
+    gather + row sum otherwise. Returns the layer-summed accumulator.
     ``corr`` (the frozen boundary correction) must be None."""
     if corr is not None:
         _not_ported("the frozen boundary correction (corr)")
     acc = emb
     cur = emb
     for _ in range(num_layers):
-        cur = _one_hop(cur, src, dst, w, adj, n_local)
+        cur = _one_hop(cur, src, dst, w, adj, n_local, lists)
         acc = acc + cur
     return acc
 
@@ -303,9 +390,24 @@ def _neg_local_index(item_ids: torch.Tensor, neg: torch.Tensor, i_pad: int):
     return loc, (lb < i_pad) & (item_ids[loc] == neg)
 
 
+def step_incidence(lists: ClusterLists, neg_lists: Tuple[torch.Tensor, torch.Tensor],
+                   kneg: int = 1):
+    """The fused kernel's ``BprIncidence`` for one step: the cluster's user and
+    positive lists (an entry per group of ``kneg`` triplets) and each local
+    item row's run among the step's sorted negatives, ``neg_lists = (order,
+    starts)`` of the flattened negatives over the catalog."""
+    from ..ops.cuda_bpr import BprIncidence
+
+    order, starts = neg_lists
+    return BprIncidence(lists.user_order, lists.user_start, lists.pos_order,
+                        lists.pos_start, order, starts.index_select(0, lists.neg_keys),
+                        kneg)
+
+
 def _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids, user_local,
-                  pos_local, mask, cfg: Config, i_pad: int,
-                  scale: float) -> torch.Tensor:
+                  pos_local, mask, cfg: Config, i_pad: int, scale: float,
+                  lists: ClusterLists,
+                  neg_lists: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """Compact-space BPR dispatch: the fused kernel when
     ``cfg.train.fused_bpr``, the row-gather route otherwise.
 
@@ -315,7 +417,10 @@ def _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids, user_local,
     equivalent, because both masked means in the loss decompose over the
     expansion (``ops/bpr.py::bpr_loss`` means over B·d reg entries and over B
     pairwise rows; with u/p repeated K times those equal the B·K-expanded
-    means).
+    means). The kernel's lists: the cluster's user and positive incidence
+    from ``lists`` (an entry stands for its K triplets) and each local item
+    row's run among the step's sorted negatives, ``neg_lists`` = ``(order,
+    starts)`` of the flattened ``neg`` over the catalog.
     """
     d = u_rows.shape[1]
     if cfg.train.fused_bpr and cfg.train.loss in ("reference", "standard"):
@@ -333,10 +438,12 @@ def _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids, user_local,
         else:
             ul_x, pl_x, m_x, neg_x, ni_x = user_local, pos_local, mask, neg, ni
         loc, in_cluster = _neg_local_index(item_ids, neg_x, i_pad)
+        incidence = step_incidence(lists, neg_lists,
+                                   neg.shape[1] if neg.dim() == 2 else 1)
         return fused_bpr_loss(fu, u_rows, fi, i_rows, ni_x, ul_x, pl_x, loc,
                               in_cluster, m_x, scale=scale,
                               bpr_coeff=cfg.train.bpr_coeff,
-                              loss=cfg.train.loss)
+                              loss=cfg.train.loss, incidence=incidence)
 
     u_cat = torch.cat([fu, u_rows], dim=1)[user_local]          # (B, 2d)
     uf, ui = u_cat[:, :d], u_cat[:, d:]
@@ -359,12 +466,16 @@ def compact_cluster_loss(
     u_pad: int,
     i_pad: int,
     adj: Optional[torch.Tensor] = None,
+    lists: Optional[ClusterLists] = None,
 ) -> torch.Tensor:
     """Reference-equivalent BPR loss for one compact cluster.
 
     Matches ``training.train.compute_loss`` over the same cluster with global
     propagation. ``neg`` may be (B,) or (B, K): K uniform negatives per
-    positive. ``cluster`` is :meth:`CompactClusters.cluster`'s 8-tuple.
+    positive. ``cluster`` is :meth:`CompactClusters.cluster`'s 8-tuple and
+    ``lists`` its :meth:`CompactClusters.lists` (listed here when None). The
+    negatives are sorted once: their gradient rows and the fused kernel's
+    negative lists share the order.
     """
     (user_ids, item_ids, src, dst, w, user_local, pos_local, mask) = cluster
     n_local = u_pad + i_pad
@@ -374,15 +485,22 @@ def compact_cluster_loss(
 
     u_rows = params.user_emb.index_select(0, user_ids)      # (Upad, d) gather
     i_rows = params.item_emb.index_select(0, item_ids)      # (Ipad, d)
+    if lists is None:
+        lists = cluster_lists(cluster, u_pad, i_pad)
     emb = torch.cat([u_rows, i_rows], dim=0).to(cdtype)
-    acc = _propagate_local(emb, src, dst, w, adj, cfg.model.num_layers, n_local)
+    acc = _propagate_local(emb, src, dst, w, adj, cfg.model.num_layers, n_local,
+                           lists=lists)
     final = acc.to(torch.float32) * scale
     fu, fi = final[:u_pad], final[u_pad:]
 
-    ni = params.item_emb.index_select(0, neg.reshape(-1)).reshape(
+    # the step's one sort of its negatives (global ids over the catalog)
+    neg_flat = neg.reshape(-1)
+    neg_lists = sort_rows(neg_flat, params.item_emb.shape[0])
+    ni = gather_rows(params.item_emb, neg_flat, *neg_lists).reshape(
         *neg.shape, params.item_emb.shape[1])
     return _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids,
-                         user_local, pos_local, mask, cfg, i_pad, scale)
+                         user_local, pos_local, mask, cfg, i_pad, scale, lists,
+                         neg_lists)
 
 
 def make_compact_epoch_fn(cfg: Config):
@@ -423,7 +541,8 @@ def make_compact_epoch_fn(cfg: Config):
                      _step_negatives(cfg, generator, b, num_items, device))
             loss, grads = loss_and_grads(
                 compact_cluster_loss, state.params, cc.cluster(c), neg_j, cfg,
-                cc.u_pad, cc.i_pad, None if cc.adj is None else cc.adj[c])
+                cc.u_pad, cc.i_pad, None if cc.adj is None else cc.adj[c],
+                cc.lists(c))
             params, opt_state = opt.update(state.params, grads, state.opt_state)
             state = TrainState(params, opt_state, state.step + 1)
             wloss = wloss + loss * cc.edge_counts[c]

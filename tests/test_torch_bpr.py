@@ -28,6 +28,8 @@ from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph as 
 from movie_recommender_system_with_gnns_tpu_torch.models import lightgcn as tmodel
 from movie_recommender_system_with_gnns_tpu_torch.ops import bpr as tbpr
 from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_bpr
+from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_scatter import (
+    sort_rows as tsort_rows)
 from movie_recommender_system_with_gnns_tpu_torch.ops import metrics as tmetrics
 from movie_recommender_system_with_gnns_tpu_torch.ops import sampling as tsampling
 from movie_recommender_system_with_gnns_tpu_torch.ops import spmm as tspmm
@@ -387,19 +389,22 @@ def test_bpr_tile_weights_and_support():
 
 # ------------------------------------- kernel B1's two passes, mirrored (CPU)
 #
-# ``csrc/bpr_tile.cu`` step by step in PyTorch: pass 1's unweighted per-triplet
-# rows and keys, the stable sort and row starts, pass 2's 8-way round-robin
-# partials per row and its fixed-order loss, the weights from the valid count.
-# The CUDA source cannot run here, so this settles its algebra against
-# ``bpr_tile_plain``. Tolerance: 1e-5 of the largest entry, since f32 sums are
-# taken in another order; an output that is all zeros must be exactly zero.
+# ``csrc/bpr_tile.cu`` step by step in PyTorch: pass 1's per-triplet
+# coefficients of the row gradients, pass 2's rows summed over the call's
+# lists (an entry standing for ``kneg`` triplets) with 8-way round-robin
+# partials and the partner rows gathered again, its fixed-order loss, the
+# weights from the valid count. The CUDA source cannot run here, so this
+# settles its algebra against ``bpr_tile_plain``. Tolerance: 1e-5 of the
+# largest entry, since f32 sums are taken in another order; an output that is
+# all zeros must be exactly zero.
 
 WARPS, THREADS = 8, 256
 
 
 def _mirror_keys(ul, pl, loc, inc, m, u_pad, i_pad):
-    """Pass 1's sort keys: role r of triplet t at entry r·B + t; the table row
-    (users first, then items) or the sentinel u_pad + i_pad."""
+    """The row keys of the role-sorted design (one sort of all roles): role r
+    of triplet t at entry r·B + t; the table row (users first, then items) or
+    the sentinel u_pad + i_pad."""
     valid, incl = m != 0, inc != 0
     sentinel = torch.full_like(ul, u_pad + i_pad)
     return torch.cat([torch.where(valid, ul, sentinel),
@@ -415,13 +420,36 @@ def _mirror_incidence(keys, rows):
     return order, start
 
 
-def _mirror_bpr_tile(u_tab, i_tab, ni, ul, pl, loc, inc, m, *, scale, bpr_coeff, loss):
+def _round_robin(*lists):
+    """Pass 2's sum of one row: warp w adds entries w, w + 8, ... of each list
+    in turn, in list order; then the 8 partials are added in warp order."""
+    d = lists[0].shape[1]
+    total = None
+    for w in range(WARPS):
+        part = torch.cat([c[w::WARPS] for c in lists])
+        ps = part.cumsum(0)[-1] if part.numel() else torch.zeros(d)
+        total = ps if total is None else total + ps
+    return total
+
+
+def _entries(order, beg, end, kneg):
+    """The triplets of list positions [beg, end), each entry standing for
+    kneg of them."""
+    e = order[beg:end].long()
+    return (e[:, None] * kneg + torch.arange(kneg)).reshape(-1)
+
+
+def _mirror_bpr_tile(u_tab, i_tab, ni, ul, pl, loc, inc, m, incidence, *, scale,
+                     bpr_coeff, loss):
     b, d = ni.shape
     u_pad, i_pad = u_tab.shape[0], i_tab.shape[0]
     ref = loss == "reference"
     gain, c1, coeff_d = (10.0 if ref else -1.0), (-0.1 if ref else 1.0), bpr_coeff / d
-    valid, incl = m != 0, inc != 0
-    # pass 1: unweighted row gradients (w1 taken as 1), lt, gni but for 1/count
+    kneg = incidence.kneg
+    valid, incl = m != 0, (inc != 0) & (m != 0)
+    cnt = float(max(kneg * int(incidence.user_start[u_pad]), 1))
+    w1, w2 = c1 / cnt, coeff_d / cnt
+    # pass 1: lt, gni (1/count included) and the coefficients of the rows
     uf, ui = u_tab[ul, :d], u_tab[ul, d:]
     pf, pi = i_tab[pl, :d], i_tab[pl, d:]
     nf = torch.where(incl[:, None], i_tab[loc, :d], ni * scale)
@@ -435,22 +463,19 @@ def _mirror_bpr_tile(u_tab, i_tab, ni, ul, pl, loc, inc, m, *, scale, bpr_coeff,
     sp = torch.nn.functional.softplus(x)
     g = gain * torch.sigmoid(x)
     if ref:
-        a, bb, cc = uf * iu, pf * ip, nf * in_
-        s_u = g * iu * ((bb - cc) - (cp - cn) * a)
-        s_p = g * ip * (a - cp * bb)
-        s_n = -g * in_ * (a - cn * cc)
+        a_u, a_p, a_n = -g * iu * iu * (cp - cn), g * iu * ip, -g * iu * in_
+        b_u, b_p = g * ip * iu, -g * ip * ip * cp
+        c_u, c_n = -g * in_ * iu, g * in_ * in_ * cn
     else:
-        s_u, s_p, s_n = g * (pf - nf), g * uf, -g * uf
+        z = torch.zeros_like(g)
+        a_u, a_p, a_n, b_u, b_p, c_u, c_n = z, g, -g, g, z, -g, z
+    a_n = torch.where(incl[:, None], a_n, a_n * scale)
+    n_src = torch.where(incl[:, None], i_tab[loc, :d], ni)   # what a_n multiplies
     reg = dot(ui, ui) + dot(pi, pi) + dot(ni, ni)
     lt = torch.where(valid[:, None], torch.cat([sp, reg], 1), 0.0)
-    gni_pre = 2 * coeff_d * ni + torch.where(incl[:, None], 0.0, scale * c1 * s_n)
-    gni_pre = torch.where(valid[:, None], gni_pre, 0.0)
-    scratch = torch.cat([s_u, s_p, s_n])
-    # the sort and the row starts; the count is start[u_pad]
-    rows = u_pad + i_pad
-    order, start = _mirror_incidence(_mirror_keys(ul, pl, loc, inc, m, u_pad, i_pad), rows)
-    cnt = float(max(int(start[u_pad]), 1))
-    w1, w2 = c1 / cnt, coeff_d / cnt
+    gni = (2 * coeff_d * ni + torch.where(incl[:, None], 0.0,
+                                          scale * c1 * (c_u * uf + c_n * nf))) / cnt
+    gni = torch.where(valid[:, None], gni, 0.0)
     # pass 2, block 0: strided per-thread partials, then a fixed tree
     acc = torch.nn.functional.pad(lt, (0, 0, 0, -b % THREADS)).view(-1, THREADS, 2)
     acc = acc.cumsum(0)[-1]
@@ -459,22 +484,31 @@ def _mirror_bpr_tile(u_tab, i_tab, ni, ul, pl, loc, inc, m, *, scale, bpr_coeff,
         acc = acc[:h] + acc[h:2 * h]
         h //= 2
     out = w1 * acc[0, 0] + w2 * acc[0, 1]
-    # table rows: warp w sums entries w, w + 8, ... in list order
-    grad = torch.zeros(rows, 2 * d)
-    own = torch.cat([u_tab, i_tab])[:, d:]
-    for r in range(rows):
-        lst = order[start[r]:start[r + 1]]
-        if lst.numel() == 0:
+    # table rows: each entry's coefficients times the partner rows gathered
+    # again and the row's own final
+    gu, gi = torch.zeros(u_pad, 2 * d), torch.zeros(i_pad, 2 * d)
+    st = incidence.user_start
+    for r in range(u_pad):
+        t = _entries(incidence.user_order, int(st[r]), int(st[r + 1]), kneg)
+        if t.numel() == 0:
             continue
-        parts = [scratch[lst[w::WARPS]].cumsum(0)[-1] if lst[w::WARPS].numel()
-                 else torch.zeros(d) for w in range(WARPS)]
-        total = parts[0]
-        for part in parts[1:]:
-            total = total + part
-        n_own = int((lst < 2 * b).sum())
-        grad[r, :d] = w1 * total
-        grad[r, d:] = 2.0 * w2 * n_own * own[r] if n_own else 0.0
-    return out, grad[:u_pad], grad[u_pad:], gni_pre / cnt
+        own = u_tab[r, :d]
+        s = _round_robin(a_u[t] * own + a_p[t] * i_tab[pl[t], :d] + a_n[t] * n_src[t])
+        gu[r, :d] = w1 * s
+        gu[r, d:] = 2.0 * w2 * t.numel() * u_tab[r, d:]
+    st, nr = incidence.pos_start, incidence.neg_range
+    for r in range(i_pad):
+        tp = _entries(incidence.pos_order, int(st[r]), int(st[r + 1]), kneg)
+        tn = incidence.neg_order[int(nr[r]):int(nr[i_pad + r])].long()
+        if tp.numel() + tn.numel() == 0:
+            continue
+        own = i_tab[r, :d]
+        pos = b_u[tp] * u_tab[ul[tp], :d] + b_p[tp] * own
+        neg = torch.where(valid[tn, None], c_u[tn] * u_tab[ul[tn], :d] + c_n[tn] * own, 0.0)
+        gi[r, :d] = w1 * _round_robin(pos, neg)
+        if tp.numel():
+            gi[r, d:] = 2.0 * w2 * tp.numel() * i_tab[r, d:]
+    return out, gu, gi, gni
 
 
 def _mirror_inputs(case, d, seed):
@@ -512,7 +546,10 @@ MIRROR_CASES = ["mixed", "user_hub", "item_hub", "loc_eq_pl", "all_masked",
 def test_bpr_tile_two_pass_mirror(case, loss, d):
     args = _mirror_inputs(case, d, seed=MIRROR_CASES.index(case) + d)
     kw = dict(scale=1 / 16, bpr_coeff=5e-3, loss=loss)
-    got = _mirror_bpr_tile(*args, **kw)
+    # four negatives per positive: the trainer's layout, an entry per group
+    kneg = 4 if case == "four_negatives" else 1
+    incidence = cuda_bpr.bpr_incidence(*args[3:], 40, 56, kneg=kneg)
+    got = _mirror_bpr_tile(*args, incidence, **kw)
     want = cuda_bpr.bpr_tile_plain(*args, **kw)
     for name, a, ref in zip(("loss", "gu", "gi", "gni"), got, want):
         err = float((a - ref).abs().max())
@@ -525,23 +562,54 @@ def test_bpr_tile_two_pass_mirror(case, loss, d):
 @pytest.mark.parametrize("case", ["mixed", "item_hub", "loc_eq_pl", "all_masked",
                                   "four_negatives"])
 def test_bpr_tile_incidence_lists(case):
-    """Each row's list holds its triplets in role order, each role in ascending
-    t; row starts and the valid count agree with numpy."""
+    """``bpr_incidence``'s user and positive lists are the role-sorted
+    design's (numpy's stable argsort of its role keys), each row's triplets in
+    ascending t; its negative lists are the in-cluster runs of the negatives'
+    global ids sorted stably; the trainer's layout (an entry per group of four
+    triplets) expands to the lists of the expanded arrays."""
     u_tab, i_tab, ni, ul, pl, loc, inc, m = _mirror_inputs(case, 16, seed=1)
     u_pad, i_pad, b = u_tab.shape[0], i_tab.shape[0], ni.shape[0]
     rows = u_pad + i_pad
-    keys = _mirror_keys(ul, pl, loc, inc, m, u_pad, i_pad)
-    order, start = _mirror_incidence(keys, rows)
-    k = keys.numpy()
-    np.testing.assert_array_equal(order.numpy(), np.argsort(k, kind="stable"))
-    counts = np.bincount(k, minlength=rows + 1)
-    np.testing.assert_array_equal(start.numpy(), np.concatenate([[0], np.cumsum(counts)[:-1]]))
-    assert int(start[u_pad]) == int((m != 0).sum())
-    valid = (m != 0).numpy()
-    hub = 5 if case == "item_hub" else int(pl[0])
-    lst = order[start[u_pad + hub]:start[u_pad + hub + 1]].numpy()
-    pos = np.flatnonzero(valid & (pl.numpy() == hub)) + b
-    neg = np.flatnonzero(valid & (inc.numpy() != 0) & (loc.numpy() == hub)) + 2 * b
-    np.testing.assert_array_equal(lst, np.concatenate([pos, neg]))
+    got = cuda_bpr.bpr_incidence(ul, pl, loc, inc, m, u_pad, i_pad)
+    keys = _mirror_keys(ul, pl, loc, inc, m, u_pad, i_pad).numpy()
+    order = np.argsort(keys, kind="stable")
+    bounds = np.searchsorted(keys[order], np.arange(rows + 1))
+    v = int((m != 0).sum())
+    assert int(got.user_start[u_pad]) == v and got.kneg == 1
+    for r in range(rows):
+        e = order[bounds[r]:bounds[r + 1]]
+        if r < u_pad:
+            lst = got.user_order[got.user_start[r]:got.user_start[r + 1]].numpy()
+            np.testing.assert_array_equal(lst, e)
+            continue
+        ri = r - u_pad
+        pos = got.pos_order[got.pos_start[ri]:got.pos_start[ri + 1]].numpy()
+        neg = got.neg_order[got.neg_range[ri]:got.neg_range[i_pad + ri]].numpy()
+        np.testing.assert_array_equal(np.concatenate([pos + b, neg + 2 * b]), e)
     if case == "item_hub":
-        assert len(pos) >= 800
+        assert int(got.pos_start[6] - got.pos_start[5]) >= 800
+    # the negatives by global id: local row r holds item 3 r + 1; an
+    # out-of-cluster negative is some other id
+    rng = np.random.default_rng(2)
+    item_ids = 3 * np.arange(i_pad) + 1
+    gid = np.where(inc.numpy() != 0, item_ids[loc.numpy()], 3 * rng.integers(0, 90, b))
+    n_order, n_start = tsort_rows(torch.from_numpy(gid.astype(np.int32)), 3 * i_pad + 1)
+    valid = (m != 0).numpy()
+    for r in range(i_pad):
+        run = n_order[n_start[item_ids[r]]:n_start[item_ids[r] + 1]].numpy()
+        lst = got.neg_order[got.neg_range[r]:got.neg_range[i_pad + r]].numpy()
+        np.testing.assert_array_equal(run[valid[run]], lst)
+        np.testing.assert_array_equal(run, np.flatnonzero(gid == item_ids[r]))
+    if case == "four_negatives":
+        grouped = cuda_bpr.bpr_incidence(ul, pl, loc, inc, m, u_pad, i_pad, kneg=4)
+        assert grouped.kneg == 4
+        for o, s, o1, s1 in ((grouped.user_order, grouped.user_start,
+                              got.user_order, got.user_start),
+                             (grouped.pos_order, grouped.pos_start,
+                              got.pos_order, got.pos_start)):
+            np.testing.assert_array_equal(4 * s.numpy(), s1.numpy())
+            n = int(s[-1])
+            expanded = (4 * o[:n, None].long() + torch.arange(4)).reshape(-1)
+            np.testing.assert_array_equal(expanded.numpy(), o1[:4 * n].numpy())
+        assert torch.equal(grouped.neg_order, got.neg_order)
+        assert torch.equal(grouped.neg_range, got.neg_range)

@@ -146,6 +146,112 @@ def test_one_hop_dense_matches_jax(tiny_data, dtype):
     assert g.shape == x.shape and bool(torch.isfinite(g).all())
 
 
+@pytest.mark.parametrize("with_lists", [True, False])
+def test_one_hop_segment_matches_jax(tiny_data, with_lists):
+    """The segment path's hop, gathered and summed through the cluster's
+    stable orders of src and dst (or orders sorted on the spot), against the
+    JAX package's hop; its gradient against JAX's."""
+    nu = tiny_data.num_users
+    cj, ct = both_clusters(greedy_parts(tiny_data, 3), nu)
+    n_local = ct.u_pad + ct.i_pad
+    rng = np.random.default_rng(8)
+    cur = rng.standard_normal((n_local, 8)).astype(np.float32)
+    cot = rng.standard_normal((n_local, 8)).astype(np.float32)
+    for c in range(ct.num_clusters):
+        hop_j = lambda x: jcompact._one_hop(x, cj.src[c], cj.dst[c], cj.w[c], None, n_local)
+        out_j, vjp = jax.vjp(hop_j, jnp.asarray(cur))
+        (g_j,) = vjp(jnp.asarray(cot))
+        x = torch.from_numpy(cur).requires_grad_(True)
+        lists = ct.lists(c) if with_lists else None
+        out_t = tcompact._one_hop(x, ct.src[c], ct.dst[c], ct.w[c], None, n_local, lists)
+        (g_t,) = torch.autograd.grad((out_t * torch.from_numpy(cot)).sum(), x)
+        np.testing.assert_allclose(to_np(out_t), to_np(out_j), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(to_np(g_t), to_np(g_j), rtol=1e-5, atol=1e-6)
+        # the sum is index_add's, bit for bit (sequential on the CPU)
+        ref = torch.zeros(n_local, 8).index_add(
+            0, ct.dst[c], torch.from_numpy(cur).index_select(0, ct.src[c]) * ct.w[c][:, None])
+        assert torch.equal(out_t.detach(), ref)
+
+
+@pytest.mark.parametrize("kneg", [1, 4])
+def test_cluster_lists_equal_bpr_incidence(tiny_data, kneg):
+    """The lists ``build_compact_clusters`` makes once per cluster on the host
+    equal ``bpr_incidence`` on each cluster's arrays (for K = 4 in the
+    trainer's layout, and expanded to the K-expanded arrays' lists), the
+    negatives' runs among the step's sorted ids equal its negative lists, and
+    ``cluster_lists`` gives the same lists from a cluster's tensors."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_bpr import bpr_incidence
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_scatter import sort_rows
+
+    nu, ni = tiny_data.num_users, tiny_data.num_items
+    _, ct = both_clusters(greedy_parts(tiny_data, 3), nu)
+    rng = np.random.default_rng(9)
+    b = ct.user_local.shape[1]
+    for c in range(ct.num_clusters):
+        lists = ct.lists(c)
+        for got, want in zip(lists, tcompact.cluster_lists(ct.cluster(c), ct.u_pad, ct.i_pad)):
+            assert got.dtype == torch.int32 and torch.equal(got, want)
+        user_ids, item_ids, _, _, _, ul, pl, mask = ct.cluster(c)
+        neg = torch.from_numpy(rng.integers(0, ni, b * kneg).astype(np.int32))
+        # a third of the negatives in the cluster, the padding id among them
+        valid_items = item_ids[ct.item_valid[c]]
+        neg[::3] = valid_items[torch.from_numpy(rng.integers(0, len(valid_items), len(neg[::3])))]
+        neg[1] = item_ids[-1]
+        loc, inc = tcompact._neg_local_index(item_ids, neg, ct.i_pad)
+        x = lambda t: t.repeat_interleave(kneg).to(torch.int32)
+        args = (x(ul), x(pl), loc, inc.to(torch.int32), x(mask))
+        grouped = bpr_incidence(*args, ct.u_pad, ct.i_pad, kneg=kneg)
+        flat = bpr_incidence(*args, ct.u_pad, ct.i_pad)
+        for name in ("user", "pos"):
+            order, start = getattr(lists, f"{name}_order"), getattr(lists, f"{name}_start")
+            assert torch.equal(order, getattr(grouped, f"{name}_order"))
+            assert torch.equal(start, getattr(grouped, f"{name}_start"))
+            assert torch.equal(kneg * start, getattr(flat, f"{name}_start"))
+            n = int(start[-1])
+            expanded = (kneg * order[:n, None].long() + torch.arange(kneg)).reshape(-1)
+            assert torch.equal(expanded.int(), getattr(flat, f"{name}_order")[:kneg * n])
+        assert int(lists.user_start[ct.u_pad]) == int(mask.sum())
+        # the trainer's negative lists: runs of the step's sorted global ids
+        order, starts = sort_rows(neg, ni)
+        rng_ = starts.index_select(0, lists.neg_keys)
+        valid = x(mask).bool()
+        n_in = 0
+        for r in range(ct.i_pad):
+            run = order[rng_[r]:rng_[ct.i_pad + r]].long()
+            lst = flat.neg_order[flat.neg_range[r]:flat.neg_range[ct.i_pad + r]].long()
+            assert torch.equal(run[valid[run]], lst)
+            n_in += len(lst)
+        assert n_in == int((inc & valid).sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["segment", "dense_fused", "segment_fused_k2"])
+def test_compact_step_bit_equal_over_two_runs(tiny_data, case):
+    """One compact step twice from the same state, cluster and negatives:
+    parameters and Adam moments equal bit for bit."""
+    kw = dict(segment={}, dense_fused=dict(fused_bpr=True),
+              segment_fused_k2=dict(fused_bpr=True, num_negatives=2))[case]
+    _, cfg = _cfgs(**kw)
+    nu, ni = tiny_data.num_users, tiny_data.num_items
+    _, ct = both_clusters(greedy_parts(tiny_data, 3), nu,
+                          dense="float32" if case == "dense_fused" else None)
+    b, kneg = ct.user_local.shape[1], cfg.train.num_negatives
+    neg = np.random.default_rng(10).integers(0, ni, (1, b) if kneg == 1 else (1, b, kneg))
+    epoch_fn = tcompact.make_compact_epoch_fn(cfg)
+    runs = []
+    for _ in range(2):
+        _, pt = both_params(nu, ni, 8, seed=6, std=0.05)
+        state = ttrain.TrainState(pt, ttrain.make_optimizer(cfg).init(pt), 0)
+        state, _ = epoch_fn(state, ct, None, perm=[1],
+                            neg=torch.from_numpy(neg.astype(np.int32)))
+        runs.append(state)
+    a, b_ = runs
+    assert torch.equal(a.params.user_emb, b_.params.user_emb)
+    assert torch.equal(a.params.item_emb, b_.params.item_emb)
+    for x, y in zip(a.opt_state.mu + a.opt_state.nu, b_.opt_state.mu + b_.opt_state.nu):
+        assert torch.equal(x, y)
+    assert not torch.equal(a.params.item_emb, both_params(nu, ni, 8, seed=6, std=0.05)[1].item_emb)
+
+
 def test_neg_local_index_matches_jax(tiny_data):
     nu, ni = tiny_data.num_users, tiny_data.num_items
     cj, ct = both_clusters(greedy_parts(tiny_data, 3), nu)

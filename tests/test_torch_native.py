@@ -1,12 +1,15 @@
 """The port's binding to the host graph runtime (``data/native.py``) against
-the JAX package's. Both load a build of the same source
-(``native/graphcore.cpp``): the port compiles its own into the package's build
-directory, the JAX package loads ``native/libgraphcore.so``. Integer outputs
+the JAX package's. Both load a build of the same source: the port compiles
+its own byte-equal copy (``csrc/graphcore.cpp`` of ``native/graphcore.cpp``)
+into the package's build directory, or a per-user cache where that cannot be
+written, the JAX package loads ``native/libgraphcore.so``. Integer outputs
 must be EQUAL; float32 CSR weights are computed from the same expression and
 must be equal too.
 """
 
 import ctypes
+import tomllib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -82,6 +85,56 @@ def test_numpy_backend_rejects_refiner_options(data):
                                     backend="numpy", refine_rounds=4)
     with pytest.raises(ValueError, match="unknown partition backend"):
         tpart.partition_assignments(data.edge_index, data.num_users, n, 3, backend="metis")
+
+
+def test_graphcore_source_is_a_byte_equal_copy():
+    """The port builds its own copy of the JAX package's source, so an
+    installed port needs nothing outside its package; the two copies cannot
+    drift apart, or the two partitions would."""
+    repo = _build.PACKAGE_DIR.parent
+    assert _build.HOST_SOURCES["graphcore"] == _build.CSRC / "graphcore.cpp"
+    assert ((_build.CSRC / "graphcore.cpp").read_bytes()
+            == (repo / "native" / "graphcore.cpp").read_bytes())
+
+
+def test_package_data_lists_the_port_sources():
+    repo = _build.PACKAGE_DIR.parent
+    cfg = tomllib.loads((repo / "pyproject.toml").read_text())
+    patterns = cfg["tool"]["setuptools"]["package-data"][_build.PACKAGE_DIR.name]
+    sources = sorted(p.name for p in _build.CSRC.iterdir())
+    assert sources and all(any(Path("csrc", n).match(pat) for pat in patterns)
+                           for n in sources)
+    assert {"bpr_tile.cu", "sorted_index_add.cu", "graphcore.cpp"} <= set(sources)
+
+
+@pytest.mark.parametrize("cache", ["xdg", "home"])
+def test_unwritable_build_dir_falls_back_to_the_user_cache(tmp_path, monkeypatch, cache):
+    """With the package's build directory unwritable (here: under a plain
+    file), the library lands in the per-user cache and the partition still
+    equals the JAX package's."""
+    blocker = tmp_path / "package"
+    blocker.write_text("a file, so nothing can be made below it\n")
+    if cache == "xdg":
+        monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+        root = tmp_path / "xdg"
+    else:
+        monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
+        monkeypatch.setenv("HOME", str(tmp_path / "home"))
+        root = tmp_path / "home" / ".cache"
+    chosen = _build.choose_build_dir(blocker / "build")
+    assert chosen.parent == root / _build.PACKAGE_DIR.name
+    assert _build.choose_build_dir(tmp_path / "fresh" / "build") == tmp_path / "fresh" / "build"
+    monkeypatch.setattr(_build, "BUILD_DIR", chosen)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    data = tml.make_synthetic_movielens(*GRAPHS["tiny"][:3], seed=0)
+    n = data.num_users + data.num_items
+    t = tpart.partition_assignments(data.edge_index, data.num_users, n, 3)
+    j = jpart.partition_assignments(data.edge_index, data.num_users, n, 3)
+    for a, b in zip(t, j):
+        np.testing.assert_array_equal(a, b)
+    assert _build.library_path("graphcore").parent == chosen
+    assert _build.library_path("graphcore").exists()
+    assert not (blocker.parent / "package" / "build").exists() and blocker.is_file()
 
 
 def test_default_partition_raises_when_the_library_cannot_be_built(

@@ -26,8 +26,10 @@ Phases:
      {16, 64, 100} f32 and d = 64 bf16, bit-equal to the plain version's
      sequential sum on the host and over two calls.
      ``ell_spmm``: d in {16, 64, 100, 256}, f32 and bf16 tables, a graph with
-     an isolated node and a hub whose bucket is grown to the max degree,
-     aligned and unaligned row counts. ``mips_block``: with and without mask,
+     an isolated node and a hub whose bucket is grown to the max degree (its
+     row split into many segments), aligned and unaligned row counts, and a
+     graph whose rows all read higher ids (one side of the work list empty);
+     every case bit-equal over two calls. ``mips_block``: with and without mask,
      N no multiple of the block, k in {1, 10, 100}, Q no multiple of the query
      tile, a row with fewer than k live columns, planted exact ties;
   4. the serving path at ML-25M width (``bench.py``'s ``SCALES["full"]``:
@@ -48,9 +50,9 @@ Phases:
      timed epoch and a profiled window of steps;
   5b. eval and propagated serving at the same width, with the checkpoint of
      phase 5: ``compute_serving_tables(mode="propagated")`` through the ELL
-     SpMM kernel against ``spmm_segment`` propagation, ``evaluate_full_ranking``
-     with layer-0 and with propagated tables (10,000 sampled users, k = 10;
-     1,000 of them against a run on the host),
+     SpMM kernel (one launch per hop) against ``spmm_segment`` propagation,
+     ``evaluate_full_ranking`` with layer-0 and with propagated tables
+     (10,000 sampled users, k = 10; 1,000 of them against a run on the host),
      ``batch_recommend_users(method="pallas")`` for 256 users with train-seen
      exclusion against ``method="twophase"``;
   6. trained -> served: the checkpoint of phase 5 behind the ``ServingIndex``
@@ -654,17 +656,50 @@ def ell_test_graph():
     return np.concatenate([e, hub, hub[::-1]], axis=1), n
 
 
-def ell_kernel_phase() -> float:
-    """Phase 3, kernel B4: ``spmm_ell_cuda`` against the plain ``spmm_ell``
-    and ``spmm_segment`` on the card. f32 tables within rtol 1e-3 / atol 1e-4
-    (the JAX suite's bound for its kernel; the three sum the same f32
-    products in different orders); bf16 tables within one bf16 ulp of the
-    plain version (both round an f32 sum once). Returns the largest abs error
-    of the f32 cases."""
-    from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph, EllGraph
+def ell_case(ell, coo, x, what: str, zero_rows=()) -> float:
+    """One B4 case: ``spmm_ell_cuda`` against the plain ``spmm_ell`` and
+    ``spmm_segment`` (f32 within rtol 1e-3 / atol 1e-4: the JAX suite's bound
+    for its kernel; the three sum the same f32 products in different orders),
+    bf16 within one bf16 ulp of the plain version (both round an f32 sum
+    once), each bit-equal over two calls; the rows of isolated nodes
+    (``zero_rows``) zero. Returns the f32 max abs error."""
     from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import spmm_ell_cuda
-    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import (
-        DeviceCOO, DeviceELL, spmm_ell, spmm_segment)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import spmm_ell, spmm_segment
+
+    out, again = spmm_ell_cuda(ell, x), spmm_ell_cuda(ell, x)
+    ref = spmm_ell(ell, x)
+    seg = spmm_segment(coo, x)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"ell_spmm {what} f32: two calls differ")
+    check(bool((out[list(zero_rows)] == 0).all()), "an isolated node's row is not zero")
+    for name, r in (("plain spmm_ell", ref), ("spmm_segment", seg)):
+        err = (out - r).abs()
+        check(bool((err <= 1e-4 + 1e-3 * r.abs()).all()),
+              f"ell_spmm {what} f32 vs {name}: max abs err {err.max().item():.3e}")
+    e32 = (out - ref).abs().max().item()
+    xb = x.bfloat16()
+    outb, againb, refb = spmm_ell_cuda(ell, xb), spmm_ell_cuda(ell, xb), spmm_ell(ell, xb)
+    torch.cuda.synchronize()
+    check(outb.dtype == torch.bfloat16, "bf16 table did not come back as bf16")
+    check(torch.equal(outb, againb), f"ell_spmm {what} bf16: two calls differ")
+    eb = (outb.float() - refb.float()).abs()
+    check(bool((eb <= 1e-4 + 2.0 ** -7 * refb.float().abs()).all()),
+          f"ell_spmm {what} bf16: beyond one ulp of the plain version "
+          f"(max abs err {eb.max().item():.3e})")
+    log(f"[kernel] ell_spmm {what}: f32 max abs err {e32:.3e} vs plain, "
+        f"{(out - seg).abs().max().item():.3e} vs spmm_segment; bf16 max abs "
+        f"err {eb.max().item():.3e}; both bit-equal over two calls")
+    return e32
+
+
+def ell_kernel_phase() -> float:
+    """Phase 3, kernel B4: :func:`ell_case` on a power-law bipartite graph
+    with a hub of ~4,500 neighbours (a row split into many segments) and two
+    isolated nodes, aligned and unaligned row counts, d in {16, 64, 100, 256};
+    then a graph whose rows all read higher ids (one side of the work list
+    empty). Returns the largest f32 abs error."""
+    from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph, EllGraph
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import DeviceCOO, DeviceELL
 
     e, n = ell_test_graph()
     deg = np.bincount(e[1], minlength=n)
@@ -679,33 +714,23 @@ def ell_kernel_phase() -> float:
         if row_align == 4:
             check(any(r % 8 for r, _ in shapes), "no unaligned bucket in the test graph")
         ell = DeviceELL.from_host(g, "cuda")
+        sch = ell.schedule
+        check(len(sch.split_rows) and sch.split_rows[:, 3].max() >= 10
+              and set(sch.item_side.tolist()) == {0, 1},
+              "the hub row is not split into many segments, or a side has no items")
         for d in (16, 64, 100, 256):
             x = torch.randn(n, d, device="cuda", generator=gen)
-            out = spmm_ell_cuda(ell, x)
-            ref = spmm_ell(ell, x)
-            seg = spmm_segment(coo, x)
-            torch.cuda.synchronize()
-            for what, r in (("plain spmm_ell", ref), ("spmm_segment", seg)):
-                err = (out - r).abs()
-                check(bool((err <= 1e-4 + 1e-3 * r.abs()).all()),
-                      f"ell_spmm d={d} align={row_align} f32 vs {what}: max abs err "
-                      f"{err.max().item():.3e}")
-            check(bool((out[17] == 0).all()) and bool((out[n - 3] == 0).all()),
-                  "an isolated node's row is not zero")
-            e32 = (out - ref).abs().max().item()
-            worst = max(worst, e32)
-            xb = x.bfloat16()
-            outb, refb = spmm_ell_cuda(ell, xb), spmm_ell(ell, xb)
-            torch.cuda.synchronize()
-            check(outb.dtype == torch.bfloat16, "bf16 table did not come back as bf16")
-            eb = (outb.float() - refb.float()).abs()
-            check(bool((eb <= 1e-4 + 2.0 ** -7 * refb.float().abs()).all()),
-                  f"ell_spmm d={d} align={row_align} bf16: beyond one ulp of the "
-                  f"plain version (max abs err {eb.max().item():.3e})")
-            log(f"[kernel] ell_spmm d={d} row_align={row_align} buckets {shapes}: "
-                f"f32 max abs err {e32:.3e} vs plain, "
-                f"{(out - seg).abs().max().item():.3e} vs spmm_segment; bf16 max abs "
-                f"err {eb.max().item():.3e}")
+            worst = max(worst, ell_case(ell, coo, x, f"d={d} row_align={row_align} "
+                                        f"buckets {shapes}", zero_rows=(17, n - 3)))
+    # every edge from a higher id to a lower one: every row reads higher ids
+    down = e[:, e[0] > e[1]]
+    g = EllGraph.build(down, n)
+    ell = DeviceELL.from_host(g, "cuda")
+    check(not ell.schedule.item_side.any(), "a row of the one-sided graph reads lower ids")
+    coo1 = DeviceCOO.from_host(COOGraph.build(down, n), "cuda")
+    x = torch.randn(n, 64, device="cuda", generator=gen)
+    worst = max(worst, ell_case(ell, coo1, x, f"d=64 one side empty, buckets "
+                                f"{[(b.rows, b.width) for b in g.blocks]}"))
     return worst
 
 
@@ -828,7 +853,7 @@ def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
         LightGCNParams, propagate)
     from movie_recommender_system_with_gnns_tpu_torch.ops import _build, bpr, cuda_mips
     from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import (
-        ell_spmm_block, row_split, spmm_ell_cuda)
+        ell_schedule, ell_spmm_into, spmm_ell_cuda)
     from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import (
         DeviceCOO, DeviceELL, spmm_ell, spmm_segment)
     from movie_recommender_system_with_gnns_tpu_torch.ops.topk import NEG_INF
@@ -855,11 +880,16 @@ def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
     t_ell = time.time() - t0
     ell = DeviceELL.from_host(g, "cuda")
     shapes = [(b.rows, b.width) for b in g.blocks]
-    # a bucket whose rows are split launches two kernels: gather, then reduce
-    per_hop = sum(1 if row_split(r, wd) == 1 else 2 for r, wd in shapes)
-    check(launches["ell_spmm"] == layers * per_hop,
-          f"ell_spmm launched {launches['ell_spmm']} kernels for {layers} hops of "
-          f"{per_hop} over {len(shapes)} buckets")
+    # one launch per hop over every bucket
+    check(launches["ell_spmm"] == layers,
+          f"ell_spmm launched {launches['ell_spmm']} kernels for {layers} hops over "
+          f"{len(shapes)} buckets")
+    # the work list alone, on the host (and its upload)
+    t0 = time.perf_counter()
+    ell_schedule(g.blocks, n, "cuda")
+    torch.cuda.synchronize()
+    t_list = time.perf_counter() - t0
+    sch = ell.schedule
     coo = DeviceCOO.from_host(COOGraph.build(train_e, n), "cuda")
     ref_u, ref_i = propagate(trained, coo, spmm_segment, layers, cfg.model.readout)
     err_t = max((tables.user_emb - ref_u).abs().max().item(),
@@ -889,7 +919,7 @@ def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
             f"users, k={TOP_K}: Recall@{TOP_K} {recall:.6f}, NDCG@{TOP_K} {ndcg:.6f} in "
             f"{time.time() - t0:.2f} s; last_timings {tm}")
     path_launches = dict(launches)
-    check(path_launches["ell_spmm"] == 2 * layers * per_hop,
+    check(path_launches["ell_spmm"] == 2 * layers,
           f"ell_spmm launches on the eval path: {path_launches}")
     # the same evaluator on the host, fewer users, layer-0 tables
     host = LightGCNParams(trained.user_emb.cpu(), trained.item_emb.cpu())
@@ -938,7 +968,17 @@ def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
           f"ell_spmm at the full graph vs plain: max abs err {b4_err:.3e} "
           f"(largest entry {out_p.abs().max().item():.3e})")
     del out_p
-    b4_dev, b4_kernel = profiled_ms(lambda: spmm_ell_cuda(ell, emb), 10, "ell_spmm_kernel")
+    # the profiler may lose records: a hop is one launch, so its device time
+    # is the mean of the launches recorded
+    dev = device_split(lambda: spmm_ell_cuda(ell, emb), 10)
+    mem = lambda key: key.startswith(("Memset", "Memcpy"))
+    b4_launches = sum(c for _, c, key in dev if not mem(key))
+    b4_memsets = sum(c for _, c, key in dev if mem(key))
+    check(b4_memsets == 0, f"a hop of ell_spmm enqueues memsets or copies: {dev}")
+    own = [(ms, c) for ms, c, key in dev if "ell_spmm_kernel" in key]
+    check(own and b4_launches == sum(c for _, c in own),
+          f"the profiler recorded no ell_spmm kernel, or other kernels: {dev}")
+    b4_dev = sum(ms for ms, _ in own) / sum(c for _, c in own)
     b4_events = time_ms(lambda: spmm_ell_cuda(ell, emb), 10)
     b4_plain = time_ms(lambda: spmm_ell(ell, emb), 3, warmup=1)
     seg_ms = time_ms(lambda: spmm_segment(coo, emb), 5, warmup=1)
@@ -952,32 +992,49 @@ def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
     check(bool(((out_l - out_k).abs() <= 1e-6 + 1e-3 * out_l.abs()).all()),
           "torch.sparse.mm on the CSR of the same matrix disagrees with ell_spmm")
     lib_ms = time_ms(lambda: torch.sparse.mm(csr, emb), 10)
+    # each bucket's items alone (one launch each), by CUDA events; gathered:
+    # one table row per edge
     scratch = torch.empty_like(emb)
-    per_bucket = [time_ms(lambda blk=blk: ell_spmm_block(blk, emb, scratch, n), 10)
-                  for blk in ell.blocks]
+    buckets = sch.item_bucket
+    per_bucket = []
+    for b, (rows_b, wd) in enumerate(shapes):
+        part = sch.select(buckets == b)
+        edges_b = int((ell.blocks[b].nbr != n).sum())
+        t = time_ms(lambda part=part: ell_spmm_into(ell, emb, scratch, part), 10)
+        per_bucket.append(dict(width=wd, rows=rows_b, edges=edges_b, items=len(part.items),
+                               ms=t, gathered_tbps=edges_b * d * 4 / (t * 1e9)))
     b4_bound, b4_by, byts, flops, slots, edges, gathered, all_slots = ell_bound(
         ell, d, 4, bw)
     check(edges == train_e.shape[1], f"the ELL blocks hold {edges} edges, the train "
           f"split {train_e.shape[1]}")
+    gathered_bytes = edges * d * 4
     log(f"[kernel] ell_spmm, one hop at ({n} nodes, {edges} edges in {slots} ELL "
-        f"slots, d={d}, f32; {per_hop} kernel launches over {len(shapes)} buckets): "
-        f"{b4_dev:.4f} ms of device time per call (profiler; "
-        f"the gather kernels alone {b4_kernel:.4f} ms), {b4_events:.4f} ms by "
-        f"CUDA events; per bucket by events "
-        f"{[(wd, round(t, 4)) for (_, wd), t in zip(shapes, per_bucket)]} ms; plain "
-        f"spmm_ell {b4_plain:.4f} ms, spmm_segment {seg_ms:.4f} ms, torch.sparse.mm "
-        f"(CSR) {lib_ms:.4f} ms; bound {b4_bound:.4f} ms ({b4_by}: {byts / 1e6:.1f} MB "
+        f"slots, d={d}, f32; {len(shapes)} buckets; work list of {len(sch.items)} items, "
+        f"{len(sch.split_rows)} split rows in {sch.num_segments} segments, budget "
+        f"{sch.budget} live slots, built in {t_list:.4f} s on the host with its upload): "
+        f"{b4_dev:.4f} ms of device time per call (profiler, the mean of the "
+        f"{b4_launches * 10:g} launches it recorded of 10 calls, no other kernel and "
+        f"{b4_memsets:g} memsets), {b4_events:.4f} ms by CUDA events; gathered "
+        f"{gathered_bytes / 1e6:.1f} MB (one table row per edge): "
+        f"{gathered_bytes / (b4_dev * 1e9):.2f} TB/s by the profiler, "
+        f"{gathered_bytes / (b4_events * 1e9):.2f} TB/s by events; plain spmm_ell "
+        f"{b4_plain:.4f} ms, spmm_segment {seg_ms:.4f} ms, torch.sparse.mm (CSR) "
+        f"{lib_ms:.4f} ms; bound {b4_bound:.4f} ms ({b4_by}: {byts / 1e6:.1f} MB "
         f"compulsory: the edges' slots, one padding id per row, the table read and "
         f"written; {flops / 1e9:.2f} GFLOP), {b4_bound / b4_dev:.3f} of the bound; "
         f"reading every slot, padding included, would take {all_slots:.4f} ms; with "
         f"every gather charged {gathered:.4f} ms; max abs err vs plain {b4_err:.3e}")
+    for pb in per_bucket:
+        log(f"[kernel]   bucket width {pb['width']}: {pb['rows']} rows, {pb['edges']} "
+            f"edges, {pb['items']} items alone {pb['ms']:.4f} ms by events, "
+            f"{pb['gathered_tbps']:.2f} TB/s gathered")
     rows = [dict(name="ell_spmm", **KERNEL_ROWS["ell_spmm"],
                  launches=path_launches["ell_spmm"], max_abs_err=b4_err, ms=b4_dev,
                  plain_ms=b4_plain, bound_ms=b4_bound, bound_by=b4_by, library_ms=lib_ms,
-                 ms_method="device time of one hop (all buckets), torch.profiler",
-                 kernel_ms=b4_kernel, wrapper_ms=b4_events, segment_ms=seg_ms,
-                 widest_bucket=dict(rows=shapes[-1][0], width=shapes[-1][1],
-                                    ms=per_bucket[-1]))]
+                 ms_method="device time of one hop (one launch), torch.profiler",
+                 kernel_ms=b4_dev, wrapper_ms=b4_events, segment_ms=seg_ms,
+                 memsets_per_call=b4_memsets,
+                 list_s=t_list, per_bucket=per_bucket)]
     del csr, out_l, out_k, scratch, coo, ell
 
     # 7d. mips_block per 256-query call: time, plain, library, bound

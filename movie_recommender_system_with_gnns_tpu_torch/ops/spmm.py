@@ -91,11 +91,14 @@ class DeviceEllBlock(NamedTuple):
 
 @dataclass(frozen=True)
 class DeviceELL:
-    """Degree-bucketed ELL adjacency on a device (scatter-free propagation)."""
+    """Degree-bucketed ELL adjacency on a device (scatter-free propagation).
+    ``schedule`` is the SpMM kernel's work list over the blocks
+    (``ops/cuda_spmm.py::EllSchedule``), built once by :meth:`from_host`."""
 
     blocks: Tuple[DeviceEllBlock, ...]
     inv_perm: torch.Tensor  # (num_nodes,) int64: node id -> row of the concatenated blocks
     num_nodes: int
+    schedule: Optional[object] = None
 
     @staticmethod
     def from_host(g: EllGraph, device: DeviceLike = None) -> "DeviceELL":
@@ -120,11 +123,14 @@ class DeviceELL:
         def up(a, dt):
             return torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
 
+        from .cuda_spmm import ell_schedule   # the kernel's module imports this one
+
         return DeviceELL(
             blocks=tuple(DeviceEllBlock(up(b.node_ids, np.int32), up(b.nbr, np.int32),
                                         up(b.w, np.float32)) for b in g.blocks),
             inv_perm=up(g.inv_perm, np.int64),
             num_nodes=int(g.num_nodes),
+            schedule=ell_schedule(g.blocks, int(g.num_nodes), dev),
         )
 
 

@@ -31,7 +31,9 @@ Phases:
      graph whose rows all read higher ids (one side of the work list empty);
      every case bit-equal over two calls. ``mips_block``: with and without mask,
      N no multiple of the block, k in {1, 10, 100}, Q no multiple of the query
-     tile, a row with fewer than k live columns, planted exact ties;
+     band, a row with fewer than k live columns, planted exact ties, d in
+     {64, 100}; then d = 30 (4-byte copies), d = 256 and k = 1000 (candidate
+     buffers in global scratch); every case bit-equal over two calls;
   4. the serving path at ML-25M width (``bench.py``'s ``SCALES["full"]``:
      162,541 users x 59,047 items, 18 M sampled interactions, d = 64): split,
      seeded random weights through save/load, ``ServingIndex.build`` over
@@ -100,6 +102,8 @@ PEAKS = {
 }
 #: published f32 rate outside the tensor cores (FLOP/s), NVIDIA data sheet
 F32_FLOPS = 67e12
+#: published dense TF32 tensor-core rate (FLOP/s), NVIDIA data sheet
+TF32_FLOPS = 495e12
 #: the training path: reference defaults (100 clusters, L = 3, d = 64)
 TRAIN = dict(clusters=100, layers=3, epochs=2)
 #: the CLI phase's synthetic graph (its host work stays a few seconds)
@@ -734,12 +738,14 @@ def ell_kernel_phase() -> float:
     return worst
 
 
-def check_block_topk(s_k, i_k, s_p, i_p, what: str) -> float:
+def check_block_topk(s_k, i_k, s_p, i_p, what: str, s_next=None) -> float:
     """Kernel candidates against the plain version's, both (nb, Q, k): scores
     within 1e-5; an index may differ only where the plain scores of
-    neighbouring ranks lie within 2e-6 (the kernel's FMA chain and the matmul
-    sum in different orders, which can swap such a pair). Returns the largest
-    score difference."""
+    neighbouring ranks lie within 2e-6 (the kernel's products and the matmul
+    sum in different orders, which can swap such a pair). ``s_next`` (nb, Q,
+    1) is the plain version's next score past its k (its rank k + 1; -inf
+    where there is none): the last rank's neighbour, with which a near tie
+    can swap the last candidate. Returns the largest score difference."""
     live = s_p > -1e29
     diff_s = torch.where(live, (s_k - s_p).abs(), torch.zeros_like(s_p))
     check(bool((diff_s <= 1e-5).all()) and bool(((s_k > -1e29) == live).all()),
@@ -747,25 +753,43 @@ def check_block_topk(s_k, i_k, s_p, i_p, what: str) -> float:
     diff = i_k != i_p
     inf = torch.full_like(s_p[..., :1], float("inf"))
     prev = torch.cat([inf, s_p[..., :-1]], dim=-1)
-    nxt = torch.cat([s_p[..., 1:], -inf], dim=-1)
+    nxt = torch.cat([s_p[..., 1:], -inf if s_next is None else s_next], dim=-1)
     tie = ((s_p - prev).abs() <= 2e-6) | ((s_p - nxt).abs() <= 2e-6)
-    check(bool((~diff | tie).all()),
-          f"{what}: an index differs from the plain version without a near tie")
+    bad = diff & ~tie
+    check(not bool(bad.any()),
+          f"{what}: an index differs from the plain version without a near tie "
+          f"(first at {bad.nonzero()[:1].tolist()}: kernel {s_k[bad][:1].tolist()} "
+          f"{i_k[bad][:1].tolist()}, plain {s_p[bad][:1].tolist()} {i_p[bad][:1].tolist()})")
     return diff_s.max().item()
+
+
+def plain_block_topk(q, c, k, block, mask):
+    """The plain version's (scores, ids) at k and its score at rank k + 1
+    (-inf where k = block), for :func:`check_block_topk`."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_mips import (
+        mips_block_topk_plain)
+
+    s_p, i_p = mips_block_topk_plain(q, c, min(k + 1, block), block=block, mask=mask)
+    s_next = (s_p[..., k:] if k < block
+              else torch.full_like(s_p[..., :1], float("-inf")))
+    return s_p[..., :k].contiguous(), i_p[..., :k].contiguous(), s_next
 
 
 def mips_block_phase() -> float:
     """Phase 3, kernel B3: ``mips_block_topk`` against its plain version on
     the card, then the whole ``method="pallas"`` lane against ``flat``."""
     from movie_recommender_system_with_gnns_tpu_torch.ops.bpr import normalize_embedding
-    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_mips import (
-        mips_block_topk, mips_block_topk_plain)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_mips import mips_block_topk
     from movie_recommender_system_with_gnns_tpu_torch.ops.topk import NEG_INF, mips_topk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    nq, n, block = 250, 10_001, 4096           # Q % 8 != 0, N % block != 0
+    nq, n, block = 250, 10_001, 4096           # Q % 32 != 0, N % block != 0
     worst = 0.0
-    for d in (64, 100):
+    # d -> the k of its cases: the 12 cases of d 64 and 100, then d % 4 != 0
+    # (4-byte copies), a depth past one band window of the kernel's, and a k
+    # past its shared-memory buffers (the global-scratch route)
+    for d, ks in ((64, (1, 10, 100)), (100, (1, 10, 100)), (30, (10,)), (256, (10,)),
+                  (64, (1000,))):
         q = normalize_embedding(torch.randn(nq, d, device="cuda", generator=gen))
         c = normalize_embedding(torch.randn(n, d, device="cuda", generator=gen))
         # planted exact ties: copies of one row in one block and across blocks
@@ -778,14 +802,17 @@ def mips_block_phase() -> float:
         mask[5] = 1
         mask[5, [3, 5000, 5001]] = 0            # three live columns in all
         mask[6] = 1                             # none at all
-        for k in (1, 10, 100):
+        for k in ks:
             for m in (None, mask):
                 what = f"mips_block d={d} k={k} mask={'int8' if m is not None else 'none'}"
                 s_k, i_k = mips_block_topk(q, c, k, block=block, mask=m)
-                s_p, i_p = mips_block_topk_plain(q, c, k, block=block, mask=m)
+                s_k2, i_k2 = mips_block_topk(q, c, k, block=block, mask=m)
+                s_p, i_p, s_next = plain_block_topk(q, c, k, block, m)
                 torch.cuda.synchronize()
                 check(s_k.shape == (3, nq, k) and i_k.dtype == torch.int32, f"{what}: shape")
-                worst = max(worst, check_block_topk(s_k, i_k, s_p, i_p, what))
+                check(torch.equal(s_k, s_k2) and torch.equal(i_k, i_k2),
+                      f"{what}: two calls differ")
+                worst = max(worst, check_block_topk(s_k, i_k, s_p, i_p, what, s_next))
                 check(bool((i_k < n).all()) and bool((i_k >= 0).all()),
                       f"{what}: a column outside the catalog")
                 # exact ties: equal scores keep ascending columns (query 7
@@ -813,12 +840,14 @@ def mips_block_phase() -> float:
                 # the whole lane against the flat method
                 s_b, i_b = mips_topk(q, c, k=k, block=block, method="pallas",
                                      exclude_mask=m, normalize=False)
-                s_f, i_f = mips_topk(q, c, k=k, method="flat", exclude_mask=m,
+                s_f, i_f = mips_topk(q, c, k=k + 1, method="flat", exclude_mask=m,
                                      normalize=False)
-                check_block_topk(s_b[None], i_b[None], s_f[None], i_f[None], what + " merged")
-        log(f"[kernel] mips_block d={d}: k in (1, 10, 100) x mask none/int8 agree "
-            f"with the plain version and with method='flat' (Q {nq}, N {n}, block "
-            f"{block}; max score diff {worst:.3e}; planted ties in ascending order)")
+                check_block_topk(s_b[None], i_b[None], s_f[None, :, :k], i_f[None, :, :k],
+                                 what + " merged", s_f[None, :, k:])
+        log(f"[kernel] mips_block d={d}: k in {ks} x mask none/int8 agree with the "
+            f"plain version and with method='flat', bit-equal over two calls (Q {nq}, "
+            f"N {n}, block {block}; max score diff so far {worst:.3e}; planted ties in "
+            f"ascending order)")
     return worst
 
 
@@ -1045,8 +1074,8 @@ def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
     block = 4096
     nb = -(-ni // block)
     s_k, i_k = cuda_mips.mips_block_topk(q, c, TOP_K, block=block, mask=mask)
-    s_p, i_p = cuda_mips.mips_block_topk_plain(q, c, TOP_K, block=block, mask=mask)
-    b3_err = check_block_topk(s_k, i_k, s_p, i_p, "mips_block at the serving shape")
+    s_p, i_p, s_next = plain_block_topk(q, c, TOP_K, block, mask)
+    b3_err = check_block_topk(s_k, i_k, s_p, i_p, "mips_block at the serving shape", s_next)
     call = lambda: cuda_mips.mips_block_topk(q, c, TOP_K, block=block, mask=mask)
     b3_dev, b3_kernel = profiled_ms(call, 20, "mips_block_kernel")
     b3_events = time_ms(call, 20)
@@ -1057,19 +1086,26 @@ def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
     b3_lib = time_ms(lib, 20)
     byts = (c.numel() + q.numel()) * 4 + mask.numel() + nb * users.size * TOP_K * 8
     flops = 2.0 * users.size * ni * d
-    t_bytes, t_ops = byts / bw * 1e3, flops / F32_FLOPS * 1e3
+    # f32-exact scores: f32 FMA, or three TF32 tensor-core products each
+    t_bytes = byts / bw * 1e3
+    t_ffma, t_tf32 = flops / F32_FLOPS * 1e3, 3 * flops / TF32_FLOPS * 1e3
+    t_ops = min(t_ffma, t_tf32)
     b3_bound, b3_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    b3_basis = ("bytes" if b3_by == "bytes"
+                else "3 TF32 products" if t_tf32 <= t_ffma else "f32 FMA")
     log(f"[kernel] mips_block at (Q {users.size}, N {ni}, block {block} -> nb {nb}, "
         f"d={d}, k={TOP_K}, int8 mask): {b3_dev:.4f} ms of device time per call "
         f"(profiler; kernel alone {b3_kernel:.4f} ms), {b3_events:.4f} ms by CUDA "
         f"events; plain {b3_plain:.4f} ms; torch.matmul + masked_fill_ + torch.topk "
-        f"{b3_lib:.4f} ms; bound {b3_bound:.4f} ms ({b3_by}: {byts / 1e6:.2f} MB, "
-        f"{flops / 1e9:.2f} GFLOP), {b3_bound / b3_dev:.3f} of the bound; max score "
-        f"diff vs plain {b3_err:.3e}")
+        f"{b3_lib:.4f} ms; bound {b3_bound:.4f} ms ({b3_basis}: {byts / 1e6:.2f} MB "
+        f"take {t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP take {t_ffma:.4f} ms as f32 FMA "
+        f"and {t_tf32:.4f} ms as 3 TF32 products), {b3_bound / b3_dev:.3f} of the "
+        f"bound; max score diff vs plain {b3_err:.3e}")
     rows.append(dict(name="mips_block", **KERNEL_ROWS["mips_block"],
                      launches=block_launches["mips_block"], max_abs_err=b3_err,
                      ms=b3_dev, plain_ms=b3_plain, bound_ms=b3_bound, bound_by=b3_by,
-                     library_ms=b3_lib,
+                     library_ms=b3_lib, bound_basis=b3_basis, bytes_ms=t_bytes,
+                     ffma_ms=t_ffma, tf32x3_ms=t_tf32,
                      ms_method="device time of one call, torch.profiler",
                      kernel_ms=b3_kernel, wrapper_ms=b3_events))
     return rows

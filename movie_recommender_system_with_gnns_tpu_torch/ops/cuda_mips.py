@@ -29,6 +29,7 @@ device memory. :func:`mips_topk_block` (the counterpart of
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional, Tuple
@@ -93,8 +94,9 @@ def _library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _num_sms(device: torch.device) -> int:
-    """SM count of a CUDA device: the bf16 lane runs one persistent block on
-    each SM."""
+    """SM count of a CUDA device: the bf16 lane of ``score_chunkmax`` runs one
+    persistent block on each SM, and the per-block kernel splits its units
+    over clusters where they alone would leave SMs idle."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -272,11 +274,31 @@ def _block_library() -> ctypes.CDLL:
     fn = lib.mips_block
     if fn.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, p]
+        fn.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32, i32, i32, p]
         fn.restype = ctypes.c_int
+        lib.mips_block_scratch_bytes.argtypes = [i32] * 6
+        lib.mips_block_scratch_bytes.restype = ctypes.c_int64
         lib.mips_block_error_string.argtypes = [ctypes.c_int]
         lib.mips_block_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _block_scratch_bytes(lib: ctypes.CDLL, nq: int, n: int, d: int, k: int,
+                         block: int, sms: int) -> int:
+    """Bytes of global scratch the kernel needs for these sizes (0 when its
+    candidate buffers fit in shared memory), asked of the library once per
+    shape."""
+    return lib.mips_block_scratch_bytes(nq, n, d, k, block, sms)
+
+
+def _raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle, without
+    building a ``torch.cuda.Stream`` object where PyTorch offers that."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def mips_block_topk(q: torch.Tensor, c: torch.Tensor, k: int,
@@ -286,8 +308,13 @@ def mips_block_topk(q: torch.Tensor, c: torch.Tensor, k: int,
     global column ids (nb, Q, k) int32), nb = ⌈N / block⌉.
 
     q (Q, d), c (N, d): contiguous f32; ``mask`` (Q, N) one-byte, non-zero =
-    excluded; 1 ≤ k ≤ block. The score tile of 8 queries lives in shared
-    memory, so ``block`` is at most about 7,000 columns."""
+    excluded; 1 ≤ k ≤ block. The kernel streams each block through shared
+    memory in tiles and keeps only per-query candidate buffers, so neither
+    ``block`` nor ``d`` is capped by shared memory: ``block`` is limited by
+    N + block < 2^31 and ⌈N / block⌉ ≤ 65,535, ``k`` by ``block``. For
+    k > 128, or where they do not fit in shared memory beside a deep query
+    band, the candidate buffers go to a global scratch allocated here (2k to
+    3k + 144 entries of 8 bytes for each query and block)."""
     if not 1 <= k <= block:
         raise ValueError(f"need 1 <= k <= block, got k={k} block={block}")
     if q.device.type == "cpu":
@@ -296,29 +323,39 @@ def mips_block_topk(q: torch.Tensor, c: torch.Tensor, k: int,
         raise ValueError(f"mips_block_topk runs on cuda or cpu tensors, got {q.device}")
     nq, d = q.shape
     n = c.shape[0]
+    dev = q.device
     for name, t in (("q", q), ("c", c)):
         if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != d
-                or not t.is_contiguous() or t.device != q.device):
+                or not t.is_contiguous() or t.device != dev):
             raise ValueError(f"{name} must be contiguous float32 (rows, {d}) on "
-                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if nq == 0 or n == 0:
         raise ValueError(f"empty query or catalog: Q={nq} N={n}")
     if mask is not None:
         if (mask.dtype not in (torch.int8, torch.uint8, torch.bool)
                 or mask.shape != (nq, n) or not mask.is_contiguous()
-                or mask.device != q.device):
+                or mask.device != dev):
             raise ValueError(f"mask must be contiguous one-byte ({nq}, {n}) on "
-                             f"{q.device}, got {mask.dtype} {tuple(mask.shape)}")
-    nb = -(-n // block)
-    os_ = torch.empty((nb, nq, k), dtype=torch.float32, device=q.device)
-    oi_ = torch.empty((nb, nq, k), dtype=torch.int32, device=q.device)
+                             f"{dev}, got {mask.dtype} {tuple(mask.shape)}")
     lib = _block_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    sms = _num_sms(dev)
+    scratch_bytes = _block_scratch_bytes(lib, nq, n, d, k, block, sms)
+    if scratch_bytes < 0:
+        raise ValueError(f"mips_block does not take Q={nq} N={n} d={d} k={k} "
+                         f"block={block}")
+    nb = -(-n // block)
+    os_ = torch.empty((nb, nq, k), dtype=torch.float32, device=dev)
+    oi_ = torch.empty((nb, nq, k), dtype=torch.int32, device=dev)
+    scratch = (torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+               if scratch_bytes else None)
+    ctx = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+           else contextlib.nullcontext())
+    with ctx:
         err = lib.mips_block(q.data_ptr(), c.data_ptr(),
                              None if mask is None else mask.data_ptr(),
-                             os_.data_ptr(), oi_.data_ptr(), nq, n, d, k, block,
-                             stream)
+                             os_.data_ptr(), oi_.data_ptr(),
+                             None if scratch is None else scratch.data_ptr(),
+                             nq, n, d, k, block, sms, _raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"mips_block launch failed: cudaError {err} "
                            f"({lib.mips_block_error_string(err).decode()})")

@@ -26,7 +26,8 @@ def _forbidden(name: str) -> bool:
 
 
 def test_port_imports_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("probe_*.py")))
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]

@@ -48,8 +48,18 @@ Phases:
      through the kernel against the plain route (both on the f32 segment
      path), and through its dense bf16 block against the segment path; one
      step run twice from the same state, bit-equal in parameters and Adam
-     moments, on the dense bf16 block and on the segment path; a third,
-     timed epoch and a profiled window of steps;
+     moments, on the dense bf16 block and on the segment path;
+  5a. the lazy-row optimizers on the same clusters: ``hybrid_adam`` (the
+     JAX package's headline optimizer) through ``train_model`` for 2 epochs
+     from the Adam run's initial tables and epoch generators; one step of
+     each of ``lazy_adam``, ``hybrid_adam`` and ``lazy_item_adam`` run twice
+     from the same state, bit-equal in parameters and both moment tables, on
+     the dense bf16 block and on the segment path; from fresh moments,
+     hybrid's item table against Adam's (1e-6 of its largest entry) and
+     lazy-item's tables against hybrid's (rtol 1e-6, atol 1e-7) after one
+     step; each optimizer's update with host syncs made errors (the gradient
+     code's first sync, if any, logged); then for Adam and each of the three
+     a third, timed epoch (peak memory) and a profiled window of 10 steps;
   5b. eval and propagated serving at the same width, with the checkpoint of
      phase 5: ``compute_serving_tables(mode="propagated")`` through the ELL
      SpMM kernel (one launch per hop) against ``spmm_segment`` propagation,
@@ -60,7 +70,8 @@ Phases:
   6. trained -> served: the checkpoint of phase 5 behind the ``ServingIndex``
      for one 32,768-user dispatch; then the CLI at a small synthetic size:
      ``train --fused-bpr --full-eval --epochs 1``, the three ``recommend``
-     modes and ``recommend --propagated``;
+     modes and ``recommend --propagated``, and ``train --optimizer
+     hybrid_adam --fused-bpr`` beside its own checkpoint;
   7. each kernel timed at its main-path shape beside its plain version, one
      library call where one computes the same function, and its bound.
 
@@ -79,6 +90,7 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -301,9 +313,10 @@ def check_served(index, users, s, i, num_items: int) -> None:
     check(not bool(seen.any()), "a train-seen item was served")
 
 
-def profile_window(what: str, reps: int, top: int, fn) -> None:
+def profile_window(what: str, reps: int, top: int, fn) -> dict:
     """Run ``fn`` ``reps`` times under torch.profiler and print the wall time,
-    the device-busy time and the kernels that take most of it, per repeat."""
+    the device-busy time and the kernels that take most of it, per repeat;
+    returns the first three and the kernel count, per repeat."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -324,6 +337,8 @@ def profile_window(what: str, reps: int, top: int, fn) -> None:
         f"{sum(n for _, n, _ in dev):.0f} kernels")
     for ms, n, key in dev[:top]:
         log(f"[trace]   {ms:.4f} ms  x{n:.0f}  {key[:100]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
+                kernels=sum(n for _, n, _ in dev))
 
 
 def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1111,6 +1126,158 @@ def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
     return rows
 
 
+def lazy_phase(cfg, cc, cc_seg, main_path: str, c_id: int, neg, data, val, test,
+               hist_adam: dict, copy, steps: int, scatters: int):
+    """Phase 5a: the lazy-row optimizers at full width. ``hybrid_adam`` (the
+    JAX package's headline optimizer) through ``train_model`` for 2 epochs
+    from the Adam run's initial tables and epoch generators, with its launch
+    counts and best-val checkpoint; one step of each of ``lazy_adam``,
+    ``hybrid_adam`` and ``lazy_item_adam`` run twice from the same state,
+    bit-equal on the main path and the segment path; from fresh moments,
+    hybrid's item table against Adam's and lazy-item's tables against
+    hybrid's after one step; each optimizer's update with host syncs made
+    errors. Returns the hybrid run's state."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops._build import LAUNCHES as launches
+    from movie_recommender_system_with_gnns_tpu_torch.training import compact
+    from movie_recommender_system_with_gnns_tpu_torch.training.checkpoint import save_params
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import (
+        TrainState, create_train_state, loss_and_grads, make_optimizer, train_model)
+
+    cfg_of = lambda opt, **kw: cfg.replace(
+        train=dataclasses.replace(cfg.train, optimizer=opt, **kw))
+    cfg_h = cfg_of("hybrid_adam", checkpoint_path=str(WORK / "best_hybrid.npz"))
+    saved = []
+
+    def save_cb(st, recall):
+        saved.append(recall)
+        save_params(cfg_h.train.checkpoint_path, st.params, meta={"val_recall": recall})
+
+    # the Adam run's initial tables: the same seed through the same
+    # initializer; train_model swaps fresh lazy moments in for Adam's
+    state = create_train_state(cfg_h, data.num_users, data.num_items,
+                               generator=torch.Generator().manual_seed(SEED),
+                               device="cuda")
+    launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state, hist = train_model(cfg_h, state, cc, val, test, save_checkpoint=save_cb)
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    got = dict(launches)
+    log(f"[lazy] hybrid_adam train_model {TRAIN['epochs']} epochs + test eval: "
+        f"{t_train:.2f} s; epoch times with the val eval "
+        f"{[round(t, 3) for t in hist['epoch_time_s']]} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[lazy] kernel launches on the hybrid_adam training path: {got}")
+    check(isinstance(state.opt_state, compact.LazyAdamState),
+          "train_model did not give hybrid_adam a lazy state")
+    check(got.get("bpr_tile", 0) == steps,
+          f"hybrid_adam: bpr_tile launched {got.get('bpr_tile', 0)} times, expected {steps}")
+    # per step: the dense item gradient's negative rows; on the segment path
+    # also each hop's message sum and its gather's backward
+    check(got.get("sorted_index_add", 0) == scatters,
+          f"hybrid_adam: sorted_index_add launched {got.get('sorted_index_add', 0)} "
+          f"times, expected {scatters}")
+    check(all(np.isfinite(v) for key in hist for v in hist[key]),
+          f"hybrid_adam: a loss or metric is not finite: {hist}")
+    check(hist["train_loss"][1] < hist["train_loss"][0],
+          f"hybrid_adam: train loss did not fall: {hist['train_loss']}")
+    check(state.step == steps and state.opt_state.count == steps,
+          f"hybrid_adam: step {state.step}, count {state.opt_state.count} != {steps}")
+    check(bool(saved) and Path(cfg_h.train.checkpoint_path).exists(),
+          "hybrid_adam: no best-val checkpoint was written")
+    log(f"[lazy] hybrid_adam train loss {hist['train_loss']}, val loss "
+        f"{hist['val_loss']}, val recall {hist['val_recall']} (adam "
+        f"{hist_adam['val_recall']}), test recall {hist['test_recall']} (adam "
+        f"{hist_adam['test_recall']})")
+
+    # one step of each twice from the same state, order and negatives
+    for opt in compact.LAZY_OPTIMIZERS:
+        fn = compact.make_compact_epoch_fn(cfg_of(opt))
+        for path, cc_p in ((main_path, cc), ("segment", cc_seg)):
+            runs = [fn(copy(state), cc_p, None, perm=[c_id], neg=neg[None])[0]
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            a, b = runs
+            same = [torch.equal(x, y) for x, y in zip(
+                a.params + a.opt_state.mu + a.opt_state.nu,
+                b.params + b.opt_state.mu + b.opt_state.nu)]
+            check(all(same), f"{opt}: cluster {c_id}'s step on the {path} path is not "
+                  f"bit-equal over two runs (params and moments equal: {same})")
+            check(not torch.equal(a.params.item_emb, state.params.item_emb)
+                  and not torch.equal(a.params.user_emb, state.params.user_emb),
+                  f"{opt}: the {path} step left a table unchanged")
+            log(f"[lazy] {opt}: cluster {c_id}, one step run twice on the {path} "
+                f"path: parameters and both moment tables bit-equal")
+            del runs, a, b
+
+    # from fresh moments, the same cluster and negatives: one step each
+    fresh = {}
+    for opt in ("adam", "hybrid_adam", "lazy_item_adam"):
+        p = type(state.params)(*(t.clone() for t in state.params))
+        ost = (make_optimizer(cfg).init(p) if opt == "adam" else compact.init_lazy_adam(p))
+        fresh[opt] = compact.make_compact_epoch_fn(cfg_of(opt))(
+            TrainState(p, ost, 0), cc, None, perm=[c_id], neg=neg[None])[0].params
+    a_item, h = fresh["adam"].item_emb, fresh["hybrid_adam"]
+    err = (h.item_emb - a_item).abs().max().item()
+    top = a_item.abs().max().item()
+    check(err <= 1e-6 * top, f"hybrid's item table after one step is {err:.3e} from "
+          f"Adam's (largest entry {top:.3e})")
+    errs = []
+    for name, x, y in zip(("user", "item"), fresh["lazy_item_adam"], h):
+        errs.append((x - y).abs().max().item())
+        check(torch.allclose(x, y, rtol=1e-6, atol=1e-7),
+              f"lazy_item_adam's {name} table after one step is not hybrid's within "
+              f"rtol 1e-6 / atol 1e-7 (max |diff| {errs[-1]:.3e})")
+    log(f"[lazy] one step from fresh moments, cluster {c_id}: hybrid's item table "
+        f"{err:.3e} from Adam's (largest entry {top:.3e}); lazy_item_adam's user / "
+        f"item tables {errs[0]:.3e} / {errs[1]:.3e} from hybrid's")
+    del fresh, a_item, h
+
+    # host syncs: each optimizer's update must make none; the gradient code's
+    # first, if any, is logged with the Python frames that reached it
+    st = copy(state)
+    rg = compact.compact_row_grads(st.params, cc, c_id, neg, cfg_h)
+    p = type(state.params)(*(t.clone() for t in state.params))
+    adam_grads = lambda: loss_and_grads(
+        compact.compact_cluster_loss, p, cc.cluster(c_id), neg, cfg, cc.u_pad,
+        cc.i_pad, None if cc.adj is None else cc.adj[c_id], cc.lists(c_id))
+    opt_a = make_optimizer(cfg)
+    g_adam = adam_grads()[1]
+    for what, fn in (
+            ("the row gradients of one step",
+             lambda: compact.compact_row_grads(st.params, cc, c_id, neg, cfg_h)),
+            ("adam's gradients of one step", adam_grads),
+            ("adam's clip + update", lambda: opt_a.update(p, g_adam, opt_a.init(p)))):
+        log(f"[lazy] {what}: first host sync {sync_site(fn) or 'none'}")
+    for opt in compact.LAZY_OPTIMIZERS:
+        st = copy(state)
+        update = compact.make_row_update(cfg_of(opt))
+        site = sync_site(lambda: update(st.params, st.opt_state, cc, c_id, rg))
+        check(site is None, f"{opt}: the update synchronised with the host at {site}")
+        log(f"[lazy] {opt}: the update ran with host syncs made errors: none")
+    del st, rg, p, g_adam
+    return state
+
+
+def sync_site(fn):
+    """Run ``fn`` with host syncs made errors: None when it makes none, else
+    the last Python frames (file:line function) that reached the first."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return None
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        return " <- ".join(f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in
+                           reversed(traceback.extract_tb(e.__traceback__)[-5:]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1137,7 +1304,7 @@ def main() -> int:
         densify_if_fits)
     from movie_recommender_system_with_gnns_tpu_torch.training.train import (
         TrainState, build_eval_batch, create_train_state, epoch_generator,
-        loss_and_grads, train_model)
+        loss_and_grads, make_optimizer, train_model)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1420,14 +1587,16 @@ def main() -> int:
         # and Adam moments bit-equal, on the dense bf16 block (the main path)
         # and on the segment path
         epoch_fn = compact.make_compact_epoch_fn(cfg)
+        # a copy of a state: tables and moments cloned (Adam's or the lazy
+        # optimizers' state, whose fields are the count and two table pairs)
+        tables = lambda p: type(p)(*(t.clone() for t in p))
         copy = lambda st: TrainState(
-            type(st.params)(*(t.clone() for t in st.params)),
-            type(st.opt_state)(st.opt_state.count,
-                               type(st.params)(*(t.clone() for t in st.opt_state.mu)),
-                               type(st.params)(*(t.clone() for t in st.opt_state.nu))),
+            tables(st.params), type(st.opt_state)(*(
+                f if isinstance(f, int) else tables(f) for f in st.opt_state)),
             st.step)
-        for path, cc_p in (("dense bf16" if dense else "segment", cc),
-                           ("segment", dataclasses.replace(cc, adj=None))):
+        cc_seg = dataclasses.replace(cc, adj=None)
+        main_path = "dense bf16" if dense else "segment"
+        for path, cc_p in ((main_path, cc), ("segment", cc_seg)):
             before = dict(launches)
             runs = [epoch_fn(copy(state), cc_p, None, perm=[c_id], neg=neg[None])[0]
                     for _ in range(2)]
@@ -1446,24 +1615,47 @@ def main() -> int:
                 f"launches per step)")
             del runs, a, b, pairs
 
-        # a third epoch, timed alone (no eval), then a profiled window of steps
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, loss3 = epoch_fn(state, cc, epoch_generator(cfg, TRAIN["epochs"],
-                                                           torch.device("cuda")))
-        torch.cuda.synchronize()
-        t_epoch = time.perf_counter() - t0
-        check(np.isfinite(loss3), "third epoch's loss is not finite")
-        log(f"[train] epoch 3 alone: {t_epoch:.3f} s per epoch, "
-            f"{1e3 * t_epoch / cc.num_clusters:.3f} ms per step, train loss {loss3:.4f}")
-        gen_p = torch.Generator(device="cuda").manual_seed(SEED + 3)
-        st = [state]
+        state_h = lazy_phase(cfg, cc, cc_seg, main_path, c_id, neg, data, val, test,
+                             hist, copy, steps, scatters)
 
-        def ten_steps():
-            st[0], _ = epoch_fn(st[0], cc, gen_p, perm=list(range(10)))
+        # a third epoch, timed alone (no eval), then a profiled window of steps;
+        # then the same for each lazy-row optimizer from the hybrid run's state
+        timings = {}
+        for opt in ("adam",) + compact.LAZY_OPTIMIZERS:
+            fn = epoch_fn if opt == "adam" else compact.make_compact_epoch_fn(
+                cfg.replace(train=dataclasses.replace(cfg.train, optimizer=opt)))
+            st = [state if opt == "adam" else copy(state_h)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            st[0], loss3 = fn(st[0], cc, epoch_generator(cfg, TRAIN["epochs"],
+                                                         torch.device("cuda")))
+            torch.cuda.synchronize()
+            t_epoch = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            check(np.isfinite(loss3), f"{opt}: the third epoch's loss is not finite")
+            log(f"[train] {opt}: epoch 3 alone: {t_epoch:.3f} s per epoch, "
+                f"{1e3 * t_epoch / cc.num_clusters:.3f} ms per step, train loss "
+                f"{loss3:.4f}; peak device memory {peak / 1e9:.3f} GB "
+                f"({(peak - resident) / 1e9:.3f} GB over the resident {resident / 1e9:.3f})")
+            gen_p = torch.Generator(device="cuda").manual_seed(SEED + 3)
 
-        profile_window("10 train steps", 2, 14, ten_steps)
-        state = st[0]
+            def ten_steps():
+                st[0], _ = fn(st[0], cc, gen_p, perm=list(range(10)))
+
+            prof = profile_window(f"10 {opt} train steps", 2, 14 if opt == "adam" else 8,
+                                  ten_steps)
+            timings[opt] = dict(
+                step_ms=1e3 * t_epoch / cc.num_clusters, busy_ms_per_step=prof["busy_ms"] / 10,
+                profiled_wall_ms_per_step=prof["wall_ms"] / 10,
+                idle_share=prof["idle_share"], launches_per_step=prof["kernels"] / 10,
+                peak_gb=peak / 1e9, epoch_peak_over_resident_gb=(peak - resident) / 1e9)
+            if opt == "adam":
+                state = st[0]
+            del st
+        log(f"[train] per optimizer, {smi}: {json.dumps(timings)}")
+        del state_h
 
         # 7b. bpr_tile at a real cluster's shape: time, plain, bound
         with torch.no_grad():
@@ -1616,6 +1808,23 @@ def main() -> int:
               and meet_launches.get("score_chunkmax", 0) >= 2
               and meet_launches.get("ell_spmm", 0) >= TRAIN["layers"],
               "the CLI phase did not go through its four kernels")
+        # the CLI's hybrid_adam training at the same size, beside its own
+        # checkpoint and histories
+        launches.clear()
+        t0 = time.time()
+        rc = cli.main(cli_base + ["--checkpoint", str(WORK / "small_hybrid.npz"),
+                                  "--histories-dir", str(WORK / "small_hybrid_hist"),
+                                  "train", "--optimizer", "hybrid_adam", "--fused-bpr"])
+        check(rc == 0, f"cli train --optimizer hybrid_adam exited {rc}")
+        torch.cuda.synchronize()
+        cli_h = dict(launches)
+        log(f"[cli] train --optimizer hybrid_adam --fused-bpr: rc 0 in "
+            f"{time.time() - t0:.1f} s; kernel launches {cli_h}")
+        check(cli_h.get("bpr_tile", 0) == SMALL["clusters"]
+              and (WORK / "small_hybrid.npz").exists()
+              and (WORK / "small_hybrid_hist" / "hist_train_loss.npy").exists(),
+              "cli train --optimizer hybrid_adam did not train through bpr_tile or "
+              "wrote no checkpoint or histories")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -11,10 +11,12 @@ The options are the JAX package's, so one command line, one checkpoint and one
 indexes dir serve both. ``--device`` picks the device (default ``cuda``;
 without a GPU, pass ``--device cpu``). ``train`` runs the compact cluster
 trainer (``--trainer compact``, the default) or the full-node one
-(``--trainer full``) with ``--optimizer adam``; ``--full-eval`` adds the
-full-ranking Recall@k / NDCG@k on the test split after training. ``recommend
---propagated`` scores with the K-layer propagated tables. ``--mesh``,
-``--max-retries``, the history plot and ``eda`` are not ported yet.
+(``--trainer full``, Adam); ``--optimizer`` picks the compact trainer's
+Adam variant (``adam``, ``lazy_adam``, ``hybrid_adam``, ``lazy_item_adam``);
+``--full-eval`` adds the full-ranking Recall@k / NDCG@k on the test split
+after training. ``recommend --propagated`` scores with the K-layer
+propagated tables. ``--mesh``, ``--max-retries``, the history plot and
+``eda`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -211,7 +213,8 @@ def main(argv=None) -> int:
                     help="reference-quirk cosine-softplus BPR vs textbook BPR")
     pt.add_argument("--optimizer", default="adam",
                     choices=["adam", "lazy_adam", "hybrid_adam", "lazy_item_adam"],
-                    help="only adam is ported; the others raise")
+                    help="compact trainer: adam, or the lazy-row variants "
+                         "(hybrid_adam: dense item Adam, lazy user rows)")
     pt.add_argument("--partitioner", default="greedy",
                     choices=["greedy", "random_edges"])
     pt.add_argument("--trainer", default="compact",

@@ -375,8 +375,9 @@ def mips_topk_block(
     indices (Q, k) int64).
 
     Same signature and semantics as the JAX package's
-    ``ops/pallas_mips.py::mips_topk_pallas``: rows normalized in f32, exact
-    f32 scores, each block's candidates merged by
+    ``ops/pallas_mips.py::mips_topk_pallas``: rows normalized in f32, scores
+    from three TF32 tensor-core products (within about 6e-7 of f32 at
+    d = 64), each block's candidates merged by
     :func:`ops.topk.merge_topk`. The (Q, N) score matrix never reaches device
     memory."""
     q = normalize_embedding(query) if normalize else query

@@ -33,15 +33,23 @@ lists. The gathers of ``user_ids``/``item_ids`` repeat only padding ids, whose
 gradient rows are exact zeros, so their atomic scatter adds nothing. The epoch
 is a Python loop over the clusters (the JAX package fuses it into one
 ``lax.scan``); per-step host work and synchronisation are kept out of it.
-``optimizer="adam"`` only: the lazy/hybrid Adam variants, exact-feasible
-negatives and the frozen boundary correction are not ported yet.
+
+Four optimizers: ``adam`` (clip + dense Adam on both tables, through
+``train.make_optimizer``), and the three that take gradients with respect to
+the step's gathered rows (:func:`row_loss`) and touch fewer rows:
+``lazy_adam`` (SparseAdam-style rows everywhere), ``hybrid_adam`` (dense
+Adam on the item table, lazy user rows) and ``lazy_item_adam`` (hybrid with
+the item update on the touched rows only). Their repeated rows are summed in
+sorted order too, so their steps are as reproducible as Adam's.
+Exact-feasible negatives and the frozen boundary correction are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,11 +58,12 @@ from ..config import Config
 from ..data.graph import gcn_norm
 from ..models.lightgcn import LightGCNParams
 from ..ops.bpr import select_bpr_loss
-from ..ops.cuda_scatter import gather_rows, scatter_rows, sort_rows
+from ..ops.cuda_scatter import gather_rows, scatter_rows, sort_rows, sorted_index_add
 from ..ops.sampling import check_negatives_mode, sample_negative
 from ..ops.topk import DTypeLike
 from ..utils.device import DeviceLike, as_dtype, resolve_device
-from .train import TrainState, loss_and_grads, make_optimizer
+from .train import (AdamState, TrainState, adam_step_, bias_corrections, loss_and_grads,
+                    make_lr_schedule, make_optimizer)
 
 
 class ClusterLists(NamedTuple):
@@ -129,6 +138,9 @@ class CompactClusters:
     # (each user's edges in exactly one cluster: greedy node partition)
     user_cluster: torch.Tensor  # (U,) int32
     user_slot: torch.Tensor     # (U,) int32
+    # each cluster's valid user count, on the host: the valid slots are the
+    # first user_counts[c] of user_ids[c] (hybrid Adam writes those rows)
+    user_counts: Tuple[int, ...]
     users_disjoint: bool = True
     # optional densified Â per cluster (K, n_local, n_local): turns the
     # propagation into matmuls (see densify_adjacency)
@@ -244,6 +256,7 @@ def build_compact_clusters(
         edge_counts=t(edge_counts), user_valid=t(user_valid),
         item_valid=t(item_valid), u_pad=u_pad, i_pad=i_pad,
         user_cluster=t(user_cluster), user_slot=t(user_slot),
+        user_counts=tuple(len(info[0]) for info in infos),
         users_disjoint=users_disjoint,
         row_lists=ClusterLists(*(t(np.stack(f)) for f in zip(*lists))),
     )
@@ -458,6 +471,33 @@ def _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids, user_local,
     return loss_fn(uf, ui, pf, pi, nf, ni, cfg.train.bpr_coeff, mask=mask)
 
 
+def row_loss(u_rows, i_rows, n_rows, cluster: Tuple, neg: torch.Tensor,
+             cfg: Config, u_pad: int, i_pad: int, adj: Optional[torch.Tensor],
+             lists: ClusterLists,
+             neg_lists: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """The compact BPR loss from the rows a step gathered (JAX ``row_loss``):
+    ``u_rows`` (u_pad, d) and ``i_rows`` (i_pad, d) the cluster's table rows,
+    ``n_rows`` (B·K, d) the flattened negatives' rows, ``neg_lists`` =
+    ``sort_rows`` of the flattened ``neg`` over the catalog. Autograd reaches
+    the rows through the propagation and the BPR dispatch (B1's
+    ``autograd.Function`` on the fused route)."""
+    (user_ids, item_ids, src, dst, w, user_local, pos_local, mask) = cluster
+    n_local = u_pad + i_pad
+    k1 = cfg.model.num_layers + 1
+    scale = 1.0 / (k1 * k1) if cfg.model.readout == "reference" else 1.0 / k1
+    cdtype = as_dtype(cfg.model.compute_dtype)
+
+    emb = torch.cat([u_rows, i_rows], dim=0).to(cdtype)
+    acc = _propagate_local(emb, src, dst, w, adj, cfg.model.num_layers, n_local,
+                           lists=lists)
+    final = acc.to(torch.float32) * scale
+    fu, fi = final[:u_pad], final[u_pad:]
+    ni = n_rows.reshape(*neg.shape, n_rows.shape[1])
+    return _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids,
+                         user_local, pos_local, mask, cfg, i_pad, scale, lists,
+                         neg_lists)
+
+
 def compact_cluster_loss(
     params: LightGCNParams,
     cluster: Tuple,
@@ -477,51 +517,316 @@ def compact_cluster_loss(
     negatives are sorted once: their gradient rows and the fused kernel's
     negative lists share the order.
     """
-    (user_ids, item_ids, src, dst, w, user_local, pos_local, mask) = cluster
-    n_local = u_pad + i_pad
-    k1 = cfg.model.num_layers + 1
-    scale = 1.0 / (k1 * k1) if cfg.model.readout == "reference" else 1.0 / k1
-    cdtype = as_dtype(cfg.model.compute_dtype)
-
-    u_rows = params.user_emb.index_select(0, user_ids)      # (Upad, d) gather
-    i_rows = params.item_emb.index_select(0, item_ids)      # (Ipad, d)
+    user_ids, item_ids = cluster[:2]
     if lists is None:
         lists = cluster_lists(cluster, u_pad, i_pad)
-    emb = torch.cat([u_rows, i_rows], dim=0).to(cdtype)
-    acc = _propagate_local(emb, src, dst, w, adj, cfg.model.num_layers, n_local,
-                           lists=lists)
-    final = acc.to(torch.float32) * scale
-    fu, fi = final[:u_pad], final[u_pad:]
-
+    u_rows = params.user_emb.index_select(0, user_ids)      # (Upad, d) gather
+    i_rows = params.item_emb.index_select(0, item_ids)      # (Ipad, d)
     # the step's one sort of its negatives (global ids over the catalog)
     neg_flat = neg.reshape(-1)
     neg_lists = sort_rows(neg_flat, params.item_emb.shape[0])
-    ni = gather_rows(params.item_emb, neg_flat, *neg_lists).reshape(
-        *neg.shape, params.item_emb.shape[1])
-    return _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids,
-                         user_local, pos_local, mask, cfg, i_pad, scale, lists,
-                         neg_lists)
+    n_rows = gather_rows(params.item_emb, neg_flat, *neg_lists)
+    return row_loss(u_rows, i_rows, n_rows, cluster, neg, cfg, u_pad, i_pad, adj,
+                    lists, neg_lists)
 
 
-def make_compact_epoch_fn(cfg: Config):
-    """Build ``epoch_fn(state, cc, generator, perm=None, neg=None) ->
-    (state, mean_loss)``: one shuffled pass over all compact clusters, one
-    clip + Adam step per cluster, the mean loss weighted by the clusters' true
-    edge counts.
+# ---------------------------------------------------------------------------
+# Lazy (sparse) Adam: moments of the touched rows only, the torch SparseAdam
+# analog (JAX package ``training/compact.py``, lazy and hybrid epochs)
+# ---------------------------------------------------------------------------
+
+#: the optimizers whose state is a :class:`LazyAdamState`
+LAZY_OPTIMIZERS = ("lazy_adam", "hybrid_adam", "lazy_item_adam")
+
+
+class LazyAdamState(NamedTuple):
+    """Full-table moments and the step count, a Python int (JAX's field
+    order); only the update rule differs between the three optimizers."""
+
+    mu: LightGCNParams
+    nu: LightGCNParams
+    count: int
+
+
+def init_lazy_adam(params: LightGCNParams) -> LazyAdamState:
+    z = lambda: LightGCNParams(torch.zeros_like(params.user_emb),
+                               torch.zeros_like(params.item_emb))
+    return LazyAdamState(mu=z(), nu=z(), count=0)
+
+
+def create_lazy_train_state(cfg: Config, params: LightGCNParams) -> TrainState:
+    return TrainState(params=params, opt_state=init_lazy_adam(params), step=0)
+
+
+def lazy_state_from_optax(opt_state: AdamState) -> LazyAdamState:
+    """The Adam state's ``(mu, nu, count)`` as a :class:`LazyAdamState`. The
+    port's :class:`~.train.AdamState` follows ``optax.chain(clip, adam)``
+    step for step and both sides keep per-row moments under the same law, so
+    the bridge is a relabelling: the tensors are shared, not copied."""
+    if not isinstance(opt_state, AdamState):
+        raise ValueError(f"expected an AdamState, got {type(opt_state).__name__}")
+    return LazyAdamState(mu=opt_state.mu, nu=opt_state.nu, count=opt_state.count)
+
+
+def lazy_state_to_optax(lz: LazyAdamState) -> AdamState:
+    """The reverse relabelling, for ``optimizer="adam"``. The JAX function
+    also takes a template of the optax chain, whose schedule count it sets to
+    the same step; the port's Adam state holds the one count."""
+    return AdamState(count=lz.count, mu=lz.mu, nu=lz.nu)
+
+
+class RowGrads(NamedTuple):
+    """One step's loss and its gradients with respect to the rows it gathered
+    (JAX: ``value_and_grad(row_loss, argnums=(0, 1, 2))``), with the step's
+    lists: the cluster's and the one sort of its negatives."""
+
+    loss: torch.Tensor
+    gu: torch.Tensor            # (u_pad, d)
+    gi: torch.Tensor            # (i_pad, d)
+    gn: torch.Tensor            # (B·K, d), the negatives in draw order
+    neg: torch.Tensor           # (B·K,) the flattened negatives
+    neg_lists: Tuple[torch.Tensor, torch.Tensor]   # sort_rows(neg, num_items)
+    lists: ClusterLists
+
+
+def compact_row_grads(params: LightGCNParams, cc: CompactClusters, c: int,
+                      neg: torch.Tensor, cfg: Config) -> RowGrads:
+    """Cluster ``c``'s loss and row gradients for the negatives ``neg``."""
+    cluster = cc.cluster(c)
+    lists = cc.lists(c)
+    if lists is None:
+        lists = cluster_lists(cluster, cc.u_pad, cc.i_pad)
+    neg_flat = neg.reshape(-1)
+    neg_lists = sort_rows(neg_flat, params.item_emb.shape[0])
+    rows = [table.index_select(0, idx).requires_grad_(True) for table, idx in (
+        (params.user_emb, cluster[0]), (params.item_emb, cluster[1]),
+        (params.item_emb, neg_flat))]
+    with torch.enable_grad():
+        loss = row_loss(*rows, cluster, neg, cfg, cc.u_pad, cc.i_pad,
+                        None if cc.adj is None else cc.adj[c], lists, neg_lists)
+        gu, gi, gn = torch.autograd.grad(loss, rows)
+    return RowGrads(loss.detach(), gu, gi, gn.contiguous(), neg_flat, neg_lists,
+                    lists)
+
+
+class Runs(NamedTuple):
+    """The runs of equal ids among an index array's stable sort, for
+    :func:`~..ops.cuda_scatter.sorted_index_add` with ``rows = n``: sorted
+    position ``p`` gets the sum, in entry order, of its run when it is the
+    run's first (``first``), and zero otherwise."""
+
+    order: torch.Tensor         # (n,) int32, the stable sort
+    starts: torch.Tensor        # (n + 1,) int32
+    keys: torch.Tensor          # (n,) the sorted ids
+    first: torch.Tensor         # (n,) bool
+
+
+def _runs(idx: torch.Tensor, lists: Tuple[torch.Tensor, torch.Tensor]) -> Runs:
+    """:class:`Runs` of ``idx`` from its ``lists = sort_rows(idx, rows)``:
+    a run's first position keeps its row's start, every other position the
+    run's end (an empty list); no host sync."""
+    order, starts = lists
+    keys = idx.index_select(0, order)
+    n = keys.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device=idx.device)
+    first = starts.index_select(0, keys) == pos
+    ends = starts.index_select(0, keys + 1)
+    return Runs(order, torch.cat([torch.where(first, pos, ends), pos.new_full((1,), n)]),
+                keys, first)
+
+
+def _clip_scale(sq_sum: torch.Tensor, clip: float) -> torch.Tensor:
+    """The lazy paths' global-norm clip (JAX): ``min(1, clip / max(‖g‖, 1e-6))``."""
+    return (clip / sq_sum.sqrt().clamp_min(1e-6)).clamp_max(1.0)
+
+
+def _lr_t(lr: float, bc1: float, bc2: float) -> float:
+    """SparseAdam's step size ``lr·√(1 − b2ᵗ)/(1 − b1ᵗ)``, in float32."""
+    f = np.float32
+    return float(f(lr) * np.sqrt(f(bc2)) / f(bc1))
+
+
+def _lazy_row_update(table, mu, nu, rows, g_rows, valid, lr_t, b1, b2, eps, scale,
+                     runs: Optional[Runs] = None):
+    """Adam on the gathered rows only, in the ``lr_t`` form (eps outside the
+    uncorrected √v), written back in place as masked row adds of the deltas
+    of table, ``mu`` and ``nu``.
+
+    Untouched rows keep stale moments (no decay while idle, as torch
+    SparseAdam), and rows that repeat within one call each apply a delta
+    computed from the same pre-state. Without ``runs`` every repeated row but
+    one must be masked out by ``valid`` (the padding slots): the adds then
+    meet no other nonzero add. ``runs`` (the :class:`Runs` of ``rows``) sums
+    each row's deltas over its run, in entry order, before one add per row;
+    ``valid`` None masks nothing."""
+    g = g_rows * scale
+    m_old = mu.index_select(0, rows)
+    v_old = nu.index_select(0, rows)
+    m = b1 * m_old + (1.0 - b1) * g
+    v = b2 * v_old + (1.0 - b2) * (g * g)
+    upd = -lr_t * m / (v.sqrt() + eps)
+    for t, delta in ((table, upd), (mu, m - m_old), (nu, v - v_old)):
+        if valid is not None:
+            delta = delta * valid[:, None].to(delta.dtype)
+        if runs is None:
+            t.index_add_(0, rows, delta)
+        else:
+            n = rows.shape[0]
+            t.index_add_(0, runs.keys, sorted_index_add(delta.contiguous(), runs.order,
+                                                        runs.starts, n))
+    return table, mu, nu
+
+
+UpdateFn = Callable[[LightGCNParams, LazyAdamState, CompactClusters, int, RowGrads],
+                    Tuple[LightGCNParams, LazyAdamState]]
+
+
+def _lazy_update(cfg: Config) -> UpdateFn:
+    """``lazy_adam``: lazy rows on both tables; the clip norm over the
+    unsummed row gradients; the cluster's items first, then the negatives,
+    which read the moments as the item update left them."""
+    lr_of = make_lr_schedule(cfg)
+    b1, b2, eps = cfg.train.adam_b1, cfg.train.adam_b2, cfg.train.adam_eps
+    clip = cfg.train.grad_clip_norm
+
+    @torch.no_grad()
+    def update(params, ost, cc, c, rg):
+        cscale = _clip_scale(rg.gu.square().sum() + rg.gi.square().sum()
+                             + rg.gn.square().sum(), clip)
+        count = ost.count + 1
+        lr_t = _lr_t(lr_of(ost.count), *bias_corrections(count, b1, b2))
+        args = (lr_t, b1, b2, eps, cscale)
+        _lazy_row_update(params.user_emb, ost.mu.user_emb, ost.nu.user_emb,
+                         cc.user_ids[c], rg.gu, cc.user_valid[c], *args)
+        tables = (params.item_emb, ost.mu.item_emb, ost.nu.item_emb)
+        _lazy_row_update(*tables, cc.item_ids[c], rg.gi, cc.item_valid[c], *args)
+        _lazy_row_update(*tables, rg.neg, rg.gn, None, *args,
+                         runs=_runs(rg.neg, rg.neg_lists))
+        return params, LazyAdamState(ost.mu, ost.nu, count)
+
+    return update
+
+
+def _touched_item_grads(rg: RowGrads, gi: torch.Tensor, item_ids: torch.Tensor,
+                        item_valid: torch.Tensor, i_pad: int):
+    """``lazy_item_adam``'s item rows: ``(rows, g, valid)`` over the cluster's
+    items then the negatives' sorted positions. An item row's gradient is its
+    negatives' run (in draw order) plus its own row, the order of JAX's
+    stable sort of ``[neg ‖ item_ids]``; a negative outside the cluster keeps
+    its run's sum at the run's first position; every other entry is masked.
+    No dense (num_items, d) gradient is formed."""
+    runs = _runs(rg.neg, rg.neg_lists)
+    n = runs.keys.shape[0]
+    sums = sorted_index_add(rg.gn, runs.order, runs.starts, n)
+    bounds = rg.neg_lists[1].index_select(0, rg.lists.neg_keys)
+    lo, hi = bounds[:i_pad], bounds[i_pad:]
+    g_items = gi + torch.where((hi > lo)[:, None],
+                               sums.index_select(0, lo.clamp_max(n - 1)), 0.0)
+    keys = runs.keys.to(item_ids.dtype)
+    keep = runs.first & ~_neg_local_index(item_ids, keys, i_pad)[1]
+    return (torch.cat([item_ids, keys]),
+            torch.cat([g_items, sums * keep[:, None].to(sums.dtype)]),
+            torch.cat([item_valid, keep]))
+
+
+def _hybrid_update(cfg: Config, lazy_items: bool) -> UpdateFn:
+    """``hybrid_adam``: exact dense Adam (optax form) on the item table, from
+    the dense item gradient: the negatives' rows summed over the step's lists
+    (``sorted_index_add``), then the cluster's item rows added; lazy user
+    rows (``lr_t`` form) written to the cluster's valid slots. The clip norm
+    is ``√(Σgu² + Σgi_dense²)`` over the valid user rows.
+
+    ``lazy_items`` (``lazy_item_adam``): the same optax-form Adam on the
+    touched item rows only (:func:`_touched_item_grads`), as masked row adds
+    of the deltas; the clip norm over the touched rows' summed gradients."""
+    lr_of = make_lr_schedule(cfg)
+    b1, b2, eps = cfg.train.adam_b1, cfg.train.adam_b2, cfg.train.adam_eps
+    clip = cfg.train.grad_clip_norm
+
+    @torch.no_grad()
+    def update(params, ost, cc, c, rg):
+        if not cc.users_disjoint:
+            raise ValueError(
+                "hybrid_adam needs disjoint per-cluster user sets (greedy "
+                "node partition); rebuild the clusters with "
+                "partitioner='greedy' or use optimizer='adam'/'lazy_adam'")
+        item_ids, item_valid = cc.item_ids[c], cc.item_valid[c]
+        gi = rg.gi * item_valid[:, None].to(rg.gi.dtype)
+        # the valid user slots come first: each user's one row in this step
+        nv = cc.user_counts[c]
+        user_ids, gu = cc.user_ids[c][:nv], rg.gu[:nv]
+        if lazy_items:
+            rows, g_rows, valid = _touched_item_grads(rg, gi, item_ids, item_valid,
+                                                      cc.i_pad)
+            cscale = _clip_scale(gu.square().sum() + g_rows.square().sum(), clip)
+        else:
+            order, starts = rg.neg_lists
+            g_dense = sorted_index_add(rg.gn, order, starts, params.item_emb.shape[0])
+            # a valid item id occurs once; the padding slots add exact zeros
+            g_dense.index_add_(0, item_ids, gi)
+            cscale = _clip_scale(gu.square().sum() + g_dense.square().sum(), clip)
+        lr = lr_of(ost.count)
+        count = ost.count + 1
+        bc1, bc2 = bias_corrections(count, b1, b2)
+        mu_i, nu_i = ost.mu.item_emb, ost.nu.item_emb
+        if lazy_items:
+            g = g_rows * cscale
+            m_old, v_old = mu_i.index_select(0, rows), nu_i.index_select(0, rows)
+            m_new = b1 * m_old + (1.0 - b1) * g
+            v_new = b2 * v_old + (1.0 - b2) * (g * g)
+            upd = m_new / ((v_new / bc2).sqrt() + eps) * (-lr / bc1)
+            fm = valid[:, None].to(g.dtype)
+            for t, delta in ((params.item_emb, upd), (mu_i, m_new - m_old),
+                             (nu_i, v_new - v_old)):
+                t.index_add_(0, rows, delta * fm)
+        else:
+            adam_step_(params.item_emb, g_dense * cscale, mu_i, nu_i, lr, bc1, bc2,
+                       b1, b2, eps)
+
+        # users: lazy rows, each user in one cluster, so the rows read here are
+        # the epoch-start ones JAX reads; written in place of the old rows
+        lr_t = _lr_t(lr, bc1, bc2)
+        tables = (params.user_emb, ost.mu.user_emb, ost.nu.user_emb)
+        u_rows, mu_rows, nu_rows = (t.index_select(0, user_ids) for t in tables)
+        gs = gu * cscale
+        m_new = b1 * mu_rows + (1.0 - b1) * gs
+        v_new = b2 * nu_rows + (1.0 - b2) * (gs * gs)
+        u_new = u_rows - lr_t * m_new / (v_new.sqrt() + eps)
+        slots = user_ids.long()
+        for t, new in zip(tables, (u_new, m_new, v_new)):
+            t.index_copy_(0, slots, new)
+        return params, LazyAdamState(ost.mu, ost.nu, count)
+
+    return update
+
+
+def make_row_update(cfg: Config) -> UpdateFn:
+    """``update(params, opt_state, cc, c, row_grads) -> (params, opt_state)``:
+    one step of ``cfg.train.optimizer`` (one of :data:`LAZY_OPTIMIZERS`) from
+    :func:`compact_row_grads`, in place on the tables and moments. No host
+    sync: the bias corrections come from the Python count."""
+    opt = cfg.train.optimizer
+    if opt == "lazy_adam":
+        return _lazy_update(cfg)
+    if opt in ("hybrid_adam", "lazy_item_adam"):
+        return _hybrid_update(cfg, lazy_items=opt == "lazy_item_adam")
+    raise ValueError(f"optimizer {opt!r} has no row update")
+
+
+Step = Callable[[TrainState, CompactClusters, int, torch.Tensor],
+                Tuple[TrainState, torch.Tensor]]
+
+
+def _epoch_fn(cfg: Config, step: Step):
+    """``epoch_fn(state, cc, generator, perm=None, neg=None) -> (state,
+    mean_loss)``: ``step(state, cc, c, neg)`` over the clusters in a shuffled
+    order, the mean loss weighted by the clusters' true edge counts.
 
     ``perm`` (K,) injects the cluster order and ``neg`` (K, B) or (K, B, Kneg)
     the negatives of each STEP (``neg[j]`` belongs to step j, which trains
     cluster ``perm[j]``), so a test can replay what another run drew; left
-    None they come from ``generator``. ``num_negatives > 1``, ``fused_bpr``
-    and any ``loss``/``readout`` combination are supported;
-    ``optimizer="adam"`` only.
-    """
-    if cfg.train.optimizer in ("lazy_adam", "hybrid_adam", "lazy_item_adam"):
-        _not_ported(f"optimizer={cfg.train.optimizer!r}")
-    if cfg.train.optimizer != "adam":
-        raise ValueError(f"unknown optimizer {cfg.train.optimizer!r}")
+    None they come from ``generator``."""
     check_negatives_mode(cfg.train.negatives)
-    opt = make_optimizer(cfg)
 
     def epoch_fn(state: TrainState, cc: CompactClusters,
                  generator: Optional[torch.Generator],
@@ -539,15 +844,67 @@ def make_compact_epoch_fn(cfg: Config):
         for j, c in enumerate(order):
             neg_j = (neg[j] if neg is not None else
                      _step_negatives(cfg, generator, b, num_items, device))
-            loss, grads = loss_and_grads(
-                compact_cluster_loss, state.params, cc.cluster(c), neg_j, cfg,
-                cc.u_pad, cc.i_pad, None if cc.adj is None else cc.adj[c],
-                cc.lists(c))
-            params, opt_state = opt.update(state.params, grads, state.opt_state)
-            state = TrainState(params, opt_state, state.step + 1)
+            state, loss = step(state, cc, c, neg_j)
             wloss = wloss + loss * cc.edge_counts[c]
         # the epoch's one host sync
         mean_loss = float(wloss / cc.edge_counts.sum().clamp_min(1.0))
         return state, mean_loss
 
     return epoch_fn
+
+
+def _row_epoch_fn(cfg: Config, update: UpdateFn):
+    """An epoch of row-gradient steps: :func:`compact_row_grads`, then
+    ``update``. The state's optimizer state is a :class:`LazyAdamState`."""
+
+    def step(state, cc, c, neg):
+        rg = compact_row_grads(state.params, cc, c, neg, cfg)
+        params, ost = update(state.params, state.opt_state, cc, c, rg)
+        return TrainState(params, ost, state.step + 1), rg.loss
+
+    return _epoch_fn(cfg, step)
+
+
+def make_compact_lazy_epoch_fn(cfg: Config):
+    """Epoch with lazy Adam: per step, only the cluster's gathered rows
+    (users, items, and the sampled negatives) move."""
+    return _row_epoch_fn(cfg, _lazy_update(cfg))
+
+
+def make_compact_hybrid_epoch_fn(cfg: Config, lazy_items: bool = False):
+    """Hybrid-Adam epoch: exact dense Adam on the item table, lazy rows on the
+    user table (``lazy_items``: touched item rows only). Needs disjoint
+    per-cluster user sets (``cc.users_disjoint``): a step raises
+    ``ValueError`` otherwise."""
+    return _row_epoch_fn(cfg, _hybrid_update(cfg, lazy_items))
+
+
+def make_compact_epoch_fn(cfg: Config):
+    """Build ``epoch_fn(state, cc, generator, perm=None, neg=None) ->
+    (state, mean_loss)`` (:func:`_epoch_fn`): one shuffled pass over all
+    compact clusters, one optimizer step per cluster.
+
+    ``cfg.train.optimizer``: ``"adam"`` (clip + dense Adam from the table
+    gradients), or ``lazy_adam`` / ``hybrid_adam`` / ``lazy_item_adam`` (from
+    the row gradients; the state's optimizer state a :class:`LazyAdamState`).
+    ``num_negatives > 1``, ``fused_bpr`` and any ``loss``/``readout``
+    combination are supported under each.
+    """
+    if cfg.train.optimizer == "lazy_adam":
+        return make_compact_lazy_epoch_fn(cfg)
+    if cfg.train.optimizer == "hybrid_adam":
+        return make_compact_hybrid_epoch_fn(cfg)
+    if cfg.train.optimizer == "lazy_item_adam":
+        return make_compact_hybrid_epoch_fn(cfg, lazy_items=True)
+    if cfg.train.optimizer != "adam":
+        raise ValueError(f"unknown optimizer {cfg.train.optimizer!r}")
+    opt = make_optimizer(cfg)
+
+    def step(state, cc, c, neg):
+        loss, grads = loss_and_grads(
+            compact_cluster_loss, state.params, cc.cluster(c), neg, cfg,
+            cc.u_pad, cc.i_pad, None if cc.adj is None else cc.adj[c], cc.lists(c))
+        params, opt_state = opt.update(state.params, grads, state.opt_state)
+        return TrainState(params, opt_state, state.step + 1), loss
+
+    return _epoch_fn(cfg, step)

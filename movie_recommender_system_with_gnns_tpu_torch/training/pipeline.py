@@ -150,6 +150,12 @@ def prepare_training_data(cfg: Config,
     if tc.trainer not in ("compact", "full"):
         raise ValueError(f"unknown trainer {tc.trainer!r}")
     check_negatives_mode(tc.negatives)
+    if tc.optimizer in ("hybrid_adam", "lazy_item_adam") and tc.partitioner == "random_edges":
+        raise ValueError(
+            f"optimizer={tc.optimizer!r} requires the greedy node partitioner: "
+            "its user-row update assumes each user's edges live in exactly one "
+            "cluster, which partitioner='random_edges' violates (a user spans "
+            "many parts)")
 
     if tc.use_clusters and tc.num_clusters > 1:
         if tc.partitioner == "random_edges":

@@ -95,6 +95,26 @@ def make_lr_schedule(cfg: Config) -> Callable[[int], float]:
     return lr_of
 
 
+def bias_corrections(count: int, b1: float, b2: float) -> Tuple[float, float]:
+    """``(1 - b1**count, 1 - b2**count)`` in float32, as optax evaluates them:
+    1 - 0.999 in f32 is 1.3e-5 off the exact value, which a float64 here
+    would not be. ``count`` is the step count after the increment."""
+    return tuple(float(np.float32(1) - np.float32(b) ** np.float32(count))
+                 for b in (b1, b2))
+
+
+def adam_step_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+               nu: torch.Tensor, lr: float, bc1: float, bc2: float, b1: float,
+               b2: float, eps: float) -> None:
+    """One optax-form Adam step in place on ``p`` and its moments, from the
+    clipped gradient ``g``: ``eps`` outside the square root of the
+    bias-corrected second moment."""
+    mu.mul_(b1).add_(g, alpha=1.0 - b1)
+    nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+    denom = (nu / bc2).sqrt_().add_(eps)
+    p.addcdiv_(mu, denom, value=-lr / bc1)
+
+
 def make_optimizer(cfg: Config) -> Optimizer:
     """clip-by-global-norm(1.0) → Adam, matching train_test.py:95,:236, as
     plain functions on tensors that follow ``optax.chain(clip_by_global_norm,
@@ -116,17 +136,10 @@ def make_optimizer(cfg: Config) -> Optimizer:
         # stays on the device (no host sync per step)
         clip = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
         count = opt_state.count + 1
-        # bias corrections in float32, as optax evaluates them: 1 - 0.999 in
-        # f32 is 1.3e-5 off the exact value, which a float64 here would not be
-        bc1, bc2 = (float(np.float32(1) - np.float32(b) ** np.float32(count))
-                    for b in (b1, b2))
+        bc1, bc2 = bias_corrections(count, b1, b2)
         lr = lr_of(opt_state.count)
         for p, g, mu, nu in zip(params, grads, opt_state.mu, opt_state.nu):
-            g = g * clip
-            mu.mul_(b1).add_(g, alpha=1.0 - b1)
-            nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-            denom = (nu / bc2).sqrt_().add_(eps)
-            p.addcdiv_(mu, denom, value=-lr / bc1)
+            adam_step_(p, g * clip, mu, nu, lr, bc1, bc2, b1, b2, eps)
         return params, AdamState(count, opt_state.mu, opt_state.nu)
 
     return Optimizer(init, update)
@@ -349,8 +362,11 @@ def train_model(
     the best-val checkpoint through ``save_checkpoint``, finish with a test
     eval. ``clusters`` is a :class:`~.compact.CompactClusters` (compact
     trainer) or a list of :class:`ClusterBatch` (full-node trainer).
-    ``start_epoch``/``best_recall`` continue an interrupted run."""
-    from .compact import CompactClusters, make_compact_epoch_fn
+    ``start_epoch``/``best_recall`` continue an interrupted run. The compact
+    trainer's ``lazy_adam``, ``hybrid_adam`` and ``lazy_item_adam`` start
+    fresh lazy moments when ``state`` carries Adam's."""
+    from .compact import (LAZY_OPTIMIZERS, CompactClusters, LazyAdamState,
+                          init_lazy_adam, make_compact_epoch_fn)
 
     if cfg.train.state_checkpoint_path:
         state_checkpoint_path(cfg)
@@ -359,6 +375,9 @@ def train_model(
 
     if isinstance(clusters, CompactClusters):
         epoch_fn = make_compact_epoch_fn(cfg)
+        if (cfg.train.optimizer in LAZY_OPTIMIZERS
+                and not isinstance(state.opt_state, LazyAdamState)):
+            state = TrainState(state.params, init_lazy_adam(state.params), state.step)
     else:
         train_step = make_train_step(cfg, spmm)
         epoch_fn = lambda st, cl, gen: train_epoch(st, cl, train_step, gen)

@@ -15,8 +15,6 @@ import torch
 
 from movie_recommender_system_with_gnns_tpu.config import (
     Config as JConfig, ModelConfig as JModel, TrainConfig as JTrain)
-from movie_recommender_system_with_gnns_tpu.ops.sampling import (
-    sample_negative as j_sample_negative)
 from movie_recommender_system_with_gnns_tpu.training import compact as jcompact
 from movie_recommender_system_with_gnns_tpu.training import train as jtrain
 from movie_recommender_system_with_gnns_tpu_torch.config import (
@@ -28,7 +26,7 @@ from movie_recommender_system_with_gnns_tpu_torch.training import compact as tco
 from movie_recommender_system_with_gnns_tpu_torch.training import train as ttrain
 
 from torch_parity import (both_clusters, both_params, greedy_parts, jax_cluster,
-                          to_np)
+                          jax_epoch_draws, to_np)
 
 
 def _cfgs(**train):
@@ -224,13 +222,15 @@ def test_cluster_lists_equal_bpr_incidence(tiny_data, kneg):
         assert n_in == int((inc & valid).sum()) > 0
 
 
+@pytest.mark.parametrize("optimizer", ["adam", "lazy_adam", "hybrid_adam",
+                                       "lazy_item_adam"])
 @pytest.mark.parametrize("case", ["segment", "dense_fused", "segment_fused_k2"])
-def test_compact_step_bit_equal_over_two_runs(tiny_data, case):
+def test_compact_step_bit_equal_over_two_runs(tiny_data, case, optimizer):
     """One compact step twice from the same state, cluster and negatives:
-    parameters and Adam moments equal bit for bit."""
+    parameters and Adam moments equal bit for bit, under each optimizer."""
     kw = dict(segment={}, dense_fused=dict(fused_bpr=True),
               segment_fused_k2=dict(fused_bpr=True, num_negatives=2))[case]
-    _, cfg = _cfgs(**kw)
+    _, cfg = _cfgs(optimizer=optimizer, **kw)
     nu, ni = tiny_data.num_users, tiny_data.num_items
     _, ct = both_clusters(greedy_parts(tiny_data, 3), nu,
                           dense="float32" if case == "dense_fused" else None)
@@ -240,7 +240,9 @@ def test_compact_step_bit_equal_over_two_runs(tiny_data, case):
     runs = []
     for _ in range(2):
         _, pt = both_params(nu, ni, 8, seed=6, std=0.05)
-        state = ttrain.TrainState(pt, ttrain.make_optimizer(cfg).init(pt), 0)
+        ost = (ttrain.make_optimizer(cfg).init(pt) if optimizer == "adam"
+               else tcompact.init_lazy_adam(pt))
+        state = ttrain.TrainState(pt, ost, 0)
         state, _ = epoch_fn(state, ct, None, perm=[1],
                             neg=torch.from_numpy(neg.astype(np.int32)))
         runs.append(state)
@@ -282,16 +284,6 @@ def test_neg_local_index_matches_jax(tiny_data):
     assert int(loc) == valid - 1 and bool(inc)
 
 
-def _jax_epoch_draws(key, k, b, num_items, num):
-    """The cluster order and per-step negatives the JAX epoch fn draws."""
-    perm_key, neg_key = jax.random.split(key)
-    perm = np.asarray(jax.random.permutation(perm_key, k))
-    keys = jax.random.split(neg_key, k)
-    neg = np.stack([np.asarray(j_sample_negative(keys[j], b, num_items, num=num))
-                    for j in range(k)])
-    return perm, neg
-
-
 @pytest.mark.parametrize("case", ["segment", "dense_fused", "three_negatives"])
 def test_compact_epoch_matches_jax(tiny_data, case):
     """One epoch with the JAX run's cluster order and negatives: parameters
@@ -309,7 +301,7 @@ def test_compact_epoch_matches_jax(tiny_data, case):
     cj, ct = both_clusters(parts, nu, dense=dense)
     k, b = ct.num_clusters, ct.user_local.shape[1]
     key = jax.random.PRNGKey(11)
-    perm, neg = _jax_epoch_draws(key, k, b, ni, cfg_j.train.num_negatives)
+    perm, neg = jax_epoch_draws(key, k, b, ni, cfg_j.train.num_negatives)
 
     # the JAX epoch, step by step with the epoch fn's own body ...
     opt = jtrain.make_optimizer(cfg_jx)
@@ -369,13 +361,6 @@ def test_compact_epoch_draws_its_own_order_and_negatives(tiny_data):
     # same seeds, same draws (f32 sums may still differ in their last bits)
     np.testing.assert_allclose(losses[:4], losses[4:], rtol=1e-6)
     np.testing.assert_allclose(to_np(finals[0]), to_np(finals[1]), atol=1e-7)
-
-
-@pytest.mark.parametrize("optimizer", ["lazy_adam", "hybrid_adam", "lazy_item_adam"])
-def test_unported_optimizers_raise(optimizer):
-    _, cfg = _cfgs(optimizer=optimizer)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        tcompact.make_compact_epoch_fn(cfg)
 
 
 def test_unported_compact_routes_raise(tiny_data):

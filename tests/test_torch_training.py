@@ -289,8 +289,7 @@ def test_cli_train_unported_flags(tmp_path, capsys, flags):
     assert "not ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags,match", [(["--optimizer", "hybrid_adam"], "hybrid_adam"),
-                                         (["--trainer", "fullgraph"], "fullgraph"),
+@pytest.mark.parametrize("flags,match", [(["--trainer", "fullgraph"], "fullgraph"),
                                          (["--negatives", "feasible"], "feasible")])
 def test_cli_train_unported_modes_raise(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -117,3 +117,18 @@ def rel_err(a, b):
     """max |a - b| over max |b| (the JAX kernel tests' gradient measure)."""
     a, b = to_np(a), to_np(b)
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
+
+
+def jax_epoch_draws(key, k, b, num_items, num):
+    """The cluster order and per-step negatives a JAX compact epoch fn draws
+    from ``key`` (numpy arrays), to hand to the port's epoch fn."""
+    import jax
+
+    from movie_recommender_system_with_gnns_tpu.ops.sampling import sample_negative
+
+    perm_key, neg_key = jax.random.split(key)
+    perm = np.asarray(jax.random.permutation(perm_key, k))
+    keys = jax.random.split(neg_key, k)
+    neg = np.stack([np.asarray(sample_negative(keys[j], b, num_items, num=num))
+                    for j in range(k)])
+    return perm, neg

@@ -28,8 +28,10 @@ Phases:
      ``ell_spmm``: d in {16, 64, 100, 256}, f32 and bf16 tables, a graph with
      an isolated node and a hub whose bucket is grown to the max degree (its
      row split into many segments), aligned and unaligned row counts, and a
-     graph whose rows all read higher ids (one side of the work list empty);
-     every case bit-equal over two calls. ``mips_block``: with and without mask,
+     graph whose rows all read higher ids (one side of the work list empty),
+     weights that are not the graph's own gcn_norm, a remainder with a third
+     of its rows empty (d = 256), the transpose of an asymmetric graph and
+     the backward over it; every case bit-equal over two calls. ``mips_block``: with and without mask,
      N no multiple of the block, k in {1, 10, 100}, Q no multiple of the query
      band, a row with fewer than k live columns, planted exact ties, d in
      {64, 100}; then d = 30 (4-byte copies), d = 256 and k = 1000 (candidate
@@ -67,6 +69,23 @@ Phases:
      (10,000 sampled users, k = 10; 1,000 of them against a run on the host),
      ``batch_recommend_users(method="pallas")`` for 256 users with train-seen
      exclusion against ``method="twophase"``;
+  5c. the full-graph trainer (the JAX package's quality flagship) on the
+     interaction split of the same graph: L = 3, d = 256, 100 hybrid parts
+     (bf16 diagonal blocks, the remainder on the ELL SpMM kernel), 8
+     popularity negatives, 16 steps an epoch, cosine lr. Host set-up times;
+     ``spmm_hybrid`` against ``spmm_segment`` of the whole train graph (f32
+     blocks within 1e-5 of the largest entry, bf16 blocks within their
+     operand rounding); the symmetric VJP's table gradients through
+     ``compute_loss`` against autodiff through ``spmm_segment`` (rel < 1e-4);
+     the transposed backward on a small edge-split graph; one step twice,
+     bit-equal; ``sorted_index_add`` and ``gather_rows``' gradient at one
+     step's users and items (d = 256), bit-equal to the plain version on the
+     host and within 1e-5 of the largest entry of ``index_add_`` on the card,
+     both timed; 10 M alias draws within 5 sigma of count^0.75; ``train_model``
+     for 2 epochs (falling losses, 6 ELL launches a step, no plain hop); a
+     timed third epoch, 4 steps under the profiler, and the ELL kernel at the
+     remainder's shape beside ``torch.sparse.mm`` and the block product, in
+     one ``[fullgraph]`` JSON line;
   6. trained -> served: the checkpoint of phase 5 behind the ``ServingIndex``
      for one 32,768-user dispatch; then the CLI at a small synthetic size:
      ``train --fused-bpr --full-eval --epochs 1``, the three ``recommend``
@@ -118,6 +137,10 @@ F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 #: the training path: reference defaults (100 clusters, L = 3, d = 64)
 TRAIN = dict(clusters=100, layers=3, epochs=2)
+#: the full-graph phase: the JAX flagship's configuration
+#: (runs/ml25m_fg150_k8_d256_pop.log), 2 epochs
+FG = dict(dim=256, layers=3, parts=100, steps=16, negatives=8, lr=3e-3, warmup=32,
+          epochs=2)
 #: the CLI phase's synthetic graph (its host work stays a few seconds)
 SMALL = dict(users=20_000, items=8_000, interactions=1_000_000,
              communities=20, power=0.9, clusters=10)
@@ -716,8 +739,12 @@ def ell_kernel_phase() -> float:
     with a hub of ~4,500 neighbours (a row split into many segments) and two
     isolated nodes, aligned and unaligned row counts, d in {16, 64, 100, 256};
     then a graph whose rows all read higher ids (one side of the work list
-    empty). Returns the largest f32 abs error."""
-    from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph, EllGraph
+    empty); given weights that are not the graph's own ``gcn_norm``; a
+    remainder with a third of its rows empty (d = 256); the transpose of an
+    asymmetric graph, forward and as the backward of the forward graph.
+    Returns the largest f32 abs error."""
+    from movie_recommender_system_with_gnns_tpu_torch.data.graph import (
+        COOGraph, EllGraph, gcn_norm)
     from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import DeviceCOO, DeviceELL
 
     e, n = ell_test_graph()
@@ -750,7 +777,74 @@ def ell_kernel_phase() -> float:
     x = torch.randn(n, 64, device="cuda", generator=gen)
     worst = max(worst, ell_case(ell, coo1, x, f"d=64 one side empty, buckets "
                                 f"{[(b.rows, b.width) for b in g.blocks]}"))
+    # given weights that are not the graph's own gcn_norm
+    rng = np.random.default_rng(SEED + 6)
+    w = rng.uniform(0.1, 1.0, e.shape[1]).astype(np.float32)
+    ell = DeviceELL.from_host(EllGraph.build(e, n, weights=w), "cuda")
+    x = torch.randn(n, 64, device="cuda", generator=gen)
+    worst = max(worst, ell_case(ell, weighted_coo(e, n, w), x,
+                                "d=64 given weights (not gcn_norm)", zero_rows=(17, n - 3)))
+    # a remainder: the whole graph's gcn_norm weights on the edges into two
+    # thirds of the nodes, the other third's rows empty
+    empty = np.flatnonzero(rng.random(n) < 1 / 3)
+    keep = ~np.isin(e[1], empty)
+    sub, w_sub = e[:, keep], gcn_norm(e, n)[keep]
+    ell = DeviceELL.from_host(EllGraph.build(sub, n, weights=w_sub), "cuda")
+    x = torch.randn(n, 256, device="cuda", generator=gen)
+    worst = max(worst, ell_case(ell, weighted_coo(sub, n, w_sub), x,
+                                f"d=256 remainder, {empty.size} of {n} rows empty",
+                                zero_rows=tuple(empty)))
+    # an asymmetric graph's transpose (src and dst swapped, the same
+    # weights): its forward hop, then as the backward of the forward graph
+    asym = e[:, rng.random(e.shape[1]) > 0.25]
+    w_a = gcn_norm(asym, n)
+    ell_f = DeviceELL.from_host(EllGraph.build(asym, n), "cuda")
+    ell_t = DeviceELL.from_host(EllGraph.build(asym[::-1], n, weights=w_a), "cuda")
+    x = torch.randn(n, 64, device="cuda", generator=gen)
+    worst = max(worst, ell_case(ell_t, weighted_coo(asym[::-1], n, w_a), x,
+                                "d=64 transpose of an asymmetric graph"))
+    worst = max(worst, ell_backward_case(ell_f, ell_t, x))
     return worst
+
+
+def weighted_coo(e, n: int, w):
+    """A ``DeviceCOO`` of edges ``e`` with the weights ``w`` (dst-sorted)."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import DeviceCOO
+
+    order = np.argsort(e[1], kind="stable")
+    up = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a[order], dt)).to("cuda")
+    return DeviceCOO(up(e[0], np.int32), up(e[1], np.int32), up(w, np.float32), n)
+
+
+def ell_backward_case(ell, ell_t, x) -> float:
+    """The gradient of ``spmm_ell_cuda(ell, x, transpose=ell_t)`` (one launch
+    forward, one over the transpose backward) against autodiff through the
+    plain ``spmm_ell``: within rtol 1e-3 / atol 1e-4 as the f32 cases, and
+    bit-equal over two calls. Returns the max abs error."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import _build
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import spmm_ell_cuda
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import spmm_ell
+
+    cot = torch.randn_like(x)
+    grads = []
+    before = _build.LAUNCHES["ell_spmm"]
+    for fn in (lambda v: spmm_ell_cuda(ell, v, transpose=ell_t),) * 2 + (
+            lambda v: spmm_ell(ell, v),):
+        xr = x.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(xr), xr, cot)[0])
+    torch.cuda.synchronize()
+    n_launch = _build.LAUNCHES["ell_spmm"] - before
+    a, again, ref = grads
+    check(n_launch == 4, f"two forward and backward calls launched {n_launch} kernels")
+    check(torch.equal(a, again), "ell_spmm transposed backward: two calls differ")
+    err = (a - ref).abs()
+    check(bool((err <= 1e-4 + 1e-3 * ref.abs()).all()),
+          f"ell_spmm transposed backward vs autodiff of the plain spmm_ell: max abs "
+          f"err {err.max().item():.3e}")
+    log(f"[kernel] ell_spmm backward over the transpose (d={x.shape[1]}): max abs err "
+        f"{err.max().item():.3e} vs autodiff of the plain spmm_ell, bit-equal over two "
+        f"calls, one launch forward and one backward")
+    return err.max().item()
 
 
 def check_block_topk(s_k, i_k, s_p, i_p, what: str, s_next=None) -> float:
@@ -1124,6 +1218,396 @@ def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
                      ms_method="device time of one call, torch.profiler",
                      kernel_ms=b3_kernel, wrapper_ms=b3_events))
     return rows
+
+
+def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> None:
+    """Phase 5c: ``train-fullgraph-full``, the full-graph trainer on the
+    interaction split of the same graph at the JAX flagship's width (L = 3,
+    d = 256, 100 hybrid parts, bf16 blocks, 8 popularity negatives, 16 steps
+    an epoch, cosine lr 3e-3 with 32 warmup steps). Host set-up times; the
+    hybrid propagation against ``spmm_segment`` of the whole train graph
+    (f32 and bf16 blocks); the symmetric VJP's table gradients against
+    autodiff through ``spmm_segment``; the transposed backward on a small
+    edge-split graph; one step twice, bit-equal; ``sorted_index_add`` and
+    ``gather_rows``' gradient at one step's index sets, bit-equal to the
+    host's plain version and within 1e-5 of the largest entry of
+    ``index_add_`` on the card; the alias sampler's law;
+    ``train_model`` for 2 epochs; a timed epoch and a profiled window of 4
+    steps; B4 at the remainder's shape. Adds its numbers to ``b4_row``."""
+    from movie_recommender_system_with_gnns_tpu_torch.config import (
+        Config, DataConfig, ModelConfig, TrainConfig)
+    from movie_recommender_system_with_gnns_tpu_torch.data.graph import (
+        COOGraph, EllGraph, gcn_norm)
+    from movie_recommender_system_with_gnns_tpu_torch.data.movielens import (
+        make_synthetic_movielens, split_edges)
+    from movie_recommender_system_with_gnns_tpu_torch.data.partition import (
+        forward_half, partition_assignments)
+    from movie_recommender_system_with_gnns_tpu_torch.ops import _build, cuda_scatter, cuda_spmm
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_scatter import sort_rows
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import (
+        ell_schedule, spmm_ell_cuda)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import (
+        TripletBatch, item_popularity, sample_negative_alias)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import (
+        DeviceCOO, DeviceELL, block_matmul, build_hybrid_graph, spmm_ell, spmm_hybrid,
+        spmm_hybrid_sym, spmm_segment)
+    from movie_recommender_system_with_gnns_tpu_torch.training import fullgraph
+    from movie_recommender_system_with_gnns_tpu_torch.training.checkpoint import save_params
+    from movie_recommender_system_with_gnns_tpu_torch.training.pipeline import (
+        prepare_training_data)
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import (
+        AdamState, TrainState, compute_loss, create_train_state, epoch_generator,
+        loss_and_grads, train_model)
+
+    launches = _build.LAUNCHES
+    nu, ni = data.num_users, data.num_items
+    n, d, layers = nu + ni, FG["dim"], FG["layers"]
+    cfg = Config(
+        data=DataConfig(dataset="synthetic", split_level="interaction", split_seed=SEED,
+                        indexes_dir=str(WORK / "fg_indexes")),
+        model=ModelConfig(num_layers=layers, dim=d, readout="standard"),
+        train=TrainConfig(trainer="fullgraph", loss="standard", negatives="popularity",
+                          num_negatives=FG["negatives"], fullgraph_steps=FG["steps"],
+                          num_clusters=FG["parts"], lr=FG["lr"], lr_schedule="cosine",
+                          lr_warmup_steps=FG["warmup"], epochs=FG["epochs"],
+                          checkpoint_path=str(WORK / "fg_best.npz")))
+
+    # 1. set-up on the host: the pipeline as a user calls it, then its parts
+    t0 = time.time()
+    bundle = prepare_training_data(cfg, data=data, device="cuda")
+    torch.cuda.synchronize()
+    t_prep = time.time() - t0
+    fg, val, test = bundle.train, bundle.val, bundle.test
+    train_e = bundle.splits[0]
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, lr_total_steps=fg.num_steps * FG["epochs"]))
+    check(fg.symmetric_ok and fg.hybrid.off_ell is not None and fg.hybrid.off_ell_t is None
+          and fg.alias_table is not None and fg.batch % 1024 == 0,
+          "the interaction split's full-graph data is not symmetric, has no ELL "
+          "remainder or alias table, or built a transpose")
+    t0 = time.time()
+    pu, pi = partition_assignments(train_e, nu, n, FG["parts"], seed=SEED,
+                                   uv=forward_half(train_e, nu))
+    t_part = time.time() - t0
+    node_part = np.concatenate([pu, pi])
+    src, dst = train_e[0].astype(np.int64), train_e[1].astype(np.int64)
+    intra = node_part[src] == node_part[dst]
+    t0 = time.time()
+    h32 = build_hybrid_graph(train_e, n, node_part, FG["parts"], block_dtype="float32",
+                             device="cuda")
+    torch.cuda.synchronize()
+    t_h32 = time.time() - t0
+    check(torch.equal(h32.ids, fg.hybrid.ids) and torch.equal(h32.pos, fg.hybrid.pos),
+          "the pipeline's hybrid graph has another partition than partition_assignments")
+    w_off = gcn_norm(train_e, n)[~intra]
+    t0 = time.time()
+    g_off = EllGraph.build(np.stack([src[~intra], dst[~intra]]), n, weights=w_off)
+    t_ell = time.time() - t0
+    t0 = time.perf_counter()
+    ell_schedule(g_off.blocks, n, "cuda")
+    torch.cuda.synchronize()
+    t_list = time.perf_counter() - t0
+    k_parts, p_w = fg.hybrid.ids.shape
+    off = fg.hybrid.off_ell
+    sched = off.schedule
+    setup = dict(pairs=fg.e_real, batch=fg.batch, steps=fg.num_steps, parts=k_parts,
+                 block_width=p_w, blocks_gb_bf16=fg.hybrid.adj.numel() * 2 / 1e9,
+                 intra_retention=float(intra.mean()), remainder_edges=int((~intra).sum()),
+                 prepare_s=t_prep, partition_s=t_part, hybrid_f32_build_s=t_h32,
+                 remainder_ell_build_s=t_ell, remainder_work_list_s=t_list,
+                 remainder_buckets=[(b.rows, b.width) for b in g_off.blocks],
+                 remainder_items=len(sched.items), remainder_split_rows=len(sched.split_rows))
+    log(f"[fullgraph] set-up on the host: {json.dumps(setup)}")
+    check(fg.batch * fg.num_steps >= fg.e_real > fg.batch * (fg.num_steps - 1),
+          f"batch {fg.batch} x {fg.num_steps} steps does not cover {fg.e_real} pairs")
+
+    # 2. spmm_hybrid against spmm_segment of the whole train graph
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    coo = DeviceCOO.from_host(COOGraph.build(train_e, n), "cuda")
+    x = torch.randn(n, d, device="cuda", generator=gen)
+    ref = spmm_segment(coo, x)
+    top = ref.abs().max().item()
+    e32 = (spmm_hybrid(h32, x) - ref).abs().max().item()
+    check(e32 <= 1e-5 * top, f"spmm_hybrid (f32 blocks) vs spmm_segment: {e32:.3e} "
+          f"of a largest entry {top:.3e}")
+    # bf16 blocks round both operands of each intra-part product (2^-8 of
+    # each, so 2^-7 + 2^-16 of |w·x| together); the f32 sums add 1e-5 of the top
+    bound = (2.0 ** -7 + 2.0 ** -16) * spmm_segment(coo, x.abs()) + 1e-5 * top
+    err16 = (spmm_hybrid(fg.hybrid, x) - ref).abs()
+    check(bool((err16 <= bound).all()), f"spmm_hybrid (bf16 blocks) vs spmm_segment: max "
+          f"abs err {err16.max().item():.3e}, beyond the bf16 operand rounding")
+    log(f"[fullgraph] spmm_hybrid vs spmm_segment of the whole train graph (d={d}, "
+        f"TF32 {torch.backends.cuda.matmul.allow_tf32}): f32 blocks max abs err "
+        f"{e32:.3e}, bf16 blocks {err16.max().item():.3e} (within (2^-7 + 2^-16)·"
+        f"|Â|·|x| + 1e-5·{top:.3e} everywhere)")
+    del err16, bound
+
+    # 3. the symmetric VJP's table gradients against autodiff through the oracle
+    state0 = create_train_state(cfg, nu, ni, generator=torch.Generator().manual_seed(SEED),
+                                device="cuda")
+    b = fg.batch
+    neg = sample_negative_alias(gen, b, ni, *fg.alias_table, num=FG["negatives"])
+    tb = TripletBatch(fg.user[:b], fg.pos_item[:b], torch.ones(b, dtype=torch.bool,
+                                                               device="cuda"))
+    l_h, g_h = loss_and_grads(compute_loss, state0.params, h32, tb, neg, cfg, spmm_hybrid_sym)
+    l_s, g_s = loss_and_grads(compute_loss, state0.params, coo, tb, neg, cfg, spmm_segment)
+    ru, ri = rel_max(g_h.user_emb, g_s.user_emb), rel_max(g_h.item_emb, g_s.item_emb)
+    check(abs(l_h.item() - l_s.item()) < 1e-5 and ru < 1e-4 and ri < 1e-4,
+          f"symmetric VJP vs autodiff through spmm_segment: loss {l_h.item()!r} vs "
+          f"{l_s.item()!r}, grad rel err user {ru:.3e} item {ri:.3e}")
+    log(f"[fullgraph] compute_loss through spmm_hybrid_sym (f32 blocks) vs autodiff "
+        f"through spmm_segment, batch {b} x {FG['negatives']} negatives: loss "
+        f"{l_h.item():.7f} vs {l_s.item():.7f}, grad rel err user {ru:.3e}, item {ri:.3e}")
+    del g_h, g_s, h32, coo, ref, x
+
+    # 4. the transposed backward on a small edge-split graph
+    small = make_synthetic_movielens(SMALL["users"], SMALL["items"], SMALL["interactions"],
+                                     seed=SEED, power=SMALL["power"],
+                                     num_communities=SMALL["communities"])
+    s_e = split_edges(small, str(WORK / "fg_small_indexes"), seed=SEED)[0]
+    s_n = small.num_users + small.num_items
+    spu, spi = partition_assignments(s_e, small.num_users, s_n, SMALL["clusters"], seed=SEED)
+    hs = build_hybrid_graph(s_e, s_n, np.concatenate([spu, spi]), SMALL["clusters"],
+                            block_dtype="float32", transpose=True, device="cuda")
+    full = DeviceELL.from_host(EllGraph.build(s_e, s_n), "cuda")
+    xs = torch.randn(s_n, 64, device="cuda", generator=gen)
+    cot = torch.randn_like(xs)
+    grads = []
+    before = launches["ell_spmm"]
+    for fn in (lambda v: spmm_hybrid(hs, v), lambda v: spmm_ell(full, v)):
+        xr = xs.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(xr), xr, cot)[0])
+    torch.cuda.synchronize()
+    rt = rel_max(*grads)
+    check(launches["ell_spmm"] - before == 2 and rt < 1e-5,
+          f"transposed backward on the edge split: rel err {rt:.3e} vs autodiff "
+          f"through the plain spmm_ell, {launches['ell_spmm'] - before} launches")
+    log(f"[fullgraph] spmm_hybrid on the edge split of the {SMALL['users']}-user graph "
+        f"(asymmetric, transpose built): gradient rel err {rt:.3e} vs autodiff through "
+        f"the plain spmm_ell of the whole graph; 1 ell_spmm launch forward, 1 backward")
+    del hs, full, grads
+
+    # 5. one step twice from the same state, shuffle and negatives
+    copy = lambda st: TrainState(
+        type(st.params)(*(t.clone() for t in st.params)),
+        AdamState(st.opt_state.count, *(type(m)(*(t.clone() for t in m))
+                                        for m in (st.opt_state.mu, st.opt_state.nu))),
+        st.step)
+    one = fullgraph.FullGraphTrainData(fg.hybrid, fg.user[:b], fg.pos_item[:b], b, 1, b,
+                                       fg.symmetric_ok, alias_table=fg.alias_table)
+    fn1 = fullgraph.make_fullgraph_epoch_fn(cfg, one)
+    before = dict(launches)
+    runs = [fn1(copy(state0), one, torch.Generator(device="cuda").manual_seed(SEED + 9))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    per_step = {k: (launches[k] - before.get(k, 0)) // 2 for k in launches}
+    (a, la), (c, lc) = runs
+    same = [torch.equal(u, v) for u, v in zip(a.params + a.opt_state.mu + a.opt_state.nu,
+                                              c.params + c.opt_state.mu + c.opt_state.nu)]
+    check(all(same) and la == lc, f"a full-graph step is not bit-equal over two runs "
+          f"(params and moments equal: {same}, losses {la!r} {lc!r})")
+    check(per_step.get("ell_spmm", 0) == 2 * layers,
+          f"a full-graph step launched {per_step.get('ell_spmm', 0)} ell_spmm kernels, "
+          f"expected {2 * layers} ({layers} hops forward, {layers} backward)")
+    log(f"[fullgraph] one step run twice: parameters and Adam moments bit-equal, loss "
+        f"{la:.7f}; kernel launches per step {per_step}")
+    del runs, a, c
+
+    # 5b. sorted_index_add (gather_rows' backward) at one step's index sets:
+    # the users, and the positives with the popularity negatives, d = 256 f32
+    perm = torch.randperm(fg.e_real, generator=gen, device="cuda")[:b]
+    step_u = fg.user[perm]
+    step_i = torch.cat([fg.pos_item[perm],
+                        sample_negative_alias(gen, b, ni, *fg.alias_table,
+                                              num=FG["negatives"]).reshape(-1)])
+    scatter = {}
+    for side, idx, rows in (("users", step_u, nu), ("items", step_i, ni)):
+        what = f"sorted_index_add at a full-graph step's {side}"
+        order, starts = sort_rows(idx, rows)
+        g_rows = torch.randn(idx.numel(), d, device="cuda", generator=gen)
+        sc = lambda: cuda_scatter.sorted_index_add(g_rows, order, starts, rows)
+        lib = lambda: torch.zeros(rows, d, device="cuda").index_add_(0, idx, g_rows)
+        out_k, out_l = sc(), lib()
+        table = torch.randn(rows, d, device="cuda", generator=gen).requires_grad_(True)
+        (g_tab,) = torch.autograd.grad(cuda_scatter.gather_rows(table, idx, order, starts),
+                                       table, g_rows)
+        torch.cuda.synchronize()
+        out_h = cuda_scatter.sorted_index_add_plain(g_rows.cpu(), order.cpu(), starts.cpu(),
+                                                    rows)
+        top = out_l.abs().max().item()
+        err = (out_k - out_l).abs().max().item()
+        check(torch.equal(out_k.cpu(), out_h), f"{what}: differs from the plain version's "
+              f"sequential sum on the host (max abs "
+              f"{(out_k.cpu() - out_h).abs().max().item():.3e})")
+        check(torch.equal(out_k, sc()), f"{what}: two calls differ")
+        check(err <= 1e-5 * top, f"{what}: {err:.3e} from index_add_ on the card, largest "
+              f"entry {top:.3e}")
+        check(torch.equal(g_tab, out_k), f"{what}: gather_rows' gradient differs from the "
+              f"kernel's sum")
+        del out_h, out_l, table, g_tab
+        k_ms, l_ms = time_ms(sc, 10), time_ms(lib, 10)
+        run = int((starts[1:] - starts[:-1]).max())
+        byts = idx.numel() * d * 4 + 4 * idx.numel() + 4 * (rows + 1) + rows * d * 4
+        scatter[side] = dict(entries=idx.numel(), rows=rows, longest_run=run, ms=k_ms,
+                             index_add_ms=l_ms, bound_ms=byts / bw * 1e3, max_abs_err=err)
+        log(f"[kernel] {what} ({idx.numel()} entries over {rows} rows, longest run {run}, "
+            f"d={d}, f32): bit-equal to the plain version on the host, over two calls and "
+            f"as gather_rows' gradient; max abs err vs index_add_ on the card {err:.3e} "
+            f"(largest entry {top:.3e}); {k_ms:.4f} ms by CUDA events, zeros + index_add_ "
+            f"{l_ms:.4f} ms, bound {byts / bw * 1e3:.4f} ms (bytes: {byts / 1e6:.1f} MB)")
+        del out_k, g_rows, order, starts
+    # a step sums four gathered tables' gradients: two over each index set
+    det_ms = 2 * (scatter["users"]["ms"] + scatter["items"]["ms"])
+    lib_ms = 2 * (scatter["users"]["index_add_ms"] + scatter["items"]["index_add_ms"])
+    log(f"[fullgraph] a step's four row-gradient sums: sorted_index_add {det_ms:.4f} ms, "
+        f"zeros + index_add_ (float atomics, not reproducible) {lib_ms:.4f} ms")
+    del perm, step_u, step_i
+
+    # 6. the alias sampler's law on the card
+    draws = 10_000_000
+    counts = torch.bincount(sample_negative_alias(gen, draws, ni, *fg.alias_table).long(),
+                            minlength=ni).double()
+    w = torch.from_numpy(item_popularity(train_e, nu, ni).astype(np.float64) ** 0.75)
+    p_exp = (w / w.sum()).to("cuda")
+    expect = draws * p_exp
+    big = expect >= 100
+    z = ((counts - expect).abs() / (expect * (1 - p_exp)).sqrt())[big]
+    check(z.max().item() <= 5.0, f"alias draws: an item {z.max().item():.2f} sigma off "
+          f"count^0.75 / sum")
+    log(f"[fullgraph] sample_negative_alias, {draws} draws: {int(big.sum())} items with "
+        f"an expected count >= 100, largest deviation {z.max().item():.2f} sigma")
+    del counts, z
+
+    # 7. train_model for 2 epochs, best-val checkpoint; the plain spmm_ell is
+    # counted to show that no hop left the kernel
+    saved = []
+
+    def save_cb(st, recall):
+        saved.append(recall)
+        save_params(cfg.train.checkpoint_path, st.params, meta={"val_recall": recall})
+
+    plain = [0]
+    real_plain = cuda_spmm.spmm_ell
+
+    def counted(*args, **kw):
+        plain[0] += 1
+        return real_plain(*args, **kw)
+
+    state = copy(state0)
+    launches.clear()
+    cuda_spmm.spmm_ell = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        state, hist = train_model(cfg, state, fg, val, test, save_checkpoint=save_cb)
+        torch.cuda.synchronize()
+        t_train = time.time() - t0
+    finally:
+        cuda_spmm.spmm_ell = real_plain
+    fg_launches = dict(launches)
+    steps = FG["epochs"] * fg.num_steps
+    log(f"[fullgraph] train_model {FG['epochs']} epochs + test eval: {t_train:.2f} s, "
+        f"epoch times with the val eval {[round(t, 3) for t in hist['epoch_time_s']]} s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; train loss "
+        f"{hist['train_loss']}, val loss {hist['val_loss']}, val recall "
+        f"{hist['val_recall']}; kernel launches {fg_launches}")
+    check(all(np.isfinite(v) for key in hist for v in hist[key]),
+          f"a full-graph loss or metric is not finite: {hist}")
+    check(hist["train_loss"][1] < hist["train_loss"][0],
+          f"full-graph train loss did not fall: {hist['train_loss']}")
+    check(state.step == steps and bool(saved) and Path(cfg.train.checkpoint_path).exists(),
+          f"state.step {state.step} != {steps}, or no best-val checkpoint")
+    check(fg_launches.get("ell_spmm", 0) == 2 * layers * steps and plain[0] == 0,
+          f"ell_spmm launched {fg_launches.get('ell_spmm', 0)} times for {steps} steps "
+          f"(expected {2 * layers * steps}); plain spmm_ell calls {plain[0]}")
+    check(fg_launches.get("sorted_index_add", 0) == 4 * steps,
+          f"sorted_index_add launched {fg_launches.get('sorted_index_add', 0)} times, "
+          f"expected 4 per step (the four gathered tables' gradients)")
+
+    # 8. a third epoch alone, then 4 steps under the profiler
+    epoch_fn = fullgraph.make_fullgraph_epoch_fn(cfg, fg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state, loss3 = epoch_fn(state, fg, epoch_generator(cfg, FG["epochs"],
+                                                       torch.device("cuda")))
+    torch.cuda.synchronize()
+    t_epoch = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(np.isfinite(loss3), "the third full-graph epoch's loss is not finite")
+    four = fullgraph.FullGraphTrainData(fg.hybrid, fg.user[:4 * b], fg.pos_item[:4 * b],
+                                        4 * b, 4, b, fg.symmetric_ok,
+                                        alias_table=fg.alias_table)
+    fn4 = fullgraph.make_fullgraph_epoch_fn(cfg, four)
+    gen4 = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    box = [state]
+
+    def four_steps():
+        box[0], _ = fn4(box[0], four, gen4)
+
+    before = launches["ell_spmm"]
+    prof = profile_window("4 full-graph train steps", 1, 14, four_steps)
+    # the window runs the 4 steps twice (a warm-up, then the traced run)
+    b4_per_traced_step = (launches["ell_spmm"] - before) / 8
+    b4_per_step = fg_launches.get("ell_spmm", 0) / steps
+
+    # 9. B4 at the remainder's shape, beside the block product
+    emb = torch.cat(list(state.params)).contiguous()
+    out_k, out_p = spmm_ell_cuda(off, emb), spmm_ell(off, emb)
+    r_err = (out_k - out_p).abs()
+    check(bool((r_err <= 1e-6 + 1e-3 * out_p.abs()).all()),
+          f"ell_spmm at the remainder vs plain: max abs err {r_err.max().item():.3e}")
+    r_err = r_err.max().item()
+    del out_p
+    hop_ms = time_ms(lambda: spmm_ell_cuda(off, emb), 20)
+    hop_plain = time_ms(lambda: spmm_ell(off, emb), 3, warmup=1)
+    rows_o = np.argsort(dst[~intra], kind="stable")
+    rowptr = np.concatenate([[0], np.cumsum(np.bincount(dst[~intra], minlength=n))])
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(rowptr.astype(np.int32)).to("cuda"),
+        torch.from_numpy(src[~intra][rows_o].astype(np.int32)).to("cuda"),
+        torch.from_numpy(w_off[rows_o]).to("cuda"), size=(n, n))
+    check(bool(((torch.sparse.mm(csr, emb) - out_k).abs() <= 1e-6 + 1e-3 * out_k.abs()).all()),
+          "torch.sparse.mm on the remainder's CSR disagrees with ell_spmm")
+    hop_lib = time_ms(lambda: torch.sparse.mm(csr, emb), 20)
+    hop_bound, hop_by, byts, flops, slots, edges, gathered, _ = ell_bound(off, d, 4, bw)
+    check(edges == setup["remainder_edges"], f"the remainder ELL holds {edges} edges")
+    blk_in = emb.index_select(0, fg.hybrid.ids.reshape(-1)).view(k_parts, p_w, d)
+    blk_ms = time_ms(lambda: block_matmul(fg.hybrid.adj, blk_in), 20)
+    blk_flops = 2.0 * k_parts * p_w * p_w * d
+    del csr, out_k, blk_in
+    numbers = dict(
+        card=smi, step_ms=1e3 * t_epoch / fg.num_steps, epoch_s=t_epoch,
+        profiled_wall_ms_per_step=prof["wall_ms"] / 4, busy_ms_per_step=prof["busy_ms"] / 4,
+        idle_share=prof["idle_share"], launches_per_step=prof["kernels"] / 4,
+        b4_launches_per_step=b4_per_step, b4_launches_per_traced_step=b4_per_traced_step,
+        peak_gb=peak / 1e9,
+        epoch_peak_over_resident_gb=(peak - resident) / 1e9,
+        train_loss=hist["train_loss"] + [loss3], val_recall=hist["val_recall"],
+        b4_remainder_hop_ms=hop_ms, b4_remainder_plain_ms=hop_plain,
+        b4_remainder_bound_ms=hop_bound, b4_remainder_bound_by=hop_by,
+        b4_remainder_sparse_mm_ms=hop_lib, b4_remainder_edges=edges,
+        b4_remainder_slots=slots, b4_remainder_gathered_tbps=edges * d * 4 / (hop_ms * 1e9),
+        block_product_ms=blk_ms, block_product_tflops=blk_flops / (blk_ms * 1e9),
+        row_grad_sums_ms=det_ms, row_grad_index_add_ms=lib_ms, row_grad_scatter=scatter,
+        **setup)
+    log(f"[fullgraph] {json.dumps(numbers)}")
+    log(f"[kernel] ell_spmm at the full-graph remainder ({n} nodes, {edges} edges in "
+        f"{slots} slots, d={d}, f32): {hop_ms:.4f} ms a hop by CUDA events, plain "
+        f"{hop_plain:.4f} ms, torch.sparse.mm (CSR) {hop_lib:.4f} ms, bound "
+        f"{hop_bound:.4f} ms ({hop_by}: {byts / 1e6:.1f} MB), {hop_bound / hop_ms:.3f} of "
+        f"the bound, {edges * d * 4 / (hop_ms * 1e9):.2f} TB/s gathered; max abs err vs "
+        f"plain {r_err:.3e}; the bf16 block product ({k_parts} x {p_w}^2, d={d}) "
+        f"{blk_ms:.4f} ms, {blk_flops / (blk_ms * 1e9):.1f} TFLOP/s")
+    b4_row.update(
+        launches=b4_row["launches"] + fg_launches.get("ell_spmm", 0),
+        launches_eval=b4_row["launches"], launches_fullgraph=fg_launches.get("ell_spmm", 0),
+        launches_per_fullgraph_step=b4_per_step, fullgraph_hop_ms=hop_ms,
+        fullgraph_plain_ms=hop_plain, fullgraph_bound_ms=hop_bound,
+        fullgraph_bound_by=hop_by, fullgraph_library_ms=hop_lib,
+        fullgraph_max_abs_err=r_err)
+    del state, state0, fg, bundle, val, test, emb
 
 
 def lazy_phase(cfg, cc, cc_seg, main_path: str, c_id: int, neg, data, val, test,
@@ -1753,6 +2237,9 @@ def main() -> int:
         rows += new_path_phase(data, (train_e, val_e, test_e),
                                cfg.train.checkpoint_path, cfg, bw)
         log(f"[eval] phase 3 max errs: ell_spmm {ell_err:.3e}, mips_block {block_err:.3e}")
+
+        # 5c. the full-graph trainer at the JAX flagship's width
+        fullgraph_phase(data, bw, smi, next(r for r in rows if r["name"] == "ell_spmm"))
 
         # 6. trained -> served, then the CLI at a small synthetic size
         launches.clear()

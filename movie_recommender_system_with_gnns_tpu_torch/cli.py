@@ -10,13 +10,16 @@ or batch).
 The options are the JAX package's, so one command line, one checkpoint and one
 indexes dir serve both. ``--device`` picks the device (default ``cuda``;
 without a GPU, pass ``--device cpu``). ``train`` runs the compact cluster
-trainer (``--trainer compact``, the default) or the full-node one
-(``--trainer full``, Adam); ``--optimizer`` picks the compact trainer's
-Adam variant (``adam``, ``lazy_adam``, ``hybrid_adam``, ``lazy_item_adam``);
+trainer (``--trainer compact``, the default), the full-node one
+(``--trainer full``, Adam) or the full-graph one (``--trainer fullgraph``,
+Adam, ``--fullgraph-steps`` steps an epoch over every train edge);
+``--optimizer`` picks the compact trainer's Adam variant (``adam``,
+``lazy_adam``, ``hybrid_adam``, ``lazy_item_adam``); ``--negatives
+popularity`` draws the full-graph trainer's negatives by count^0.75;
 ``--full-eval`` adds the full-ranking Recall@k / NDCG@k on the test split
 after training. ``recommend --propagated`` scores with the K-layer
-propagated tables. ``--mesh``, ``--max-retries``, the history plot and
-``eda`` are not ported yet.
+propagated tables. ``--mesh``, ``--max-retries``, ``--negatives feasible``,
+the history plot and ``eda`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ def _build_cfg(args) -> Config:
                         optimizer=getattr(args, "optimizer", "adam"),
                         partitioner=getattr(args, "partitioner", "greedy"),
                         trainer=getattr(args, "trainer", "compact"),
+                        fullgraph_steps=getattr(args, "fullgraph_steps", 16),
                         num_negatives=getattr(args, "num_negatives", 1),
                         negatives=getattr(args, "negatives", "uniform"),
                         fused_bpr=getattr(args, "fused_bpr", False),
@@ -57,20 +61,16 @@ def _build_cfg(args) -> Config:
     return Config(data=data, model=model, train=train)
 
 
-def cmd_train(args) -> int:
+def train_from_args(args):
     """Reference train_test.py __main__ (:259-293): build data, resume if a
-    checkpoint exists, train, persist histories."""
+    checkpoint exists, train, persist histories. Returns ``(cfg, bundle,
+    state)``: the config with its cosine horizon, the pipeline's bundle and
+    the trained state."""
     from .training.checkpoint import load_params_if_exists, save_params
     from .training.pipeline import prepare_training_data
     from .training.train import create_train_state, save_histories, train_model
     from .utils.device import resolve_device
 
-    for flag, on in (("--mesh", args.mesh), ("--max-retries", args.max_retries > 0)):
-        if on:
-            print(f"train {flag} is not ported to the PyTorch package yet; run "
-                  "it with movie_recommender_system_with_gnns_tpu.cli",
-                  file=sys.stderr)
-            return 2
     device = resolve_device(args.device)
     cfg = _build_cfg(args)
     print(f"device: {device}")
@@ -81,8 +81,12 @@ def cmd_train(args) -> int:
     print(f"Number of relevant interactions: {data.edge_index.shape[1]}")
 
     if cfg.train.lr_schedule == "cosine" and cfg.train.lr_total_steps <= 0:
+        from .training.fullgraph import FullGraphTrainData
+
+        steps_per_epoch = (clusters.num_steps if isinstance(clusters, FullGraphTrainData)
+                           else cfg.train.num_clusters)
         cfg = cfg.replace(train=dataclasses.replace(
-            cfg.train, lr_total_steps=cfg.train.num_clusters * cfg.train.epochs))
+            cfg.train, lr_total_steps=steps_per_epoch * cfg.train.epochs))
 
     state = create_train_state(cfg, data.num_users, data.num_items, device=device)
     if cfg.train.resume:
@@ -96,13 +100,34 @@ def cmd_train(args) -> int:
     state, hist = train_model(cfg, state, clusters, val, test,
                               save_checkpoint=save_cb)
     save_histories(hist, cfg.train.histories_dir)
+    return cfg, bundle, state
+
+
+def unported_train_flag(args) -> bool:
+    """Print the first ``train`` option given that is not ported yet and
+    return True; False when there is none."""
+    for flag, on in (("--mesh", args.mesh), ("--max-retries", args.max_retries > 0)):
+        if on:
+            print(f"train {flag} is not ported to the PyTorch package yet; run "
+                  "it with movie_recommender_system_with_gnns_tpu.cli",
+                  file=sys.stderr)
+            return True
+    return False
+
+
+def cmd_train(args) -> int:
+    """Train (:func:`train_from_args`), then the optional full-ranking eval
+    of the layer-0 tables on the test split."""
+    if unported_train_flag(args):
+        return 2
+    cfg, bundle, state = train_from_args(args)
 
     if args.full_eval:
         from .training.evaluate import evaluate_full_ranking
 
         train_e, _, test_e = bundle.splits
         recall, ndcg = evaluate_full_ranking(
-            state.params, train_e, test_e, data.num_users, k=args.full_eval_k,
+            state.params, train_e, test_e, bundle.data.num_users, k=args.full_eval_k,
             max_users=args.full_eval_users)
         print(f"Full-ranking test Recall@{args.full_eval_k}: {recall:.4f}, "
               f"NDCG@{args.full_eval_k}: {ndcg:.4f}")
@@ -184,7 +209,9 @@ def cmd_recommend(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's parser: the global options and the ``train``, ``recommend``
+    and ``eda`` subcommands."""
     ap = argparse.ArgumentParser(prog="movie_recommender_system_with_gnns_tpu_torch")
     ap.add_argument("--device", default=None,
                     help="torch device, e.g. cuda, cuda:1 or cpu (default: cuda)")
@@ -220,8 +247,11 @@ def main(argv=None) -> int:
     pt.add_argument("--trainer", default="compact",
                     choices=["compact", "full", "fullgraph"],
                     help="compact = Cluster-GCN in local node space; full = "
-                         "reference full-node-space clusters; fullgraph is "
-                         "not ported yet and raises")
+                         "reference full-node-space clusters; fullgraph = "
+                         "every step propagates ALL train edges (hybrid "
+                         "block-diagonal propagation, 100%% edge retention)")
+    pt.add_argument("--fullgraph-steps", type=int, default=16,
+                    help="optimizer updates per fullgraph epoch")
     pt.add_argument("--split-level", default="edge",
                     choices=["edge", "interaction"],
                     help="edge = reference-parity split of the doubled edge "
@@ -234,9 +264,11 @@ def main(argv=None) -> int:
     pt.add_argument("--num-negatives", type=int, default=1,
                     help="negatives per positive")
     pt.add_argument("--negatives", default="uniform",
-                    choices=["uniform", "feasible"],
+                    choices=["uniform", "feasible", "popularity"],
                     help="uniform = reference law (no collision check); "
-                         "feasible is not ported yet and raises")
+                         "popularity = count^0.75 alias-table draws "
+                         "(fullgraph trainer); feasible is not ported yet "
+                         "and raises")
     pt.add_argument("--fused-bpr", action="store_true",
                     help="fused CUDA BPR loss+grad kernel (ops/cuda_bpr.py)")
     pt.add_argument("--mesh", default=None, help="not ported yet")
@@ -257,8 +289,11 @@ def main(argv=None) -> int:
                     help="batch mode: file with one raw userId per line")
     pr.add_argument("--out", default=None, help="batch mode output CSV path")
     sub.add_parser("eda", help="not ported yet")
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     if args.cmd == "train":
         return cmd_train(args)
     if args.cmd == "recommend":

@@ -1,9 +1,9 @@
 """Configuration tree of the port: the JAX package's frozen dataclasses, field
 for field, so one JSON config (``Config.to_json``) loads in both packages.
 
-Fields that only parts not ported yet read (the full-graph trainer, the
-multi-device and propagated-serving paths) are kept so a config written by
-either package round-trips unchanged.
+Fields that only parts not ported yet read (full-state checkpoints, the
+multi-device paths, the chunked-ELL remainder's width) are kept so a config
+written by either package round-trips unchanged.
 
 Reference defaults (reference repo file:line):
   * ``num_layers=3`` training override, ``dim_h=64``   — train_test.py:274, light_gcn.py:14

@@ -19,7 +19,7 @@ Pure NumPy; the arrays move to the device in ``ops/spmm.py`` (``DeviceCOO``,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -121,11 +121,19 @@ class EllGraph:
         num_nodes: int,
         width_buckets: Sequence[int] = (8, 32, 128, 512, 2048, 8192, 32768),
         row_align: int = 8,
+        weights: Optional[np.ndarray] = None,
     ) -> "EllGraph":
         """Bucket nodes by degree; each node lands in the smallest bucket whose
         width holds its whole neighbour list (none is dropped: the last
-        bucket's width is the true max degree rounded up to 8)."""
-        w_all = gcn_norm(edge_index, num_nodes)
+        bucket's width is the true max degree rounded up to 8).
+
+        The edge weights are ``gcn_norm`` of the given edges, or ``weights``
+        (E,) float32 when given: a subset of a larger graph (the hybrid
+        propagation's remainder) keeps its graph's global GCN weights."""
+        w_all = (gcn_norm(edge_index, num_nodes) if weights is None
+                 else np.asarray(weights, np.float32))
+        if w_all.shape != (edge_index.shape[1],):
+            raise ValueError(f"weights must be ({edge_index.shape[1]},), got {w_all.shape}")
         dst = edge_index[1].astype(np.int64)
         order = np.argsort(dst, kind="stable")
         dst_s = dst[order]

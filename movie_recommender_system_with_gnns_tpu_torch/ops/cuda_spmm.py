@@ -19,8 +19,12 @@ bit-equal from run to run. Tables whose d is no multiple of 4 (or whose rows
 are not aligned for vector loads) take the kernel's scalar-load
 instantiation; d is at most 512.
 
-The kernel has no backward kernel, as the TPU kernel has none: a call that
-needs a gradient raises and names what is missing.
+The TPU kernel has no backward. Here the gradient of ``Â·E`` is one more
+launch over ``Âᵀ``, when the caller gives it (``spmm_ell_cuda(...,
+transpose=)``: the hybrid propagation's remainder of an asymmetric graph);
+without it a call that needs a gradient raises and names what is missing. A
+symmetric ``Â`` needs no transpose: ``ops/spmm.py::spmm_symmetric`` runs the
+backward through the forward.
 """
 
 from __future__ import annotations
@@ -240,31 +244,52 @@ def ell_spmm_into(ell: DeviceELL, emb: torch.Tensor, out: torch.Tensor,
     LAUNCHES["ell_spmm"] += 1
 
 
+def _hop(ell: DeviceELL, emb: torch.Tensor) -> torch.Tensor:
+    """One hop: the plain version for a CPU table, one kernel launch for a
+    CUDA one."""
+    if emb.device.type == "cpu":
+        return spmm_ell(ell, emb)
+    out = torch.empty_like(emb)
+    ell_spmm_into(ell, emb, out)
+    return out
+
+
 class _EllSpmm(torch.autograd.Function):
-    """Forward is one launch over every bucket; there is no backward kernel."""
+    """Forward is one hop over ``ell``; backward one hop of the cotangent over
+    ``transpose`` (``Âᵀ``, built by the caller), and raises without it."""
 
     @staticmethod
-    def forward(ctx, emb, ell):
-        out = torch.empty_like(emb)
-        ell_spmm_into(ell, emb, out)
-        return out
+    def forward(ctx, emb, ell, transpose):
+        ctx.transpose = transpose
+        return _hop(ell, emb)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the ELL SpMM kernel has no backward kernel; training through it "
-            "needs the symmetric-adjacency VJP (spmm_symmetric: the cotangent "
-            "of Â·E is Â·g), ROADMAP queue A 7")
+        if ctx.transpose is None:
+            raise NotImplementedError(
+                "the ELL SpMM kernel's backward runs over the transposed graph, "
+                "and none was built; pass transpose= (build_hybrid_graph(..., "
+                "transpose=True) builds the remainder's), or train through the "
+                "symmetric-adjacency VJP (spmm_symmetric: the cotangent of Â·E "
+                "is Â·g), ROADMAP queue A 6")
+        return _hop(ctx.transpose, grad.contiguous()), None, None
 
 
-def spmm_ell_cuda(ell: DeviceELL, emb: torch.Tensor) -> torch.Tensor:
+def spmm_ell_cuda(ell: DeviceELL, emb: torch.Tensor,
+                  transpose: Optional[DeviceELL] = None) -> torch.Tensor:
     """``Â·emb`` over the ELL blocks; same signature and result as
-    :func:`ops.spmm.spmm_ell`. emb (num_nodes, d), f32 or bf16, d ≤ 512."""
-    if emb.device.type == "cpu":
-        return spmm_ell(ell, emb)
-    if emb.device.type != "cuda":
+    :func:`ops.spmm.spmm_ell`. emb (num_nodes, d), f32 or bf16, d ≤ 512.
+
+    ``transpose`` is ``Âᵀ`` as a :class:`DeviceELL` (the same edges with src
+    and dst swapped, the same weights): the gradient of the result is then
+    one hop over it, by the kernel on the card. Without it a CUDA table's
+    result has no backward (it raises when asked for one), and a CPU table's
+    is the plain version's autograd."""
+    if emb.device.type not in ("cpu", "cuda"):
         raise ValueError(f"spmm_ell_cuda runs on cuda or cpu tensors, got {emb.device}")
-    return _EllSpmm.apply(emb.contiguous(), ell)
+    if emb.device.type == "cpu" and transpose is None:
+        return spmm_ell(ell, emb)
+    return _EllSpmm.apply(emb.contiguous(), ell, transpose)
 
 
 def select_spmm(num_nodes: int, dim: int, use_kernel: Optional[bool] = None

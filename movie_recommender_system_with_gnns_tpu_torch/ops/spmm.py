@@ -12,10 +12,24 @@
     and its scatter-free propagation (gather, weighted reduce, inverse
     permutation), the plain version of the kernel in ``ops/cuda_spmm.py``;
   * :func:`densify_blocks`: per-block dense ``Â`` from block-tagged COO edges,
-    scattered on the device, so a cluster's propagation is a plain matmul.
+    scattered on the device, so a cluster's propagation is a plain matmul;
+    :func:`block_matmul` multiplies such blocks (bf16 or f32) with an f32
+    result, as the JAX package's ``dot_general`` with f32 accumulation;
+  * :class:`HybridGraph`, :func:`build_hybrid_graph` and :func:`spmm_hybrid`:
+    the full graph split along a node partition, ``Â = Â_diag + Â_off``
+    exactly: dense diagonal blocks and a sparse remainder, summed by a row
+    gather (the full-graph trainer's propagation);
+  * :func:`spmm_symmetric`: a propagation whose backward is the same
+    propagation of the cotangent (``Â = Âᵀ``), with :func:`spmm_hybrid_sym`
+    and :func:`spmm_segment_sym`.
 
-The hybrid block-diagonal, chunked-ELL and symmetric-VJP paths wait for the
-full-graph trainer's slice.
+The JAX package's remainder is a chunked ELL (``ChunkedEll``,
+``spmm_chunked_ell``), a TPU workaround that keeps scatters short. The port
+does not carry it: its remainder is a degree-bucketed :class:`DeviceELL`,
+propagated by the ELL SpMM kernel (``ops/cuda_spmm.py``), or the dst-sorted
+COO that :func:`spmm_segment` reads. The sharded remainder that uses the
+chunked ELL's rectangular form waits for the multi-device slice (ROADMAP
+queue A 7).
 """
 
 from __future__ import annotations
@@ -192,3 +206,215 @@ def densify_blocks(blk, dst, src, w, num_blocks: int, width: int,
     dense.index_put_((flat(blk, torch.int64), cell), flat(w, torch.float32),
                      accumulate=True)
     return dense.view(num_blocks, width, width).to(as_dtype(dtype))
+
+
+def _f32_product(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``a @ x`` (2-D or batched 3-D) with both operands in ``a``'s dtype and
+    an f32 result: bf16 operands are multiplied exactly and summed in f32.
+    CUDA tensors take ``torch.mm`` / ``torch.bmm`` with ``out_dtype``; CPU
+    tensors an f32 product of the upcast operands (the CPU build has no
+    mixed-output product)."""
+    x = x.to(a.dtype)
+    if a.dtype == torch.float32:
+        return torch.matmul(a, x)
+    if a.device.type == "cuda":
+        return (torch.bmm if a.dim() == 3 else torch.mm)(a, x, out_dtype=torch.float32)
+    return torch.matmul(a.float(), x.float())
+
+
+class _BlockMatmul(torch.autograd.Function):
+    """:func:`block_matmul`; ``adj`` is a constant. The backward is the same
+    product with ``adjᵀ`` and the cotangent rounded to ``adj``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, adj, x):
+        ctx.save_for_backward(adj)
+        ctx.x_dtype = x.dtype
+        return _f32_product(adj, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (adj,) = ctx.saved_tensors
+        return None, _f32_product(adj.transpose(-1, -2), g).to(ctx.x_dtype)
+
+
+def block_matmul(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``adj @ x`` for dense adjacency blocks, (P, P) or (K, P, P), in f32 or
+    bf16: ``x`` is rounded to ``adj``'s dtype, the result is f32 (``adj`` is
+    not differentiated)."""
+    return _BlockMatmul.apply(adj, x)
+
+
+# ---------------------------------------------------------------------------
+# Hybrid block-diagonal propagation: Â = Â_diag + Â_off, exactly.
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class HybridGraph:
+    """The full adjacency split along a node partition (JAX ``HybridGraph``).
+
+    Intra-part edges become dense (K, P, P) blocks ``adj[k, dst, src]`` over
+    each part's sorted node ids ``ids`` (pad slots repeat a real id, with
+    zero rows and columns); the rest is the remainder, as a
+    :class:`DeviceELL` (``off_ell``, the ELL SpMM kernel's layout) or a
+    dst-sorted :class:`DeviceCOO` (``off``). Every edge carries the GLOBAL GCN
+    weight, so ``spmm_hybrid(h, e)`` equals ``spmm_segment`` of the whole
+    graph up to summation order with f32 blocks; bf16 blocks round the
+    intra-part operands to bf16 (f32 products and sums).
+
+    ``pos`` (N,) is each node's flat (K·P) block slot (a node sits in at most
+    one block) and ``cov`` (N,) whether it has one, so the combine is a row
+    gather. ``off_ell_t`` is the remainder's transpose (src and dst swapped,
+    the same weights), built only for a graph whose propagation is
+    differentiated by autograd: the backward of the kernel runs over it."""
+
+    ids: torch.Tensor              # (K, P) int32
+    adj: torch.Tensor              # (K, P, P) float32 or bfloat16
+    pos: torch.Tensor              # (N,) int32
+    cov: torch.Tensor              # (N,) bool
+    num_nodes: int
+    off: Optional[DeviceCOO] = None
+    off_ell: Optional[DeviceELL] = None
+    off_ell_t: Optional[DeviceELL] = None
+
+
+def build_hybrid_graph(
+    edge_index: np.ndarray,
+    num_nodes: int,
+    node_part: np.ndarray,
+    num_parts: int,
+    align: int = 128,
+    block_dtype: DTypeLike = torch.bfloat16,
+    max_block_nodes: int = 4096,
+    off_format: str = "ell",
+    transpose: bool = False,
+    device: DeviceLike = None,
+) -> HybridGraph:
+    """Host-side split of the full (undirected, global-id) edge list
+    (JAX ``build_hybrid_graph``; the same ``ids``, ``adj``, ``pos``, ``cov``
+    and remainder edges).
+
+    ``node_part`` (num_nodes,) is each node's part (users ‖ items, as
+    ``data.partition.partition_assignments`` gives them). ``off_format``:
+    ``"ell"`` (the remainder on the ELL SpMM kernel) or ``"coo"`` (the
+    segment-sum oracle). ``transpose`` also builds the ELL remainder's
+    transpose, for autodiff through the kernel. The blocks are densified on
+    ``device``; a part wider than ``max_block_nodes`` raises."""
+    from ..data.graph import gcn_norm
+
+    if off_format not in ("ell", "coo"):
+        raise ValueError(f"unknown off_format {off_format!r}")
+    dev = resolve_device(device)
+    src = edge_index[0].astype(np.int64)
+    dst = edge_index[1].astype(np.int64)
+    w = gcn_norm(edge_index, num_nodes)          # GLOBAL degrees: exactness
+    intra = node_part[src] == node_part[dst]
+
+    off = off_ell = off_ell_t = None
+    o_src, o_dst, o_w = src[~intra], dst[~intra], w[~intra]
+    if off_format == "ell":
+        off_ell = DeviceELL.from_host(
+            EllGraph.build(np.stack([o_src, o_dst]), num_nodes, weights=o_w), dev)
+        if transpose:
+            off_ell_t = DeviceELL.from_host(
+                EllGraph.build(np.stack([o_dst, o_src]), num_nodes, weights=o_w), dev)
+    else:
+        order = np.argsort(o_dst, kind="stable")
+        o_src, o_dst, o_w = o_src[order], o_dst[order], o_w[order]
+        e_pad = ((len(o_src) + align - 1) // align) * align or align
+        pad = e_pad - len(o_src)
+        # zero-weight padding edges into the last node keep dst sorted
+        off = DeviceCOO.from_host(COOGraph(
+            src=np.concatenate([o_src, np.zeros(pad, np.int64)]).astype(np.int32),
+            dst=np.concatenate([o_dst, np.full(pad, num_nodes - 1, np.int64)]).astype(np.int32),
+            w=np.concatenate([o_w, np.zeros(pad, np.float32)]),
+            num_nodes=num_nodes, num_edges=len(o_src)), dev)
+
+    # diagonal blocks: the nodes with at least one intra-part edge, per part
+    i_src, i_dst, i_w = src[intra], dst[intra], w[intra]
+    k = num_parts
+    touched = np.zeros(num_nodes, bool)
+    touched[i_src] = True
+    touched[i_dst] = True
+    tnodes = np.flatnonzero(touched)
+    tparts = node_part[tnodes]
+    order = np.argsort(tparts, kind="stable")
+    tnodes, tparts = tnodes[order], tparts[order]
+    counts = np.bincount(tparts, minlength=k)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    ranks = np.arange(tnodes.size, dtype=np.int64) - offsets[tparts]
+    p_max = int(counts.max()) if tnodes.size else 1
+    p_pad = ((p_max + align - 1) // align) * align
+    if p_pad > max_block_nodes:
+        raise ValueError(
+            f"hybrid block width {p_pad} > {max_block_nodes}: use more parts")
+    # pad slots repeat a part's last real id (or 0): their adj rows and
+    # columns stay zero, so what they gather and give back is exactly zero
+    ids = np.zeros((k, p_pad), np.int32)
+    ids[tparts, ranks] = tnodes
+    last = np.where(counts > 0, ids[np.arange(k), np.maximum(counts - 1, 0)], 0)
+    ids = np.where(np.arange(p_pad)[None, :] < counts[:, None], ids, last[:, None])
+    local = np.zeros(num_nodes, np.int64)
+    local[tnodes] = ranks
+    adj = densify_blocks(node_part[i_dst], local[i_dst], local[i_src], i_w,
+                         num_blocks=k, width=p_pad, dtype=block_dtype, device=dev)
+    pos = np.zeros(num_nodes, np.int64)
+    pos[tnodes] = tparts * p_pad + ranks
+    return HybridGraph(ids=torch.from_numpy(ids.astype(np.int32)).to(dev), adj=adj,
+                       pos=torch.from_numpy(pos.astype(np.int32)).to(dev),
+                       cov=torch.from_numpy(touched).to(dev), num_nodes=num_nodes,
+                       off=off, off_ell=off_ell, off_ell_t=off_ell_t)
+
+
+def spmm_hybrid(h: HybridGraph, emb: torch.Tensor) -> torch.Tensor:
+    """``Â @ emb`` as dense diagonal blocks plus the remainder, an f32 result
+    whatever ``emb``'s dtype (JAX ``spmm_hybrid``): the ELL remainder runs
+    the ELL SpMM kernel on the table in f32 (a bf16 table's values exactly),
+    the COO remainder :func:`spmm_segment` in the table's dtype; the block
+    operands are rounded to the blocks' dtype. Each node takes its block row
+    by a gather (``pos``, ``cov``), not a scatter."""
+    if h.off_ell is not None:
+        from .cuda_spmm import spmm_ell_cuda   # the kernel's module imports this one
+
+        out = spmm_ell_cuda(h.off_ell, emb.float(), transpose=h.off_ell_t)
+    else:
+        out = spmm_segment(h.off, emb).float()
+    k, p = h.ids.shape
+    d = emb.shape[1]
+    blk_in = emb.index_select(0, h.ids.reshape(-1)).view(k, p, d)
+    blk_out = block_matmul(h.adj, blk_in).view(k * p, d)
+    contrib = torch.where(h.cov[:, None], blk_out.index_select(0, h.pos),
+                          blk_out.new_zeros(()))
+    return out + contrib
+
+
+def spmm_symmetric(spmm_fn: Callable[[object, torch.Tensor], torch.Tensor]
+                   ) -> Callable[[object, torch.Tensor], torch.Tensor]:
+    """``spmm_fn(graph, emb)`` whose backward is ``spmm_fn(graph, g)``: the
+    cotangent of ``Â·E`` is ``Âᵀ·g = Â·g`` for LightGCN's symmetric
+    normalized adjacency, so the backward runs the forward's own kernels
+    (for the hybrid graph: the blocks and the ELL SpMM kernel) and never a
+    transposed scatter. The graph gets no gradient. A ``spmm_fn`` that rounds
+    its input (a bfloat16 compute dtype) rounds the cotangent the same way."""
+
+    class _Symmetric(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, emb, graph):
+            ctx.graph = graph
+            return spmm_fn(graph, emb)
+
+        @staticmethod
+        def backward(ctx, g):
+            return spmm_fn(ctx.graph, g.contiguous()), None
+
+    def prop(graph, emb: torch.Tensor) -> torch.Tensor:
+        return _Symmetric.apply(emb, graph)
+
+    return prop
+
+
+#: symmetric-backward hybrid propagation (the full-graph trainer's)
+spmm_hybrid_sym = spmm_symmetric(spmm_hybrid)
+#: symmetric-backward segment-sum propagation
+spmm_segment_sym = spmm_symmetric(spmm_segment)

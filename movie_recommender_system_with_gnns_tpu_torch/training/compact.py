@@ -60,6 +60,7 @@ from ..models.lightgcn import LightGCNParams
 from ..ops.bpr import select_bpr_loss
 from ..ops.cuda_scatter import gather_rows, scatter_rows, sort_rows, sorted_index_add
 from ..ops.sampling import check_negatives_mode, sample_negative
+from ..ops.spmm import block_matmul
 from ..ops.topk import DTypeLike
 from ..utils.device import DeviceLike, as_dtype, resolve_device
 from .train import (AdamState, TrainState, adam_step_, bias_corrections, loss_and_grads,
@@ -326,34 +327,6 @@ def _step_negatives(cfg: Config, generator: torch.Generator, batch: int,
                            num=cfg.train.num_negatives, device=device)
 
 
-class _LowPrecisionAdjMatmul(torch.autograd.Function):
-    """``adj @ x`` with ``adj`` stored in a lower precision than ``x``: both
-    operands in ``adj``'s dtype, f32 accumulation AND f32 output
-    (``torch.matmul`` of two bf16 tensors would round its output to bf16).
-    ``adj`` is a constant. Backward is the same product with ``adjᵀ`` and the
-    cotangent rounded to ``adj``'s dtype. CUDA tensors take
-    ``torch.mm(..., out_dtype=float32)``; CPU tensors an f32 product of the
-    upcast operands (the CPU build has no mixed-output ``mm``)."""
-
-    @staticmethod
-    def _mm(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(a.dtype)
-        if a.device.type == "cuda":
-            return torch.mm(a, x, out_dtype=torch.float32)
-        return torch.mm(a.float(), x.float())
-
-    @staticmethod
-    def forward(ctx, adj, x):
-        ctx.save_for_backward(adj)
-        ctx.x_dtype = x.dtype
-        return _LowPrecisionAdjMatmul._mm(adj, x).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        (adj,) = ctx.saved_tensors
-        return None, _LowPrecisionAdjMatmul._mm(adj.T, g).to(ctx.x_dtype)
-
-
 def _one_hop(cur, src, dst, w, adj, n_local, lists: Optional[ClusterLists] = None):
     """One propagation hop in the cluster's compact node space. The segment
     path gathers and sums its messages through ``lists``' stable orders of
@@ -362,7 +335,8 @@ def _one_hop(cur, src, dst, w, adj, n_local, lists: Optional[ClusterLists] = Non
     if adj is not None:
         if adj.dtype == cur.dtype:
             return adj @ cur
-        return _LowPrecisionAdjMatmul.apply(adj, cur)
+        # f32 accumulation and result; the backward rounds the cotangent
+        return block_matmul(adj, cur).to(cur.dtype)
     if lists is None:
         src_lists, dst_lists = sort_rows(src, n_local), sort_rows(dst, n_local)
     else:

@@ -4,8 +4,8 @@
 The replacement for the reference's entry path
 ``MovieLensDataHandler.get_data_training`` + ``__main__``
 (data/dataset_handler.py:256-288, utils/train_test.py:259-293), with static
-padded shapes. ``trainer="compact"`` (the default) and ``"full"`` are ported;
-``"fullgraph"`` raises until its slice lands.
+padded shapes: ``trainer="compact"`` (the default), ``"full"`` and
+``"fullgraph"``.
 """
 
 from __future__ import annotations
@@ -144,9 +144,13 @@ def prepare_training_data(cfg: Config,
     num_nodes = data.num_users + data.num_items
     tc = cfg.train
     if tc.trainer == "fullgraph":
-        raise NotImplementedError(
-            "trainer='fullgraph' is not ported to the PyTorch package yet "
-            "(ROADMAP queue A: full-graph trainer); use 'compact' or 'full'")
+        from .fullgraph import build_fullgraph_data
+
+        train_obj = build_fullgraph_data(cfg, train_e, data.num_users, num_nodes,
+                                         device=dev)
+        val = build_eval_batch(val_e, num_nodes, data.num_users, dev)
+        test = build_eval_batch(test_e, num_nodes, data.num_users, dev)
+        return TrainingBundle(data, train_obj, val, test, splits)
     if tc.trainer not in ("compact", "full"):
         raise ValueError(f"unknown trainer {tc.trainer!r}")
     check_negatives_mode(tc.negatives)

@@ -39,6 +39,7 @@ from ..config import Config
 from ..data.graph import COOGraph
 from ..models.lightgcn import LightGCNParams, init_params, propagate
 from ..ops.bpr import select_bpr_loss
+from ..ops.cuda_scatter import gather_rows, sort_rows
 from ..ops.metrics import sampled_recall_at_k
 from ..ops.sampling import (TripletBatch, check_negatives_mode, sample_negative,
                             triplets_from_edges)
@@ -177,14 +178,32 @@ def compute_embeddings(
 ):
     """(final_user, initial_user, final_pos, initial_pos, final_neg,
     initial_neg): the reference's ``compute_embeddings`` 6-tuple contract
-    (train_test.py:105-134). ``neg_item`` is (B,) or (B, K)."""
+    (train_test.py:105-134). ``neg_item`` is (B,) or (B, K).
+
+    When a gradient will be taken, the rows are gathered by
+    ``ops/cuda_scatter.py::gather_rows`` over one stable sort of each index
+    set (the users; the positives and negatives together), so their
+    gradients are summed per row in an order fixed by the data, not by float
+    atomics: a step is bit-reproducible on the card. Without a gradient
+    (the eval step) they are plain ``index_select`` gathers."""
     users_final, items_final = propagate(
         params, graph, spmm, cfg.model.num_layers, cfg.model.readout)
-    return (
-        users_final[batch.user], params.user_emb[batch.user],
-        items_final[batch.pos_item], params.item_emb[batch.pos_item],
-        items_final[neg_item], params.item_emb[neg_item],
-    )
+    b, d = batch.user.shape[0], params.user_emb.shape[1]
+    items = torch.cat([batch.pos_item.reshape(-1), neg_item.reshape(-1)])
+    if torch.is_grad_enabled() and (params.user_emb.requires_grad
+                                    or params.item_emb.requires_grad):
+        u_lists = sort_rows(batch.user, params.user_emb.shape[0])
+        i_lists = sort_rows(items, params.item_emb.shape[0])
+        gather_u = lambda t: gather_rows(t, batch.user, *u_lists)
+        gather_i = lambda t: gather_rows(t, items, *i_lists)
+    else:
+        gather_u = lambda t: t.index_select(0, batch.user)
+        gather_i = lambda t: t.index_select(0, items)
+    uf, ue = gather_u(users_final), gather_u(params.user_emb)
+    itf, ite = gather_i(items_final), gather_i(params.item_emb)
+    neg_shape = tuple(neg_item.shape) + (d,)
+    return (uf, ue, itf[:b], ite[:b],
+            itf[b:].view(neg_shape), ite[b:].view(neg_shape))
 
 
 def compute_loss(
@@ -361,19 +380,23 @@ def train_model(
     """Train for ``cfg.train.epochs`` epochs with a val eval after each, keep
     the best-val checkpoint through ``save_checkpoint``, finish with a test
     eval. ``clusters`` is a :class:`~.compact.CompactClusters` (compact
-    trainer) or a list of :class:`ClusterBatch` (full-node trainer).
+    trainer), a :class:`~.fullgraph.FullGraphTrainData` (full-graph trainer)
+    or a list of :class:`ClusterBatch` (full-node trainer).
     ``start_epoch``/``best_recall`` continue an interrupted run. The compact
     trainer's ``lazy_adam``, ``hybrid_adam`` and ``lazy_item_adam`` start
     fresh lazy moments when ``state`` carries Adam's."""
     from .compact import (LAZY_OPTIMIZERS, CompactClusters, LazyAdamState,
                           init_lazy_adam, make_compact_epoch_fn)
+    from .fullgraph import FullGraphTrainData, make_fullgraph_epoch_fn
 
     if cfg.train.state_checkpoint_path:
         state_checkpoint_path(cfg)
     eval_step = make_eval_step(cfg, spmm)
     device = state.params.user_emb.device
 
-    if isinstance(clusters, CompactClusters):
+    if isinstance(clusters, FullGraphTrainData):
+        epoch_fn = make_fullgraph_epoch_fn(cfg, clusters)
+    elif isinstance(clusters, CompactClusters):
         epoch_fn = make_compact_epoch_fn(cfg)
         if (cfg.train.optimizer in LAZY_OPTIMIZERS
                 and not isinstance(state.opt_state, LazyAdamState)):

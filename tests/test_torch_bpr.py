@@ -193,7 +193,7 @@ def test_sample_negative(num):
     assert torch.equal(neg, again)
 
 
-@pytest.mark.parametrize("mode", ["feasible", "popularity"])
+@pytest.mark.parametrize("mode", ["feasible"])
 def test_unported_negatives_raise(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         tsampling.check_negatives_mode(mode)

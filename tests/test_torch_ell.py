@@ -202,10 +202,13 @@ def test_select_spmm_and_wrapper_checks(tiny_graph):
 
 
 def test_kernel_backward_names_what_is_missing():
-    """The kernel route has no backward kernel: asking for a gradient raises
-    and names the symmetric-adjacency VJP that training needs."""
-    with pytest.raises(NotImplementedError, match="spmm_symmetric(.|\n)*queue A 7"):
-        cuda_spmm._EllSpmm.backward(None, torch.zeros(2, 2))
+    """Without a transposed graph the kernel route has no backward: asking
+    for a gradient raises and names the transpose and the symmetric-adjacency
+    VJP that training needs instead."""
+    from types import SimpleNamespace
+
+    with pytest.raises(NotImplementedError, match="transpose(.|\n)*spmm_symmetric(.|\n)*queue A 6"):
+        cuda_spmm._EllSpmm.backward(SimpleNamespace(transpose=None), torch.zeros(2, 2))
     # the plain version on CPU tensors stays differentiable
     e, n = _hub_graph(12)
     ell = tspmm.DeviceELL.from_host(tgraph.EllGraph.build(e, n), "cpu")

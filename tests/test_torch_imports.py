@@ -27,7 +27,8 @@ def _forbidden(name: str) -> bool:
 
 def test_port_imports_no_jax():
     files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-             + sorted((ROOT / "tools").glob("probe_*.py")))
+             + sorted((ROOT / "tools").glob("probe_*.py"))
+             + [ROOT / "tools" / "fullgraph_quality.py"])
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]

@@ -114,12 +114,20 @@ def test_prepare_training_data_routes(tmp_path):
         cfg.replace(train=TTrain(trainer="full", use_clusters=False)), device="cpu")
     assert len(one.train) == 1 and one.train[0].num_edges == bundle.splits[0].shape[1]
     for bad, exc, match in (
-            (dict(trainer="fullgraph"), NotImplementedError, "ROADMAP queue A"),
             (dict(negatives="feasible"), NotImplementedError, "ROADMAP queue A"),
-            (dict(negatives="popularity"), NotImplementedError, "ROADMAP queue A"),
+            (dict(trainer="fullgraph", negatives="feasible"), NotImplementedError,
+             "ROADMAP queue A"),
             (dict(trainer="other"), ValueError, "unknown trainer")):
         with pytest.raises(exc, match=match):
             tpipe.prepare_training_data(cfg.replace(train=TTrain(**bad)), device="cpu")
+    # the full-graph trainer and popularity negatives are routed
+    fg = tpipe.prepare_training_data(cfg.replace(train=TTrain(
+        trainer="fullgraph", negatives="popularity", num_clusters=3)), device="cpu")
+    assert type(fg.train).__name__ == "FullGraphTrainData"
+    assert fg.train.alias_table is not None and fg.train.hybrid.off_ell is not None
+    pop = tpipe.prepare_training_data(cfg.replace(train=TTrain(
+        trainer="full", negatives="popularity", num_clusters=3)), device="cpu")
+    assert isinstance(pop.train, list) and len(pop.train) == 3
 
 
 def test_full_node_steps_match_jax(tmp_path):
@@ -289,8 +297,7 @@ def test_cli_train_unported_flags(tmp_path, capsys, flags):
     assert "not ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags,match", [(["--trainer", "fullgraph"], "fullgraph"),
-                                         (["--negatives", "feasible"], "feasible")])
+@pytest.mark.parametrize("flags,match", [(["--negatives", "feasible"], "feasible")])
 def test_cli_train_unported_modes_raise(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         tcli.main(["--device", "cpu", "--checkpoint", str(tmp_path / "m.npz"),

@@ -132,3 +132,26 @@ def jax_epoch_draws(key, k, b, num_items, num):
     neg = np.stack([np.asarray(sample_negative(keys[j], b, num_items, num=num))
                     for j in range(k)])
     return perm, neg
+
+
+def jax_fullgraph_draws(key, e_real, num_steps, batch, num_items, num,
+                        alias_table=None):
+    """The permutation and per-step negatives a JAX full-graph epoch fn draws
+    from ``key`` (``training/fullgraph.py::epoch_inner``), as numpy arrays to
+    hand to the port's epoch fn; ``alias_table`` (prob, alias) for
+    popularity negatives."""
+    import jax
+    import jax.numpy as jnp
+
+    from movie_recommender_system_with_gnns_tpu.ops.sampling import (
+        sample_negative, sample_negative_alias)
+
+    pkey, skey = jax.random.split(key)
+    perm = np.asarray(jax.random.permutation(pkey, e_real).astype(jnp.int32))
+    keys = jax.random.split(skey, num_steps)
+    if alias_table is None:
+        draw = lambda k: sample_negative(k, batch, num_items, num)
+    else:
+        prob, alias = (jnp.asarray(a) for a in alias_table)
+        draw = lambda k: sample_negative_alias(k, batch, num_items, prob, alias, num=num)
+    return perm, np.stack([np.asarray(draw(keys[s])) for s in range(num_steps)])

@@ -86,6 +86,21 @@ Phases:
      timed third epoch, 4 steps under the profiler, and the ELL kernel at the
      remainder's shape beside ``torch.sparse.mm`` and the block product, in
      one ``[fullgraph]`` JSON line;
+  5d. full-state checkpoints, elastic recovery and exact-feasible negatives
+     (``recovery_phase``): 10 M feasible draws against the train split's
+     member table, equal to the rule run on the host from the same
+     candidates, residual train pairs within 5 sigma of Σ (deg_u/I)^(R+1);
+     ``hybrid_adam`` with the fused kernel under feasible negatives (200 B1
+     launches, falling losses, a step bit-equal over two runs, its step time
+     and launches beside uniform negatives'); the compact trainer (4 epochs)
+     and the full-graph trainer at ``FG`` (3 epochs, B4 counted) recovered
+     from a drop before their first checkpoint and one after epoch 1,
+     ``torch.equal`` to uninterrupted runs in tables, moments, count, step,
+     histories, best-val checkpoint and one ``metrics.jsonl`` row per epoch;
+     the save and load seconds of both full states; a state saved on the
+     card, loaded on the CPU and saved again, byte-equal; ``cli train
+     --max-retries 1 --negatives feasible --fused-bpr --optimizer
+     hybrid_adam``, in one ``[recovery]`` JSON line;
   6. trained -> served: the checkpoint of phase 5 behind the ``ServingIndex``
      for one 32,768-user dispatch; then the CLI at a small synthetic size:
      ``train --fused-bpr --full-eval --epochs 1``, the three ``recommend``
@@ -1220,7 +1235,7 @@ def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
     return rows
 
 
-def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> None:
+def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> dict:
     """Phase 5c: ``train-fullgraph-full``, the full-graph trainer on the
     interaction split of the same graph at the JAX flagship's width (L = 3,
     d = 256, 100 hybrid parts, bf16 blocks, 8 popularity negatives, 16 steps
@@ -1233,7 +1248,8 @@ def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> None:
     host's plain version and within 1e-5 of the largest entry of
     ``index_add_`` on the card; the alias sampler's law;
     ``train_model`` for 2 epochs; a timed epoch and a profiled window of 4
-    steps; B4 at the remainder's shape. Adds its numbers to ``b4_row``."""
+    steps; B4 at the remainder's shape. Adds its numbers to ``b4_row``;
+    returns the full-graph config, training data and eval batches."""
     from movie_recommender_system_with_gnns_tpu_torch.config import (
         Config, DataConfig, ModelConfig, TrainConfig)
     from movie_recommender_system_with_gnns_tpu_torch.data.graph import (
@@ -1520,9 +1536,11 @@ def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> None:
     check(fg_launches.get("ell_spmm", 0) == 2 * layers * steps and plain[0] == 0,
           f"ell_spmm launched {fg_launches.get('ell_spmm', 0)} times for {steps} steps "
           f"(expected {2 * layers * steps}); plain spmm_ell calls {plain[0]}")
-    check(fg_launches.get("sorted_index_add", 0) == 4 * steps,
+    evals = (FG["epochs"] + 1) * layers
+    check(fg_launches.get("sorted_index_add", 0) == 4 * steps + evals,
           f"sorted_index_add launched {fg_launches.get('sorted_index_add', 0)} times, "
-          f"expected 4 per step (the four gathered tables' gradients)")
+          f"expected 4 per step (the four gathered tables' gradients) and {evals} "
+          f"for the evals' propagation hops")
 
     # 8. a third epoch alone, then 4 steps under the profiler
     epoch_fn = fullgraph.make_fullgraph_epoch_fn(cfg, fg)
@@ -1607,7 +1625,354 @@ def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> None:
         fullgraph_plain_ms=hop_plain, fullgraph_bound_ms=hop_bound,
         fullgraph_bound_by=hop_by, fullgraph_library_ms=hop_lib,
         fullgraph_max_abs_err=r_err)
-    del state, state0, fg, bundle, val, test, emb
+    del state, state0, bundle, emb
+    return dict(cfg=cfg, fg=fg, val=val, test=test)
+
+
+def states_equal(a, b) -> list:
+    """``torch.equal`` (``==`` for the ints) leaf by leaf."""
+    from movie_recommender_system_with_gnns_tpu_torch.training.checkpoint import (
+        state_leaves)
+
+    return [torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+            for x, y in zip(state_leaves(a), state_leaves(b))]
+
+
+def recovered_vs_uninterrupted(what: str, cfg, state_fn, train_obj, val, test) -> dict:
+    """Run ``cfg`` (full-state checkpoints every 2 epochs) twice in their own
+    directories under ``WORK``: once through ``train_model`` uninterrupted,
+    once through ``train_with_recovery`` with ``RuntimeError("UNAVAILABLE:
+    ...")`` raised from ``on_epoch_end`` after epoch 0 (before the first
+    checkpoint) and after epoch 1 (after it). Checks tables, moments, count,
+    step, the stitched histories, the best-val checkpoint and the one row
+    per epoch of ``metrics.jsonl`` equal; returns both runs' states, wall
+    times, epochs run and launches."""
+    fail_at = [0, 1]
+    from movie_recommender_system_with_gnns_tpu_torch.ops._build import LAUNCHES as launches
+    from movie_recommender_system_with_gnns_tpu_torch.training.checkpoint import (
+        load_params, save_params)
+    from movie_recommender_system_with_gnns_tpu_torch.training.recovery import (
+        train_with_recovery)
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import train_model
+    from movie_recommender_system_with_gnns_tpu_torch.utils.observability import MetricsLogger
+
+    out = {}
+    for run in ("uninterrupted", "recovered"):
+        run_dir = WORK / f"{what}_{run}"
+        run_dir.mkdir(parents=True)
+        cfg_r = cfg.replace(train=dataclasses.replace(
+            cfg.train, checkpoint_path=str(run_dir / "best.npz"),
+            histories_dir=str(run_dir / "hist"),
+            state_checkpoint_path=str(run_dir / "state.npz")))
+        logger = MetricsLogger(str(run_dir / "hist" / "metrics.jsonl"))
+        armed, calls = list(fail_at) if run == "recovered" else [], []
+
+        def on_epoch_end(epoch, metrics):
+            calls.append(epoch)
+            if armed and armed[0] == epoch:
+                armed.pop(0)
+                raise RuntimeError(f"UNAVAILABLE: injected drop after epoch {epoch}")
+
+        def save_cb(st, recall, path=cfg_r.train.checkpoint_path):
+            save_params(path, st.params, meta={"val_recall": recall})
+
+        state = state_fn()
+        launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kw = dict(on_epoch_end=on_epoch_end, save_checkpoint=save_cb, metrics_logger=logger)
+        if run == "uninterrupted":
+            state, hist = train_model(cfg_r, state, train_obj, val, test, **kw)
+        else:
+            state, hist = train_with_recovery(cfg_r, state, train_obj, val, test,
+                                              retry_backoff_s=0.0, **kw)
+        torch.cuda.synchronize()
+        rows = [{k: v for k, v in r.items() if k not in ("ts", "epoch_time_s")}
+                for r in MetricsLogger.read(logger.path)]
+        out[run] = dict(state=state, hist=hist, wall_s=time.perf_counter() - t0,
+                        launches=dict(launches), calls=calls, rows=rows,
+                        best=load_params(cfg_r.train.checkpoint_path, device="cuda")[0])
+    a, b = out["uninterrupted"], out["recovered"]
+    same = states_equal(a["state"], b["state"])
+    check(all(same), f"{what}: the recovered run's tables, moments, count and step are "
+          f"not equal to the uninterrupted run's ({same})")
+    for k in ("train_loss", "val_loss", "val_recall", "test_loss", "test_recall"):
+        check(a["hist"][k] == b["hist"][k], f"{what}: the stitched {k} {b['hist'][k]} "
+              f"differs from the uninterrupted {a['hist'][k]}")
+    check(all(torch.equal(x, y) for x, y in zip(a["best"], b["best"])),
+          f"{what}: the best-val checkpoints' tables differ")
+    epochs = cfg.train.epochs
+    check(b["rows"] == a["rows"] and [r["step"] for r in b["rows"]] == list(range(epochs)),
+          f"{what}: metrics.jsonl is not one row per epoch equal to the uninterrupted "
+          f"run's: {[r['step'] for r in b['rows']]}")
+    check(b["calls"] == [0] + list(range(epochs)), f"{what}: the recovered run ran "
+          f"epochs {b['calls']}, not epoch 0 again and then every epoch once")
+    log(f"[recovery] {what}: recovered run (drops after epochs {fail_at}; epochs run "
+        f"{b['calls']}) torch.equal to the uninterrupted run in tables, moments, count "
+        f"{b['state'].opt_state.count} and step {b['state'].step}, histories, best-val "
+        f"checkpoint and {epochs} metrics rows; wall {a['wall_s']:.2f} s uninterrupted, "
+        f"{b['wall_s']:.2f} s recovered; launches {a['launches']} / {b['launches']}")
+    return out
+
+
+def recovery_phase(data, train_e, cfg, cc, val, test, hist_hybrid: dict,
+                   timings: dict, fgp: dict, smi: str) -> None:
+    """Phase 5d: full-state checkpoints, elastic recovery and exact-feasible
+    negatives at full width. (a) 10 M feasible draws against the train
+    split's member table, equal to the rule run on the host (NumPy) from the
+    same candidates, residual members within 5 sigma of Σ (deg_u / I)^(R+1),
+    timed; (b) ``hybrid_adam`` with the fused kernel under feasible
+    negatives, 2 epochs through ``train_model`` (200 B1 launches, falling
+    losses, a step bit-equal over two runs, val recall beside uniform's), a
+    timed epoch and a profiled window beside uniform's; (c) the compact
+    trainer recovered from a drop before its first checkpoint and one after
+    epoch 1, ``torch.equal`` to an uninterrupted 4-epoch run; (d) the same
+    for the full-graph trainer at ``FG`` over 3 epochs (B4 counted); the
+    save and load seconds of both full states; (e) a state saved on the
+    card, loaded on the CPU and saved again, byte-equal per array; (f) ``cli
+    train --max-retries 1 --negatives feasible --fused-bpr --optimizer
+    hybrid_adam`` at the small synthetic size."""
+    from movie_recommender_system_with_gnns_tpu_torch import cli
+    from movie_recommender_system_with_gnns_tpu_torch.data.partition import forward_half
+    from movie_recommender_system_with_gnns_tpu_torch.ops._build import LAUNCHES as launches
+    from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import (
+        _member_probe, build_member_table, feasible_from_draws, member_keys,
+        sample_negative_feasible)
+    from movie_recommender_system_with_gnns_tpu_torch.training import compact
+    from movie_recommender_system_with_gnns_tpu_torch.training.checkpoint import (
+        load_state_meta, load_train_state, save_train_state)
+    from movie_recommender_system_with_gnns_tpu_torch.training.recovery import state_to
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import (
+        TrainState, create_train_state, epoch_generator, train_model)
+    from movie_recommender_system_with_gnns_tpu_torch.utils.observability import MetricsLogger
+
+    t_phase = time.time()
+    nu, ni = data.num_users, data.num_items
+    numbers = dict(card=smi)
+
+    # (a) feasible draws at the full graph
+    t0 = time.time()
+    u, it = forward_half(train_e, nu)
+    table = build_member_table(u.astype(np.int32), it.astype(np.int32))
+    keys = member_keys(table, "cuda")
+    torch.cuda.synchronize()
+    numbers.update(member_pairs=int((table[0] < np.iinfo(np.int32).max).sum()),
+                   member_table_mb=table.nbytes / 1e6, member_keys_mb=keys.numel() * 8 / 1e6,
+                   member_build_s=time.time() - t0)
+    draws_n, rounds = 10_000_000, 4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    users = torch.from_numpy(u.astype(np.int32)).to("cuda")[
+        torch.randint(0, u.shape[0], (draws_n,), generator=gen, device="cuda")]
+    cand = torch.randint(0, ni, (rounds + 1, draws_n), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    neg = feasible_from_draws(users, cand, keys)
+    # the rule on the host, in NumPy, from the same candidates: a candidate
+    # that is a train pair of its user is replaced by the next round's
+    host_keys = keys.cpu().numpy()
+    hu, hc = users.cpu().numpy().astype(np.int64), cand.cpu().numpy()
+    want = hc[0].copy()
+    live = np.arange(draws_n)
+    for r in range(1, rounds + 1):
+        q = (hu[live] << 31) | want[live].astype(np.int64)
+        pos = np.minimum(np.searchsorted(host_keys, q), host_keys.size - 1)
+        live = live[host_keys[pos] == q]
+        want[live] = hc[r][live]
+    check(np.array_equal(neg.cpu().numpy(), want),
+          "feasible draws on the card differ from the rule run on the host")
+    hits = int(_member_probe(keys, users, neg).sum())
+    deg = torch.from_numpy(np.bincount(table[0][table[0] < nu], minlength=nu)).to("cuda")
+    p = (deg[users.long()].double() / ni) ** (rounds + 1)
+    expect, sigma = p.sum().item(), (p * (1 - p)).sum().sqrt().item()
+    check(abs(hits - expect) <= 5 * sigma + 1, f"feasible draws: {hits} residual train "
+          f"pairs, expected {expect:.3f} (sigma {sigma:.3f})")
+    draw_ms = time_ms(lambda: sample_negative_feasible(gen, users, ni, keys, rounds), 5)
+    b = cc.user_local.shape[1]
+    step_users = cc.user_ids[7].index_select(0, cc.user_local[7])
+    step_ms = time_ms(lambda: sample_negative_feasible(gen, step_users, ni, keys, rounds), 50)
+    uni_ms = time_ms(lambda: torch.randint(0, ni, (b,), generator=gen, device="cuda",
+                                           dtype=torch.int32), 50)
+    numbers.update(draws=draws_n, residual_members=hits, residual_expected=expect,
+                   residual_sigma=sigma, draw_10m_ms=draw_ms, draw_compact_step_ms=step_ms,
+                   uniform_compact_step_ms=uni_ms,
+                   first_round_members=int((hc[0] != want).sum()))
+    log(f"[feasible] {draws_n} draws against {numbers['member_pairs']} train pairs "
+        f"({numbers['member_keys_mb']:.1f} MB of int64 keys, built in "
+        f"{numbers['member_build_s']:.1f} s): equal to the rule on the host; "
+        f"{numbers['first_round_members']} first candidates were train pairs, {hits} "
+        f"remain (expected {expect:.3f}, sigma {sigma:.3f}); {draw_ms:.3f} ms for 10 M by "
+        f"events, {step_ms:.4f} ms at a compact step's {b} triplets (uniform "
+        f"{uni_ms:.4f}), {smi}")
+    del users, cand, neg, p, hc, hu, want
+
+    # (b) compact training under feasible negatives, hybrid_adam + fused B1
+    cc_f = compact.attach_member_table(cc, train_e, nu)
+    cfg_f = cfg.replace(train=dataclasses.replace(
+        cfg.train, optimizer="hybrid_adam", negatives="feasible",
+        checkpoint_path=str(WORK / "best_feasible.npz")))
+    new_state = lambda: create_train_state(cfg_f, nu, ni, device="cuda",
+                                           generator=torch.Generator().manual_seed(SEED))
+    launches.clear()
+    t0 = time.time()
+    state, hist = train_model(cfg_f, new_state(), cc_f, val, test)
+    torch.cuda.synchronize()
+    got = dict(launches)
+    steps = TRAIN["epochs"] * cc.num_clusters
+    check(got.get("bpr_tile", 0) == steps, f"feasible: bpr_tile launched "
+          f"{got.get('bpr_tile', 0)} times, expected {steps}")
+    check(all(np.isfinite(v) for k in hist for v in hist[k])
+          and hist["train_loss"][1] < hist["train_loss"][0],
+          f"feasible: losses not finite or not falling: {hist}")
+    log(f"[feasible] hybrid_adam, fused B1, feasible negatives: train_model "
+        f"{TRAIN['epochs']} epochs {time.time() - t0:.2f} s; train loss {hist['train_loss']}, "
+        f"val recall {hist['val_recall']} (uniform {hist_hybrid['val_recall']}), test "
+        f"recall {hist['test_recall']} (uniform {hist_hybrid['test_recall']}); launches {got}")
+    fn = compact.make_compact_epoch_fn(cfg_f)
+    runs = [fn(state_to(state, "cuda"), cc_f,
+               torch.Generator(device="cuda").manual_seed(SEED + 21), perm=[7])[0]
+            for _ in range(2)]
+    same = states_equal(*runs)
+    check(all(same), f"feasible: one step twice is not bit-equal ({same})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st3, loss3 = fn(state, cc_f, epoch_generator(cfg_f, TRAIN["epochs"], torch.device("cuda")))
+    torch.cuda.synchronize()
+    t_epoch = time.perf_counter() - t0
+    check(np.isfinite(loss3), "feasible: the third epoch's loss is not finite")
+    gen_p = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    box = [st3]
+
+    def ten_steps():
+        box[0], _ = fn(box[0], cc_f, gen_p, perm=list(range(10)))
+
+    prof = profile_window("10 hybrid_adam steps, feasible negatives", 2, 8, ten_steps)
+    uni = timings["hybrid_adam"]
+    numbers.update(
+        feasible_step_ms=1e3 * t_epoch / cc.num_clusters, uniform_step_ms=uni["step_ms"],
+        feasible_busy_ms_per_step=prof["busy_ms"] / 10,
+        uniform_busy_ms_per_step=uni["busy_ms_per_step"],
+        feasible_launches_per_step=prof["kernels"] / 10,
+        uniform_launches_per_step=uni["launches_per_step"],
+        feasible_idle_share=prof["idle_share"], uniform_idle_share=uni["idle_share"],
+        feasible_val_recall=hist["val_recall"], uniform_val_recall=hist_hybrid["val_recall"],
+        feasible_test_recall=hist["test_recall"],
+        uniform_test_recall=hist_hybrid["test_recall"])
+    log(f"[feasible] one step twice bit-equal; epoch 3 alone {t_epoch:.3f} s, "
+        f"{numbers['feasible_step_ms']:.3f} ms a step (uniform {uni['step_ms']:.3f}), "
+        f"{numbers['feasible_launches_per_step']:.1f} launches a step (uniform "
+        f"{uni['launches_per_step']:.1f})")
+    del runs, st3, box, state
+
+    # full-state save and load at the compact width (lazy moments: 3 table pairs)
+    path = WORK / "compact_state.npz"
+    st = create_train_state(cfg_f, nu, ni, device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+    st = TrainState(st.params, compact.init_lazy_adam(st.params), 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_train_state(str(path), st, meta={"epoch": 0})
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_train_state(str(path), st)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(all(states_equal(back, st)), "compact state: save/load changed a leaf")
+    numbers.update(compact_state_mb=path.stat().st_size / 1e6, compact_save_s=t_save,
+                   compact_load_s=t_load)
+
+    # (e) saved on the card, loaded on the CPU, saved again: byte-equal arrays
+    cpu_like = state_to(st, "cpu")
+    on_cpu = load_train_state(str(path), cpu_like)
+    check(on_cpu.params.user_emb.device.type == "cpu", "the CPU load is not on the CPU")
+    save_train_state(str(WORK / "compact_state_cpu.npz"), on_cpu, meta={"epoch": 0})
+    with np.load(path) as za, np.load(WORK / "compact_state_cpu.npz") as zb:
+        check(sorted(za.files) == sorted(zb.files) and all(
+            za[f].dtype == zb[f].dtype and za[f].tobytes() == zb[f].tobytes()
+            for f in za.files), "a state saved on the card and again from the CPU differs")
+    log(f"[recovery] full state at the compact width ({path.stat().st_size / 1e6:.1f} MB): "
+        f"save {t_save:.3f} s, load {t_load:.3f} s; card -> file -> CPU -> file byte-equal "
+        f"per array")
+    del st, back, on_cpu, cpu_like
+
+    # (c) the compact trainer, recovered against uninterrupted, 4 epochs
+    cfg_c = cfg_f.replace(train=dataclasses.replace(cfg_f.train, epochs=4,
+                                                    state_checkpoint_every=2))
+    res = recovered_vs_uninterrupted("compact", cfg_c, new_state, cc_f, val, test)
+    for run in res.values():
+        check(run["launches"].get("bpr_tile", 0) == len(run["calls"]) * cc.num_clusters,
+              f"compact recovery: bpr_tile launched {run['launches'].get('bpr_tile', 0)} "
+              f"times for {len(run['calls'])} epochs")
+    numbers.update(compact_uninterrupted_s=res["uninterrupted"]["wall_s"],
+                   compact_recovered_s=res["recovered"]["wall_s"],
+                   compact_epochs_run=res["recovered"]["calls"])
+    del res, cc_f
+
+    # (d) the full-graph trainer at FG, 3 epochs
+    fg, fcfg = fgp["fg"], fgp["cfg"]
+    cfg_g = fcfg.replace(train=dataclasses.replace(
+        fcfg.train, epochs=3, state_checkpoint_every=2,
+        lr_total_steps=fg.num_steps * 3))
+    new_fg = lambda: create_train_state(cfg_g, nu, ni, device="cuda",
+                                        generator=torch.Generator().manual_seed(SEED))
+    res = recovered_vs_uninterrupted("fullgraph", cfg_g, new_fg, fg, fgp["val"], fgp["test"])
+    for run in res.values():
+        want_b4 = 2 * FG["layers"] * fg.num_steps * len(run["calls"])
+        check(run["launches"].get("ell_spmm", 0) == want_b4,
+              f"fullgraph recovery: ell_spmm launched {run['launches'].get('ell_spmm', 0)} "
+              f"times, expected {want_b4}")
+    path = WORK / "fullgraph_state.npz"
+    st = res["recovered"]["state"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_train_state(str(path), st, meta={"epoch": 2}, schedule_count=True)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_train_state(str(path), st)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(all(states_equal(back, st)) and load_state_meta(str(path))["num_leaves"] == 9,
+          "full-graph state: save/load changed a leaf, or the schedule's count is missing")
+    numbers.update(fullgraph_uninterrupted_s=res["uninterrupted"]["wall_s"],
+                   fullgraph_recovered_s=res["recovered"]["wall_s"],
+                   fullgraph_epochs_run=res["recovered"]["calls"],
+                   fullgraph_b4_launches=[r["launches"].get("ell_spmm", 0)
+                                          for r in res.values()],
+                   fullgraph_state_mb=path.stat().st_size / 1e6, fullgraph_save_s=t_save,
+                   fullgraph_load_s=t_load)
+    log(f"[recovery] full state at the full-graph width ({path.stat().st_size / 1e6:.1f} MB): "
+        f"save {t_save:.3f} s, load {t_load:.3f} s")
+    del res, st, back
+
+    # (f) the CLI: elastic driver, feasible negatives, fused B1, hybrid_adam
+    run_dir = WORK / "cli_run"
+    args = ["--device", "cuda", "--dataset", "synthetic",
+            "--synthetic-users", str(SMALL["users"]), "--synthetic-items", str(SMALL["items"]),
+            "--synthetic-interactions", str(SMALL["interactions"]),
+            "--synthetic-communities", str(SMALL["communities"]),
+            "--synthetic-power", str(SMALL["power"]),
+            "--indexes-dir", str(WORK / "cli_run_indexes"),
+            "--checkpoint", str(run_dir / "model.npz"),
+            "--histories-dir", str(run_dir / "hist"),
+            "--clusters", str(SMALL["clusters"]), "--epochs", "2",
+            "train", "--max-retries", "1", "--negatives", "feasible", "--fused-bpr",
+            "--optimizer", "hybrid_adam"]
+    run_dir.mkdir()
+    launches.clear()
+    t0 = time.time()
+    rc = cli.main(args)
+    torch.cuda.synchronize()
+    cli_l = dict(launches)
+    check(rc == 0, f"cli train --max-retries 1 --negatives feasible exited {rc}")
+    rows = MetricsLogger.read(str(run_dir / "hist" / "metrics.jsonl"))
+    check([r["step"] for r in rows] == [0, 1]
+          and cli_l.get("bpr_tile", 0) == 2 * SMALL["clusters"]
+          and load_state_meta(str(run_dir / "recovery_state.npz"))["epoch"] == 1,
+          f"cli train --max-retries: metrics rows {[r['step'] for r in rows]}, launches "
+          f"{cli_l}, or no recovery checkpoint in the run's directory")
+    log(f"[cli] train --max-retries 1 --negatives feasible --fused-bpr --optimizer "
+        f"hybrid_adam: rc 0 in {time.time() - t0:.1f} s; {len(rows)} metrics rows; "
+        f"launches {cli_l}")
+    numbers["phase_s"] = time.time() - t_phase
+    log(f"[recovery] {json.dumps(numbers)}")
 
 
 def lazy_phase(cfg, cc, cc_seg, main_path: str, c_id: int, neg, data, val, test,
@@ -1620,7 +1985,7 @@ def lazy_phase(cfg, cc, cc_seg, main_path: str, c_id: int, neg, data, val, test,
     bit-equal on the main path and the segment path; from fresh moments,
     hybrid's item table against Adam's and lazy-item's tables against
     hybrid's after one step; each optimizer's update with host syncs made
-    errors. Returns the hybrid run's state."""
+    errors. Returns the hybrid run's state and histories."""
     from movie_recommender_system_with_gnns_tpu_torch.ops._build import LAUNCHES as launches
     from movie_recommender_system_with_gnns_tpu_torch.training import compact
     from movie_recommender_system_with_gnns_tpu_torch.training.checkpoint import save_params
@@ -1658,7 +2023,7 @@ def lazy_phase(cfg, cc, cc_seg, main_path: str, c_id: int, neg, data, val, test,
     check(got.get("bpr_tile", 0) == steps,
           f"hybrid_adam: bpr_tile launched {got.get('bpr_tile', 0)} times, expected {steps}")
     # per step: the dense item gradient's negative rows; on the segment path
-    # also each hop's message sum and its gather's backward
+    # also each hop's message sum and its gather's backward; the evals' hops
     check(got.get("sorted_index_add", 0) == scatters,
           f"hybrid_adam: sorted_index_add launched {got.get('sorted_index_add', 0)} "
           f"times, expected {scatters}")
@@ -1741,7 +2106,7 @@ def lazy_phase(cfg, cc, cc_seg, main_path: str, c_id: int, neg, data, val, test,
         check(site is None, f"{opt}: the update synchronised with the host at {site}")
         log(f"[lazy] {opt}: the update ran with host syncs made errors: none")
     del st, rg, p, g_adam
-    return state
+    return state, hist
 
 
 def sync_site(fn):
@@ -1786,9 +2151,10 @@ def main() -> int:
         load_params, save_params)
     from movie_recommender_system_with_gnns_tpu_torch.training.pipeline import (
         densify_if_fits)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import spmm_rows, spmm_segment
     from movie_recommender_system_with_gnns_tpu_torch.training.train import (
         TrainState, build_eval_batch, create_train_state, epoch_generator,
-        loss_and_grads, make_optimizer, train_model)
+        loss_and_grads, make_eval_step, make_optimizer, train_model)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2008,8 +2374,10 @@ def main() -> int:
               f"bpr_tile launched {train_launches.get('bpr_tile', 0)} times, "
               f"expected one per step ({steps})")
         # per step: the negatives' gradient rows; on the segment path also
-        # each hop's message sum and its gather's backward
-        scatters = steps * (1 + (0 if dense else 2 * TRAIN["layers"]))
+        # each hop's message sum and its gather's backward; per eval (a val
+        # eval each epoch, the test eval) each hop of spmm_rows' sum
+        scatters = (steps * (1 + (0 if dense else 2 * TRAIN["layers"]))
+                    + (TRAIN["epochs"] + 1) * TRAIN["layers"])
         check(train_launches.get("sorted_index_add", 0) == scatters,
               f"sorted_index_add launched {train_launches.get('sorted_index_add', 0)} "
               f"times, expected {scatters}")
@@ -2099,7 +2467,7 @@ def main() -> int:
                 f"launches per step)")
             del runs, a, b, pairs
 
-        state_h = lazy_phase(cfg, cc, cc_seg, main_path, c_id, neg, data, val, test,
+        state_h, hist_h = lazy_phase(cfg, cc, cc_seg, main_path, c_id, neg, data, val, test,
                              hist, copy, steps, scatters)
 
         # a third epoch, timed alone (no eval), then a profiled window of steps;
@@ -2231,7 +2599,55 @@ def main() -> int:
                          bound_ms=sc_bound, bound_by=sc_by, library_ms=sc_lib,
                          ms_method="device time of one call, torch.profiler",
                          wrapper_ms=sc_events))
-        del cc, val, test, kargs, u_tab, i_tab, ni, acc, final, g_rows, out_k, out_l
+        del kargs, u_tab, i_tab, ni, acc, final, g_rows, out_k, out_l
+
+        # 7f. the evaluations' propagation (spmm_rows): sorted_index_add at
+        # the val graph's row runs (its own edges in their own order, every
+        # node a row, d 64) on one hop of the trained tables
+        coo = val[0]
+        x = torch.cat(list(state.params))
+        msg = x.index_select(0, coo.src) * coo.w[:, None]
+        sc = lambda: cuda_scatter.scatter_rows(msg, coo.dst, coo.order, coo.starts,
+                                               coo.num_nodes)
+        out_k, out_l = sc(), spmm_segment(coo, x)
+        torch.cuda.synchronize()
+        out_h = cuda_scatter.sorted_index_add_plain(msg.cpu(), coo.order.cpu(),
+                                                    coo.starts.cpu(), coo.num_nodes)
+        ev_err, ev_top = (out_k - out_l).abs().max().item(), out_l.abs().max().item()
+        run = int((coo.starts[1:] - coo.starts[:-1]).max())
+        what = (f"sorted_index_add at the val graph ({coo.src.shape[0]} edges over "
+                f"{coo.num_nodes} rows, longest run {run}, d={d}, f32)")
+        check(torch.equal(out_k.cpu(), out_h), f"{what}: differs from the plain version's "
+              f"sequential sum on the host")
+        check(torch.equal(out_k, sc()), f"{what}: two calls differ")
+        check(torch.equal(spmm_rows(coo, x), out_k), f"{what}: spmm_rows differs")
+        check(ev_err <= 1e-5 * ev_top, f"{what}: {ev_err:.3e} from spmm_segment's index_add "
+              f"on the card, largest entry {ev_top:.3e}")
+        # one val evaluation (loss and sampled recall, 3 hops) through either sum
+        evals = {}
+        for label, fn in (("spmm_rows", spmm_rows), ("spmm_segment", spmm_segment)):
+            ev = make_eval_step(cfg, fn)
+            once = lambda: ev(state.params, *val, torch.Generator(device="cuda").manual_seed(3))
+            pairs = [tuple(float(v) for v in once()) for _ in range(3)]
+            evals[label] = dict(ms=time_ms(once, 5), repeats_equal=len(set(pairs)) == 1)
+        check(evals["spmm_rows"]["repeats_equal"], f"{what}: three val evaluations through "
+              f"spmm_rows are not bit-equal")
+        scatter_eval = dict(edges=int(coo.src.shape[0]), rows=coo.num_nodes, longest_run=run,
+                            max_abs_err=ev_err, scatter_ms=time_ms(sc, 10),
+                            index_add_ms=time_ms(lambda: spmm_segment(coo, x), 10),
+                            eval_ms=evals["spmm_rows"]["ms"],
+                            eval_index_add_ms=evals["spmm_segment"]["ms"],
+                            eval_index_add_repeats_equal=evals["spmm_segment"]["repeats_equal"])
+        rows[-1].update(eval_graph=scatter_eval)
+        log(f"[kernel] {what}: bit-equal to the plain version on the host, over two calls "
+            f"and through spmm_rows; max abs err vs spmm_segment on the card {ev_err:.3e} "
+            f"(largest entry {ev_top:.3e}); one hop's sum {scatter_eval['scatter_ms']:.4f} "
+            f"ms, spmm_segment's whole hop (gather + index_add) "
+            f"{scatter_eval['index_add_ms']:.4f} ms; one val evaluation through spmm_rows "
+            f"{scatter_eval['eval_ms']:.4f} ms (three repeats bit-equal), through "
+            f"spmm_segment {scatter_eval['eval_index_add_ms']:.4f} ms (three repeats "
+            f"bit-equal: {scatter_eval['eval_index_add_repeats_equal']})")
+        del coo, x, msg, out_k, out_l, out_h
 
         # 5b. eval and propagated serving at the same width
         rows += new_path_phase(data, (train_e, val_e, test_e),
@@ -2239,7 +2655,11 @@ def main() -> int:
         log(f"[eval] phase 3 max errs: ell_spmm {ell_err:.3e}, mips_block {block_err:.3e}")
 
         # 5c. the full-graph trainer at the JAX flagship's width
-        fullgraph_phase(data, bw, smi, next(r for r in rows if r["name"] == "ell_spmm"))
+        fgp = fullgraph_phase(data, bw, smi, next(r for r in rows if r["name"] == "ell_spmm"))
+
+        # 5d. full-state checkpoints, recovery and feasible negatives
+        recovery_phase(data, train_e, cfg, cc, val, test, hist_h, timings, fgp, smi)
+        del cc, val, test, fgp
 
         # 6. trained -> served, then the CLI at a small synthetic size
         launches.clear()

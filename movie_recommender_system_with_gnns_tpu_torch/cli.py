@@ -15,11 +15,16 @@ trainer (``--trainer compact``, the default), the full-node one
 Adam, ``--fullgraph-steps`` steps an epoch over every train edge);
 ``--optimizer`` picks the compact trainer's Adam variant (``adam``,
 ``lazy_adam``, ``hybrid_adam``, ``lazy_item_adam``); ``--negatives
-popularity`` draws the full-graph trainer's negatives by count^0.75;
+popularity`` draws the full-graph trainer's negatives by count^0.75 and
+``--negatives feasible`` the full-graph and compact trainers' negatives
+among the items a user has no train pair with; ``--max-retries N`` runs the
+elastic driver (``training/recovery.py``: a transient failure resumes from
+the last full-state checkpoint, bit-equal to an uninterrupted run);
 ``--full-eval`` adds the full-ranking Recall@k / NDCG@k on the test split
-after training. ``recommend --propagated`` scores with the K-layer
-propagated tables. ``--mesh``, ``--max-retries``, ``--negatives feasible``,
-the history plot and ``eda`` are not ported yet.
+after training. Every ``train`` appends one row per epoch to
+``<histories-dir>/metrics.jsonl``. ``recommend --propagated`` scores with
+the K-layer propagated tables. ``--mesh``, the history plot and ``eda`` are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -61,15 +66,22 @@ def _build_cfg(args) -> Config:
     return Config(data=data, model=model, train=train)
 
 
+def metrics_path(cfg: Config) -> str:
+    return os.path.join(cfg.train.histories_dir, "metrics.jsonl")
+
+
 def train_from_args(args):
     """Reference train_test.py __main__ (:259-293): build data, resume if a
-    checkpoint exists, train, persist histories. Returns ``(cfg, bundle,
-    state)``: the config with its cosine horizon, the pipeline's bundle and
-    the trained state."""
+    checkpoint exists, train (through the elastic driver with
+    ``--max-retries``), log each epoch to :func:`metrics_path`, persist
+    histories. Returns ``(cfg, bundle, state)``: the config with its cosine
+    horizon, the pipeline's bundle and the trained state."""
     from .training.checkpoint import load_params_if_exists, save_params
     from .training.pipeline import prepare_training_data
+    from .training.recovery import train_with_recovery
     from .training.train import create_train_state, save_histories, train_model
     from .utils.device import resolve_device
+    from .utils.observability import MetricsLogger
 
     device = resolve_device(args.device)
     cfg = _build_cfg(args)
@@ -97,21 +109,25 @@ def train_from_args(args):
         save_params(cfg.train.checkpoint_path, st.params,
                     meta={"val_recall": recall, "config": cfg.to_json()})
 
-    state, hist = train_model(cfg, state, clusters, val, test,
-                              save_checkpoint=save_cb)
+    logger = MetricsLogger(metrics_path(cfg))
+    if args.max_retries > 0:
+        state, hist = train_with_recovery(
+            cfg, state, clusters, val, test, max_retries=args.max_retries,
+            save_checkpoint=save_cb, metrics_logger=logger)
+    else:
+        state, hist = train_model(cfg, state, clusters, val, test,
+                                  save_checkpoint=save_cb, metrics_logger=logger)
     save_histories(hist, cfg.train.histories_dir)
     return cfg, bundle, state
 
 
 def unported_train_flag(args) -> bool:
-    """Print the first ``train`` option given that is not ported yet and
-    return True; False when there is none."""
-    for flag, on in (("--mesh", args.mesh), ("--max-retries", args.max_retries > 0)):
-        if on:
-            print(f"train {flag} is not ported to the PyTorch package yet; run "
-                  "it with movie_recommender_system_with_gnns_tpu.cli",
-                  file=sys.stderr)
-            return True
+    """Print the ``train`` option given that is not ported yet (``--mesh``,
+    ROADMAP A7) and return True; False when there is none."""
+    if args.mesh:
+        print("train --mesh is not ported to the PyTorch package yet; run it "
+              "with movie_recommender_system_with_gnns_tpu.cli", file=sys.stderr)
+        return True
     return False
 
 
@@ -124,6 +140,7 @@ def cmd_train(args) -> int:
 
     if args.full_eval:
         from .training.evaluate import evaluate_full_ranking
+        from .utils.observability import MetricsLogger
 
         train_e, _, test_e = bundle.splits
         recall, ndcg = evaluate_full_ranking(
@@ -132,6 +149,9 @@ def cmd_train(args) -> int:
         print(f"Full-ranking test Recall@{args.full_eval_k}: {recall:.4f}, "
               f"NDCG@{args.full_eval_k}: {ndcg:.4f}")
         print(f"full-ranking eval timings: {evaluate_full_ranking.last_timings}")
+        MetricsLogger(metrics_path(cfg)).log(
+            cfg.train.epochs, test_full_recall=recall, test_full_ndcg=ndcg,
+            **evaluate_full_ranking.last_timings)
     return 0
 
 
@@ -266,13 +286,15 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--negatives", default="uniform",
                     choices=["uniform", "feasible", "popularity"],
                     help="uniform = reference law (no collision check); "
-                         "popularity = count^0.75 alias-table draws "
-                         "(fullgraph trainer); feasible is not ported yet "
-                         "and raises")
+                         "feasible = exact rejection-resampled negatives "
+                         "(compact and fullgraph trainers); popularity = "
+                         "count^0.75 alias-table draws (fullgraph trainer)")
     pt.add_argument("--fused-bpr", action="store_true",
                     help="fused CUDA BPR loss+grad kernel (ops/cuda_bpr.py)")
     pt.add_argument("--mesh", default=None, help="not ported yet")
-    pt.add_argument("--max-retries", type=int, default=0, help="not ported yet")
+    pt.add_argument("--max-retries", type=int, default=0,
+                    help="elastic training: retry transient failures up to N "
+                         "times from the last full-state checkpoint")
     pt.add_argument("--full-eval", action="store_true",
                     help="post-training full-ranking Recall@k/NDCG@k on test")
     pt.add_argument("--full-eval-k", type=int, default=10)

@@ -1,9 +1,11 @@
 """Configuration tree of the port: the JAX package's frozen dataclasses, field
 for field, so one JSON config (``Config.to_json``) loads in both packages.
 
-Fields that only parts not ported yet read (full-state checkpoints, the
-multi-device paths, the chunked-ELL remainder's width) are kept so a config
-written by either package round-trips unchanged.
+Fields that only parts not ported yet read (the multi-device paths, the
+microbatched loss, the chunked-ELL remainder's width) are kept so a config
+written by either package round-trips unchanged. Full-state checkpoints
+(``state_checkpoint_path`` / ``state_checkpoint_every``) are written by
+``training/train.py::train_model`` and read by ``training/recovery.py``.
 
 Reference defaults (reference repo file:line):
   * ``num_layers=3`` training override, ``dim_h=64``   — train_test.py:274, light_gcn.py:14

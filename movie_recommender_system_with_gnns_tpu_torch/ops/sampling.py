@@ -16,9 +16,16 @@ Capability parity with reference ``utils/helpers.py``:
     the host, arrays equal to the JAX package's, and
     :func:`sample_negative_alias`, O(1) per draw on the device (Walker's
     alias method: one uniform slot, one coin against its probability).
-
-Exact-feasible (rejection-resampled) negatives are not ported yet:
-:func:`check_negatives_mode` raises for them.
+  * exact-feasible negatives (the reference's feasibility idea,
+    helpers.py:11-62): the host tables :func:`build_member_table` (sorted,
+    deduplicated ``(2, L)`` int32 train pairs, arrays equal to the JAX
+    package's), :func:`build_membership_hash`, :func:`get_user_items` and
+    :func:`is_in_feasible`; on the device :func:`sample_negative_feasible`,
+    which redraws a candidate for ``num_rounds`` rounds wherever ``(user,
+    candidate)`` is a train pair. The probe searches an int64 key ``u·2^31 +
+    i`` (:func:`member_keys`) with ``torch.searchsorted``: order on the key is
+    lexicographic order on ``(u, i)``, so its answers are the JAX package's
+    int32 pair search's.
 """
 
 from __future__ import annotations
@@ -77,6 +84,114 @@ def sample_negative(generator: torch.Generator, batch: int, num_items: int,
     return neg if device is None else neg.to(resolve_device(device))
 
 
+def cantor_hash_pair(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Cantor pairing (helpers.py:11-22), int64."""
+    s = x.to(torch.int64) + y.to(torch.int64)
+    return (s * (s + 1)) // 2 + y.to(torch.int64)
+
+
+def build_membership_hash(user: np.ndarray, item: np.ndarray,
+                          num_slots: int) -> np.ndarray:
+    """Host-side sorted Cantor-hash table of observed (user, item) pairs,
+    padded with int64-max to ``num_slots``; host membership checks only (the
+    device probe searches :func:`member_keys`)."""
+    s = user.astype(np.int64) + item.astype(np.int64)
+    h = np.unique((s * (s + 1)) // 2 + item.astype(np.int64))
+    pad = np.full(max(num_slots - h.shape[0], 0), np.iinfo(np.int64).max, np.int64)
+    return np.concatenate([h, pad])
+
+
+def build_member_table(user: np.ndarray, item: np.ndarray,
+                       align: int = 128) -> np.ndarray:
+    """Host-side ``(2, L)`` int32 table of observed (user, item) pairs, sorted
+    lexicographically by (user, item) and deduplicated; padded with int32-max
+    sentinels (greater than every real pair) to a multiple of ``align``."""
+    pairs = np.unique(np.stack([user.astype(np.int64), item.astype(np.int64)]), axis=1)
+    big = np.iinfo(np.int32).max
+    pad = (-pairs.shape[1]) % align
+    pairs = np.concatenate([pairs, np.full((2, pad), big, np.int64)], axis=1)
+    return pairs.astype(np.int32)
+
+
+def member_keys(table, device: DeviceLike = None) -> torch.Tensor:
+    """The ``(L,)`` int64 search keys ``u·2^31 + i`` of a ``(2, L)`` member
+    table (numpy or tensor), on ``device``. Ascending, since the table is
+    sorted by (u, i) and 0 ≤ u, i < 2^31."""
+    t = (table if isinstance(table, torch.Tensor)
+         else torch.from_numpy(np.array(table, np.int64)))
+    t = t.to(resolve_device(device), torch.int64)
+    return (t[0] << 31) | t[1]
+
+
+def _probe_keys(member: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Whether each int64 key of ``q`` is in the sorted ``member`` keys: a
+    lower-bound search, then one compare (a key past the last one finds the
+    last, which is smaller)."""
+    lo = torch.searchsorted(member, q.reshape(-1)).reshape(q.shape)
+    return member[lo.clamp_max(member.shape[0] - 1)] == q
+
+
+def _member_probe(member: torch.Tensor, u: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Bool tensor shaped like ``u``: whether each (u, i) is in the member
+    table, given as its :func:`member_keys`. A lower-bound search of the
+    int64 key, the answers of the JAX package's lexicographic int32 search
+    (its sentinel pairs included); ``u`` and ``i`` must lie in [0, 2^31)."""
+    return _probe_keys(member, (u.to(torch.int64) << 31) | i.to(torch.int64))
+
+
+def get_user_items(edge_index: np.ndarray) -> dict:
+    """User → interacted-items dict (reference helpers.py:24-41), from one
+    stable sort of the edge heads."""
+    head = np.asarray(edge_index[0])
+    tail = np.asarray(edge_index[1])
+    order = np.argsort(head, kind="stable")
+    h, t = head[order], tail[order]
+    uniq, starts = np.unique(h, return_index=True)
+    ends = np.append(starts[1:], h.shape[0])
+    return {int(u): t[s:e].tolist() for u, s, e in zip(uniq, starts, ends)}
+
+
+def is_in_feasible(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Columns of ``a`` (2, n) whose (x, y) pairs do NOT appear in ``b`` (2, m)
+    (reference helpers.py:43-62) by a Cantor-hash set difference."""
+    def h(e):
+        s = e[0].astype(np.int64) + e[1].astype(np.int64)
+        return s * (s + 1) // 2 + e[1].astype(np.int64)
+
+    mask = ~np.isin(h(np.asarray(a)), h(np.asarray(b)))
+    return np.asarray(a)[:, mask]
+
+
+def feasible_from_draws(user: torch.Tensor, draws: torch.Tensor,
+                        member: torch.Tensor) -> torch.Tensor:
+    """The exact-feasible rule on given candidates: ``draws`` (R+1, *shape)
+    int32, ``shape`` ``(B,)`` or ``(B, K)``. Start from ``draws[0]``; in round
+    r a candidate whose (user, candidate) is a member (:func:`_member_probe`)
+    is replaced by ``draws[r]`` (JAX ``sample_negative_feasible``)."""
+    neg = draws[0]
+    base = user.to(torch.int64) << 31          # the user's half of the key, once
+    if neg.dim() == 2:
+        base = base[:, None]
+    for r in range(1, draws.shape[0]):
+        neg = torch.where(_probe_keys(member, base | neg.to(torch.int64)), draws[r], neg)
+    return neg
+
+
+def sample_negative_feasible(generator: torch.Generator, user: torch.Tensor,
+                             num_items: int, member: torch.Tensor, num_rounds: int = 4,
+                             num: int = 1) -> torch.Tensor:
+    """Rejection-resampled negatives, int32 on the member keys' device, shape
+    ``(B,)`` for ``num <= 1`` or ``(B, num)``: ``num_rounds + 1`` uniform
+    candidate draws from ``generator`` in one call, then
+    :func:`feasible_from_draws`. Static shapes and no host sync; a candidate
+    is still a train pair after the last round with probability
+    ``(deg_u / num_items)^(num_rounds + 1)``."""
+    shape = (user.shape[0],) if num <= 1 else (user.shape[0], num)
+    draws = torch.randint(0, num_items, (num_rounds + 1, *shape), generator=generator,
+                          device=generator.device, dtype=torch.int32)
+    return feasible_from_draws(user, draws.to(member.device), member)
+
+
 def build_alias_table(counts: np.ndarray, power: float = 0.75
                       ) -> Tuple[np.ndarray, np.ndarray]:
     """Host-side Walker alias table of the law ``count^power / Σ``: returns
@@ -128,14 +243,9 @@ def sample_negative_alias(generator: torch.Generator, batch: int, num_items: int
 
 
 def check_negatives_mode(negatives: str) -> None:
-    """Raise for a negative-sampling law that is not ported yet or unknown.
-    ``"popularity"`` is drawn by the full-graph trainer; the compact and
-    full-node trainers draw uniform negatives under it, as the JAX package's
-    do."""
-    if negatives == "feasible":
-        raise NotImplementedError(
-            "negatives='feasible' is not ported to the PyTorch package yet "
-            "(ROADMAP queue A 4: the exact-feasible law and its member table); "
-            "use negatives='uniform' or 'popularity'")
-    if negatives not in ("uniform", "popularity"):
+    """Raise for an unknown negative-sampling law. ``"popularity"`` is drawn
+    by the full-graph trainer and ``"feasible"`` by the full-graph and the
+    compact trainers; the others draw uniform negatives under them, as the
+    JAX package's do."""
+    if negatives not in ("uniform", "popularity", "feasible"):
         raise ValueError(f"unknown negatives {negatives!r}")

@@ -6,6 +6,9 @@
   * :func:`spmm_segment`: gather × weight, then ``index_add_`` over the sorted
     destinations; the reference-semantics propagation (PyG LGConv's normalized
     scatter-add, reference models/light_gcn.py:33);
+  * :func:`spmm_rows`: the same sum, each row's run of the sorted edges
+    summed in edge order by ``ops/cuda_scatter.py::scatter_rows``, so two
+    calls on the card give the same bits (``train_model``'s evaluations);
   * :func:`make_spmm_chunked`: the same sum over edge chunks, so the
     (E, d) message tensor never exists whole;
   * :class:`DeviceELL` and :func:`spmm_ell`: the degree-bucketed ELL layout
@@ -47,21 +50,33 @@ from .topk import DTypeLike
 
 @dataclass(frozen=True)
 class DeviceCOO:
-    """COOGraph on a device: dst-sorted edges with a static padded length."""
+    """COOGraph on a device: dst-sorted edges with a static padded length.
+    ``order`` / ``starts`` (int32, ``from_host(..., row_runs=True)``) list each
+    destination's run of the edges as ``cuda_scatter.sort_rows(dst,
+    num_nodes)`` would, for :func:`spmm_rows`."""
 
     src: torch.Tensor   # (E_pad,) int32
     dst: torch.Tensor   # (E_pad,) int32, sorted ascending
     w: torch.Tensor     # (E_pad,) float32, zero on padding
     num_nodes: int
+    order: Optional[torch.Tensor] = None   # (E_pad,) int32: 0 .. E_pad - 1
+    starts: Optional[torch.Tensor] = None  # (num_nodes + 1,) int32
 
     @staticmethod
-    def from_host(g: COOGraph, device: DeviceLike = None) -> "DeviceCOO":
+    def from_host(g: COOGraph, device: DeviceLike = None,
+                  row_runs: bool = False) -> "DeviceCOO":
         dev = resolve_device(device)
+        runs = {}
+        if row_runs:
+            starts = np.searchsorted(g.dst, np.arange(g.num_nodes + 1), side="left")
+            runs = dict(order=torch.arange(g.dst.shape[0], dtype=torch.int32, device=dev),
+                        starts=torch.from_numpy(starts.astype(np.int32)).to(dev))
         return DeviceCOO(
             src=torch.from_numpy(g.src).to(dev),
             dst=torch.from_numpy(g.dst).to(dev),
             w=torch.from_numpy(g.w).to(dev),
             num_nodes=g.num_nodes,
+            **runs,
         )
 
 
@@ -71,6 +86,21 @@ def spmm_segment(coo: DeviceCOO, emb: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((coo.num_nodes, emb.shape[1]), dtype=emb.dtype,
                       device=emb.device)
     return out.index_add(0, coo.dst, gathered)
+
+
+def spmm_rows(coo: DeviceCOO, emb: torch.Tensor) -> torch.Tensor:
+    """:func:`spmm_segment`'s sum with each row summed over its run of the
+    sorted edges in edge order (``scatter_rows``; ``index_add`` on the CPU),
+    so it is bit-equal from call to call on the card, where ``index_add``'s
+    float atomics are not. Needs ``coo``'s row runs (``from_host(...,
+    row_runs=True)``)."""
+    from .cuda_scatter import scatter_rows
+
+    if coo.starts is None:
+        raise ValueError("spmm_rows needs the graph's row runs: build it with "
+                         "DeviceCOO.from_host(..., row_runs=True)")
+    gathered = emb.index_select(0, coo.src) * coo.w[:, None].to(emb.dtype)
+    return scatter_rows(gathered, coo.dst, coo.order, coo.starts, coo.num_nodes)
 
 
 def make_spmm_chunked(num_chunks: int

@@ -14,7 +14,9 @@ cluster's COMPACT node space:
   * run the K-layer propagation over local ids (small tensors): dense-Â
     matmuls when the clusters carry ``adj``, gather + row sum otherwise;
   * negatives stay reference-semantics: sampled uniformly over the FULL item
-    catalog (helpers.py:79-80). An out-of-cluster negative receives no
+    catalog (helpers.py:79-80), or exact-feasible (no train pair of the
+    triplet's user) when the clusters carry a member table
+    (:func:`attach_member_table`). An out-of-cluster negative receives no
     messages under cluster propagation, so its final embedding is analytically
     ``table_row · readout_scale``; in-cluster negatives use the propagated
     row, resolved by a ``searchsorted`` membership probe.
@@ -41,8 +43,7 @@ the step's gathered rows (:func:`row_loss`) and touch fewer rows:
 Adam on the item table, lazy user rows) and ``lazy_item_adam`` (hybrid with
 the item update on the touched rows only). Their repeated rows are summed in
 sorted order too, so their steps are as reproducible as Adam's.
-Exact-feasible negatives and the frozen boundary correction are not ported
-yet.
+The frozen boundary correction is not ported yet (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ from ..data.graph import gcn_norm
 from ..models.lightgcn import LightGCNParams
 from ..ops.bpr import select_bpr_loss
 from ..ops.cuda_scatter import gather_rows, scatter_rows, sort_rows, sorted_index_add
-from ..ops.sampling import check_negatives_mode, sample_negative
+from ..ops.sampling import (build_member_table, check_negatives_mode, member_keys,
+                             sample_negative, sample_negative_feasible)
 from ..ops.spmm import block_matmul
 from ..ops.topk import DTypeLike
 from ..utils.device import DeviceLike, as_dtype, resolve_device
@@ -148,6 +150,9 @@ class CompactClusters:
     adj: Optional[torch.Tensor] = None
     # per-cluster row lists (ClusterLists' fields, each stacked over clusters)
     row_lists: Optional[ClusterLists] = None
+    # the train pairs' int64 search keys (ops/sampling.py::member_keys):
+    # when present, every epoch fn draws exact-feasible negatives
+    member_table: Optional[torch.Tensor] = None
 
     @property
     def num_clusters(self) -> int:
@@ -304,14 +309,22 @@ def densify_adjacency(cc: CompactClusters, dtype: DTypeLike = torch.bfloat16,
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP queue A, "
+        f"{what} is not ported to the PyTorch package yet (ROADMAP queue A 6, "
         "compact cluster trainer)")
 
 
 def attach_member_table(cc: CompactClusters, train_edge_index: np.ndarray,
                         num_users: int) -> CompactClusters:
-    """Exact-feasible negatives need the sorted train-pair table."""
-    _not_ported("attach_member_table (negatives='feasible')")
+    """A copy of ``cc`` carrying the train pairs' member table (as its int64
+    search keys, on ``cc``'s device), so every compact epoch fn draws EXACT
+    feasible negatives. The pairs come from the FULL train edge set, not just
+    the edges kept inside clusters: a negative must avoid everything the user
+    interacted with."""
+    from ..data.partition import forward_half
+
+    u, it = forward_half(train_edge_index, num_users)
+    table = build_member_table(u.astype(np.int32), it.astype(np.int32))
+    return dataclasses.replace(cc, member_table=member_keys(table, cc.src.device))
 
 
 def build_boundary_correction(params, hybrid, cc: CompactClusters, cfg: Config,
@@ -320,11 +333,17 @@ def build_boundary_correction(params, hybrid, cc: CompactClusters, cfg: Config,
     _not_ported("build_boundary_correction (the frozen boundary correction)")
 
 
-def _step_negatives(cfg: Config, generator: torch.Generator, batch: int,
-                    num_items: int, device: torch.device) -> torch.Tensor:
-    """Per-cluster negative draw: uniform (reference helpers.py:79-80)."""
-    return sample_negative(generator, batch, num_items,
-                           num=cfg.train.num_negatives, device=device)
+def _step_negatives(cfg: Config, generator: torch.Generator, cc: CompactClusters,
+                    c: int, num_items: int) -> torch.Tensor:
+    """Cluster ``c``'s negative draw: uniform (reference helpers.py:79-80),
+    or exact-feasible against the global user of each triplet slot when
+    ``cc`` carries a member table."""
+    if cc.member_table is None:
+        return sample_negative(generator, cc.user_local.shape[1], num_items,
+                               num=cfg.train.num_negatives, device=cc.src.device)
+    users = cc.user_ids[c].index_select(0, cc.user_local[c])
+    return sample_negative_feasible(generator, users, num_items, cc.member_table,
+                                    num=cfg.train.num_negatives)
 
 
 def _one_hop(cur, src, dst, w, adj, n_local, lists: Optional[ClusterLists] = None):
@@ -813,11 +832,10 @@ def _epoch_fn(cfg: Config, step: Step):
             perm = torch.randperm(k, generator=generator, device=generator.device)
         order = [int(c) for c in (perm.tolist() if isinstance(perm, torch.Tensor)
                                   else perm)]
-        b = cc.user_local.shape[1]
         wloss = torch.zeros((), dtype=torch.float32, device=device)
         for j, c in enumerate(order):
             neg_j = (neg[j] if neg is not None else
-                     _step_negatives(cfg, generator, b, num_items, device))
+                     _step_negatives(cfg, generator, cc, c, num_items))
             state, loss = step(state, cc, c, neg_j)
             wloss = wloss + loss * cc.edge_counts[c]
         # the epoch's one host sync

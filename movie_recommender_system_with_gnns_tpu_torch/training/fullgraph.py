@@ -19,11 +19,11 @@ trainer keeps them all:
     at 1.0 and Adam as the other trainers.
 
 The epoch is a Python loop of steps drawing the permutation and each step's
-negatives (uniform or popularity^power) from the epoch's generator. The
-triplet rows are gathered through ``ops/cuda_scatter.py::gather_rows``
-(``train.compute_embeddings``), so a step is bit-reproducible on the card.
-Not ported: exact-feasible negatives (ROADMAP queue A 4) and the
-microbatched loss, ``loss_microbatches > 1`` (ROADMAP queue A 6); both raise.
+negatives (uniform, popularity^power, or exact-feasible against the train
+pairs) from the epoch's generator. The triplet rows are gathered through
+``ops/cuda_scatter.py::gather_rows`` (``train.compute_embeddings``), so a
+step is bit-reproducible on the card. Not ported: the microbatched loss,
+``loss_microbatches > 1`` (ROADMAP queue A 6), which raises.
 """
 
 from __future__ import annotations
@@ -37,8 +37,10 @@ import torch
 from ..config import Config
 from ..data.graph import adjacency_is_symmetric
 from ..data.partition import forward_half, partition_assignments
-from ..ops.sampling import (TripletBatch, build_alias_table, check_negatives_mode,
-                            item_popularity, sample_negative, sample_negative_alias)
+from ..ops.sampling import (TripletBatch, build_alias_table, build_member_table,
+                            check_negatives_mode, item_popularity, member_keys,
+                            sample_negative, sample_negative_alias,
+                            sample_negative_feasible)
 from ..ops.spmm import (HybridGraph, build_hybrid_graph, spmm_hybrid, spmm_hybrid_sym,
                         spmm_symmetric)
 from ..utils.device import DeviceLike, as_dtype, resolve_device
@@ -54,8 +56,9 @@ class FullGraphTrainData:
     ``symmetric_ok`` is False when the train adjacency failed the symmetry
     check (edge-level split): the epoch then differentiates the propagation
     by autograd. ``alias_table`` is ``(prob, alias)`` when
-    ``negatives="popularity"``; ``member_table`` (exact-feasible negatives)
-    is always None here."""
+    ``negatives="popularity"``; ``member_table`` the train pairs' int64
+    search keys (``ops/sampling.py::member_keys``) when
+    ``negatives="feasible"``."""
 
     def __init__(self, hybrid: HybridGraph, user: torch.Tensor, pos_item: torch.Tensor,
                  e_real: int, num_steps: int, batch: int, symmetric_ok: bool = True,
@@ -134,17 +137,20 @@ def build_fullgraph_data(cfg: Config, train_edge_index: np.ndarray, num_users: i
     batch = batch_aligned
     num_steps = max(1, -(-e_real // batch))
     e_pad = num_steps * batch
-    alias_table = None
+    alias_table = member_table = None
     if tc.negatives == "popularity":
         counts = item_popularity(train_edge_index, num_users, num_nodes - num_users)
         prob, alias = build_alias_table(counts, power=tc.negatives_power)
         alias_table = (torch.from_numpy(prob).to(dev), torch.from_numpy(alias).to(dev))
+    elif tc.negatives == "feasible":
+        member_table = member_keys(build_member_table(users, pos), dev)
     users = np.concatenate([users, np.zeros(e_pad - e_real, np.int32)])
     pos = np.concatenate([pos, np.zeros(e_pad - e_real, np.int32)])
     return FullGraphTrainData(
         hybrid=hybrid, user=torch.from_numpy(users).to(dev),
         pos_item=torch.from_numpy(pos).to(dev), e_real=e_real, num_steps=num_steps,
-        batch=batch, symmetric_ok=symmetric_ok, alias_table=alias_table)
+        batch=batch, symmetric_ok=symmetric_ok, member_table=member_table,
+        alias_table=alias_table)
 
 
 def fullgraph_spmm(cfg: Config, fg: FullGraphTrainData):
@@ -195,6 +201,9 @@ def make_fullgraph_epoch_fn(cfg: Config, fg: FullGraphTrainData):
         for s in range(steps):
             if neg is not None:
                 neg_s = torch.as_tensor(neg[s]).to(dev)
+            elif fg_.member_table is not None:
+                neg_s = sample_negative_feasible(generator, u[s], num_items,
+                                                 fg_.member_table, num=k)
             elif fg_.alias_table is not None:
                 neg_s = sample_negative_alias(generator, b, num_items, *fg_.alias_table,
                                               num=k)

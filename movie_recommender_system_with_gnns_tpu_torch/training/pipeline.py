@@ -11,6 +11,7 @@ padded shapes: ``trainer="compact"`` (the default), ``"full"`` and
 from __future__ import annotations
 
 import os
+import warnings
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -154,6 +155,11 @@ def prepare_training_data(cfg: Config,
     if tc.trainer not in ("compact", "full"):
         raise ValueError(f"unknown trainer {tc.trainer!r}")
     check_negatives_mode(tc.negatives)
+    if tc.negatives == "feasible" and tc.trainer != "compact":
+        warnings.warn(
+            "negatives='feasible' is implemented on the fullgraph and "
+            f"compact trainers; trainer={tc.trainer!r} draws the "
+            "reference's uniform negatives (helpers.py:79-80)", stacklevel=2)
     if tc.optimizer in ("hybrid_adam", "lazy_item_adam") and tc.partitioner == "random_edges":
         raise ValueError(
             f"optimizer={tc.optimizer!r} requires the greedy node partitioner: "
@@ -173,10 +179,12 @@ def prepare_training_data(cfg: Config,
         parts = [train_e]
 
     if tc.trainer == "compact":
-        from .compact import build_compact_clusters
+        from .compact import attach_member_table, build_compact_clusters
 
         train_obj = densify_if_fits(
             build_compact_clusters(parts, data.num_users, device=dev), tc)
+        if tc.negatives == "feasible":
+            train_obj = attach_member_table(train_obj, train_e, data.num_users)
     else:
         train_obj = build_cluster_batches(parts, data.num_users, num_nodes,
                                           device=dev)

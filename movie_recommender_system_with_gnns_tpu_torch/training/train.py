@@ -43,7 +43,7 @@ from ..ops.cuda_scatter import gather_rows, sort_rows
 from ..ops.metrics import sampled_recall_at_k
 from ..ops.sampling import (TripletBatch, check_negatives_mode, sample_negative,
                             triplets_from_edges)
-from ..ops.spmm import DeviceCOO, spmm_segment
+from ..ops.spmm import DeviceCOO, spmm_rows, spmm_segment
 from ..utils.device import DeviceLike, resolve_device
 
 
@@ -159,13 +159,14 @@ def create_train_state(cfg: Config, num_users: int, num_items: int,
                       step=0)
 
 
-def state_checkpoint_path(cfg: Config) -> str:
-    """Full train-state checkpoints (tables + moments + step) are not ported
-    yet; they land with the recovery loop."""
-    raise NotImplementedError(
-        "full train-state checkpoints are not ported to the PyTorch package "
-        "yet (ROADMAP queue A: full-state checkpoints and recovery); leave "
-        "train.state_checkpoint_path unset")
+def state_checkpoint_path(cfg: Config) -> Optional[str]:
+    """Where ``train_model`` writes its periodic full-state checkpoints
+    (tables + moments + counts + step): ``cfg.train.state_checkpoint_path``
+    when it is set and ``state_checkpoint_every > 0``, else None."""
+    tc = cfg.train
+    if tc.state_checkpoint_path and tc.state_checkpoint_every > 0:
+        return tc.state_checkpoint_path
+    return None
 
 
 def compute_embeddings(
@@ -301,7 +302,11 @@ def train_epoch(
 # ---------------------------------------------------------------------------
 
 
-def make_eval_step(cfg: Config, spmm: Callable = spmm_segment):
+def make_eval_step(cfg: Config, spmm: Callable = spmm_rows):
+    """The val/test evaluation: loss and sampled recall. ``spmm`` defaults to
+    :func:`~..ops.spmm.spmm_rows` (over :func:`build_eval_batch`'s graphs),
+    so that an evaluation of the same tables gives the same bits on the card."""
+
     @torch.no_grad()
     def eval_step(params: LightGCNParams, graph: DeviceCOO, batch: TripletBatch,
                   generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -326,9 +331,10 @@ def make_eval_step(cfg: Config, spmm: Callable = spmm_segment):
 
 def build_eval_batch(edge_index: np.ndarray, num_nodes: int, num_users: int,
                      device: DeviceLike = None) -> Tuple[DeviceCOO, TripletBatch]:
-    """Eval graphs propagate over their own edge set (train_test.py:150-153)."""
+    """Eval graphs propagate over their own edge set (train_test.py:150-153),
+    with the row runs :func:`~..ops.spmm.spmm_rows` sums over."""
     dev = resolve_device(device)
-    g = DeviceCOO.from_host(COOGraph.build(edge_index, num_nodes), dev)
+    g = DeviceCOO.from_host(COOGraph.build(edge_index, num_nodes), dev, row_runs=True)
     b = triplets_from_edges(edge_index, num_users, device=dev)
     return g, b
 
@@ -376,22 +382,31 @@ def train_model(
     metrics_logger=None,
     start_epoch: int = 0,
     best_recall: float = 0.0,
+    state_meta: Optional[dict] = None,
 ) -> Tuple[TrainState, Dict[str, List[float]]]:
     """Train for ``cfg.train.epochs`` epochs with a val eval after each, keep
     the best-val checkpoint through ``save_checkpoint``, finish with a test
     eval. ``clusters`` is a :class:`~.compact.CompactClusters` (compact
     trainer), a :class:`~.fullgraph.FullGraphTrainData` (full-graph trainer)
-    or a list of :class:`ClusterBatch` (full-node trainer).
-    ``start_epoch``/``best_recall`` continue an interrupted run. The compact
-    trainer's ``lazy_adam``, ``hybrid_adam`` and ``lazy_item_adam`` start
-    fresh lazy moments when ``state`` carries Adam's."""
+    or a list of :class:`ClusterBatch` (full-node trainer). ``spmm`` is the
+    full-node trainer's propagation; the evaluations sum through
+    :func:`~..ops.spmm.spmm_rows` over ``val``/``test`` from
+    :func:`build_eval_batch`, bit-equal from run to run on the card.
+    ``start_epoch``/``best_recall`` continue an interrupted run: each epoch's
+    generator is seeded from ``(seed, epoch)`` alone, so with the full state
+    of the epoch before, the resumed run is bit-equal to the uninterrupted
+    one (``training/recovery.py``). Every ``state_checkpoint_every`` epochs
+    the full state goes to :func:`state_checkpoint_path` with meta
+    ``{"epoch": epoch, **state_meta}``. The compact trainer's ``lazy_adam``,
+    ``hybrid_adam`` and ``lazy_item_adam`` start fresh lazy moments when
+    ``state`` carries Adam's."""
+    from .checkpoint import save_train_state
     from .compact import (LAZY_OPTIMIZERS, CompactClusters, LazyAdamState,
                           init_lazy_adam, make_compact_epoch_fn)
     from .fullgraph import FullGraphTrainData, make_fullgraph_epoch_fn
 
-    if cfg.train.state_checkpoint_path:
-        state_checkpoint_path(cfg)
-    eval_step = make_eval_step(cfg, spmm)
+    state_path = state_checkpoint_path(cfg)
+    eval_step = make_eval_step(cfg)
     device = state.params.user_emb.device
 
     if isinstance(clusters, FullGraphTrainData):
@@ -426,6 +441,9 @@ def train_model(
         if metrics_logger is not None:
             metrics_logger.log(epoch, train_loss=train_loss, val_loss=val_loss,
                                val_recall=val_recall, epoch_time_s=dt)
+        if state_path and (epoch + 1) % cfg.train.state_checkpoint_every == 0:
+            save_train_state(state_path, state, meta={"epoch": epoch, **(state_meta or {})},
+                             schedule_count=cfg.train.lr_schedule == "cosine")
         if val_recall > best_recall:
             best_recall = val_recall
             if save_checkpoint is not None:

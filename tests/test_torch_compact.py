@@ -20,6 +20,7 @@ from movie_recommender_system_with_gnns_tpu.training import train as jtrain
 from movie_recommender_system_with_gnns_tpu_torch.config import (
     Config as TConfig, ModelConfig as TModel, TrainConfig as TTrain)
 from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph
+from movie_recommender_system_with_gnns_tpu_torch.ops import sampling as tsampling
 from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import triplets_from_edges
 from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import DeviceCOO
 from movie_recommender_system_with_gnns_tpu_torch.training import compact as tcompact
@@ -364,17 +365,25 @@ def test_compact_epoch_draws_its_own_order_and_negatives(tiny_data):
 
 
 def test_unported_compact_routes_raise(tiny_data):
+    """The boundary correction still raises and names ROADMAP A6; the member
+    table and the feasible epoch fn run now (their values:
+    tests/test_torch_feasible.py)."""
     _, cfg = _cfgs()
-    _, ct = both_clusters(greedy_parts(tiny_data, 3), tiny_data.num_users)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        tcompact.attach_member_table(ct, tiny_data.edge_index, tiny_data.num_users)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+    cj, ct = both_clusters(greedy_parts(tiny_data, 3), tiny_data.num_users)
+    withm = tcompact.attach_member_table(ct, tiny_data.edge_index, tiny_data.num_users)
+    mj = jcompact.attach_member_table(cj, tiny_data.edge_index, tiny_data.num_users)
+    assert torch.equal(withm.member_table, tsampling.member_keys(
+        np.asarray(mj.member_table), "cpu")) and ct.member_table is None
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A 6"):
         tcompact.build_boundary_correction(None, None, ct, cfg, tiny_data.num_users)
     with pytest.raises(NotImplementedError, match="boundary correction"):
         tcompact._propagate_local(torch.zeros(4, 2), None, None, None, None, 1, 4,
                                   corr=torch.zeros(1, 4, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        tcompact.make_compact_epoch_fn(_cfgs(negatives="feasible")[1])
+    fn = tcompact.make_compact_epoch_fn(_cfgs(negatives="feasible")[1])
+    _, pt = both_params(tiny_data.num_users, tiny_data.num_items, 8, seed=1)
+    state, loss = fn(ttrain.TrainState(pt, ttrain.make_optimizer(cfg).init(pt), 0), withm,
+                     torch.Generator().manual_seed(0))
+    assert state.step == ct.num_clusters and np.isfinite(loss)
     with pytest.raises(ValueError, match="unknown optimizer"):
         tcompact.make_compact_epoch_fn(_cfgs(optimizer="sgd")[1])
 

@@ -270,11 +270,12 @@ def test_sample_negative_alias_law(tiny_data, num):
 
 
 def test_negatives_modes():
-    """popularity runs now; feasible still raises and names its ROADMAP item."""
+    """Every law runs: uniform, popularity and feasible; others raise."""
     tsampling.check_negatives_mode("popularity")
     tsampling.check_negatives_mode("uniform")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A 4"):
-        tsampling.check_negatives_mode("feasible")
+    tsampling.check_negatives_mode("feasible")
+    with pytest.raises(ValueError, match="unknown negatives"):
+        tsampling.check_negatives_mode("hard")
 
 
 # --- training/fullgraph.py -------------------------------------------------
@@ -288,11 +289,14 @@ def _cfgs(**train):
             TConfig(model=TModel(**model), train=TTrain(**train)))
 
 
-@pytest.mark.parametrize("case", ["interaction", "edge", "batch_size", "popularity"])
+@pytest.mark.parametrize("case", ["interaction", "edge", "batch_size", "popularity",
+                                  "feasible"])
 def test_build_fullgraph_data_matches_jax(tiny_data, case):
     """batch, num_steps, e_real, the padded user / pos_item, symmetric_ok, the
-    alias table and the warnings equal JAX's."""
+    alias table, the member table (as its search keys) and the warnings
+    equal JAX's."""
     kw = dict(batch_size=dict(batch_size=1000), popularity=dict(negatives="popularity"),
+              feasible=dict(negatives="feasible"),
               edge=dict(partitioner="random_edges")).get(case, {})
     cfg_j, cfg_t = _cfgs(**kw)
     e, n, _ = _graph(tiny_data, asymmetric=case == "edge")
@@ -304,13 +308,18 @@ def test_build_fullgraph_data_matches_jax(tiny_data, case):
         warnings.simplefilter("always")
         ft = tfg.build_fullgraph_data(cfg_t, e, nu, n, device="cpu")
     assert [str(w.message) for w in wt] == [str(w.message) for w in wj]
-    assert len(wt) == dict(interaction=0, edge=2, batch_size=1, popularity=0)[case]
+    assert len(wt) == dict(interaction=0, edge=2, batch_size=1, popularity=0,
+                           feasible=0)[case]
     for f in ("batch", "num_steps", "e_real", "symmetric_ok"):
         assert getattr(ft, f) == getattr(fj, f), f
     for f in ("user", "pos_item"):
         assert getattr(ft, f).dtype == torch.int32
         np.testing.assert_array_equal(to_np(getattr(ft, f)), np.asarray(getattr(fj, f)))
-    assert ft.member_table is None
+    if case == "feasible":
+        assert torch.equal(ft.member_table,
+                           tsampling.member_keys(np.asarray(fj.member_table), "cpu"))
+    else:
+        assert ft.member_table is None and fj.member_table is None
     assert (ft.hybrid.off_ell_t is not None) == (case == "edge")
     if case == "popularity":
         for a, b in zip(ft.alias_table, fj.alias_table):
@@ -319,8 +328,7 @@ def test_build_fullgraph_data_matches_jax(tiny_data, case):
         assert ft.alias_table is None
 
 
-@pytest.mark.parametrize("bad,match", [(dict(negatives="feasible"), "queue A 4"),
-                                       (dict(loss_microbatches=2), "queue A 6")])
+@pytest.mark.parametrize("bad,match", [(dict(loss_microbatches=2), "queue A 6")])
 def test_fullgraph_unported_raise(tiny_data, bad, match):
     _, cfg = _cfgs(**bad)
     e, n, _ = _graph(tiny_data)

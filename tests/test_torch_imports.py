@@ -30,6 +30,8 @@ def test_port_imports_no_jax():
              + sorted((ROOT / "tools").glob("probe_*.py"))
              + [ROOT / "tools" / "fullgraph_quality.py"])
     assert len(files) > 10
+    scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {"utils/observability.py", "training/recovery.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []

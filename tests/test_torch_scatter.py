@@ -2,7 +2,8 @@
 its plain version against ``index_add_`` and its autograd pairs against
 ``index_select`` / ``index_add``, bit for bit (both sum each row sequentially
 in ascending entry order on the CPU), and ``sort_rows`` against numpy's
-stable argsort. The CUDA kernel is held to the plain version by
+stable argsort, and ``ops/spmm.py::spmm_rows`` against the JAX package's
+``spmm_segment``. The CUDA kernel is held to the plain version by
 ``chip_smoke.py`` on the card.
 """
 
@@ -81,3 +82,43 @@ def test_sorted_index_add_refuses_other_devices():
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         cuda_scatter.sorted_index_add(x, torch.zeros(4, dtype=torch.int32),
                                       torch.zeros(3, dtype=torch.int32), 2)
+
+
+@pytest.mark.parametrize("pad", [False, True])
+def test_spmm_rows_matches_jax_spmm_segment(tiny_data, pad):
+    """``DeviceCOO.from_host(..., row_runs=True)`` lists the dst-sorted edges'
+    row runs as ``sort_rows`` does (padding edges included), and
+    ``spmm_rows`` over them (the evaluations' propagation) gives the JAX
+    package's ``spmm_segment`` and its gradient; a graph without row runs is
+    refused."""
+    import jax
+    import jax.numpy as jnp
+
+    from movie_recommender_system_with_gnns_tpu.data.graph import COOGraph as JCOO
+    from movie_recommender_system_with_gnns_tpu.ops import spmm as jspmm
+    from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph
+    from movie_recommender_system_with_gnns_tpu_torch.ops import spmm
+
+    n = tiny_data.num_users + tiny_data.num_items
+    e = tiny_data.edge_index
+    pad_to = e.shape[1] + 77 if pad else None
+    coo = spmm.DeviceCOO.from_host(COOGraph.build(e, n, pad_to=pad_to), "cpu",
+                                   row_runs=True)
+    assert coo.order.dtype == coo.starts.dtype == torch.int32
+    ref_order, ref_starts = cuda_scatter.sort_rows(coo.dst, n)
+    assert torch.equal(coo.order, ref_order) and torch.equal(coo.starts, ref_starts)
+
+    emb = np.random.default_rng(0).standard_normal((n, 16)).astype(np.float32)
+    cot = np.random.default_rng(1).standard_normal((n, 16)).astype(np.float32)
+    gj = jspmm.DeviceCOO.from_host(JCOO.build(e, n, pad_to=pad_to))
+    out_j, vjp = jax.vjp(lambda x: jspmm.spmm_segment(gj, x), jnp.asarray(emb))
+    (g_j,) = vjp(jnp.asarray(cot))
+    x = torch.from_numpy(emb).requires_grad_(True)
+    out_t = spmm.spmm_rows(coo, x)
+    (g_t,) = torch.autograd.grad(out_t, x, torch.from_numpy(cot))
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-4, atol=1e-7)
+    bare = spmm.DeviceCOO.from_host(COOGraph.build(e, n, pad_to=pad_to), "cpu")
+    with pytest.raises(ValueError, match="row_runs=True"):
+        spmm.spmm_rows(bare, x)

@@ -4,6 +4,8 @@ JAX package on the same numpy inputs. Random streams differ between the two
 frameworks, so negatives are injected wherever values are compared.
 """
 
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ from movie_recommender_system_with_gnns_tpu.models.lightgcn import LightGCNParam
 from movie_recommender_system_with_gnns_tpu.training import checkpoint as jckpt
 from movie_recommender_system_with_gnns_tpu.training import pipeline as jpipe
 from movie_recommender_system_with_gnns_tpu.training import train as jtrain
+from movie_recommender_system_with_gnns_tpu.utils import observability as jobs
 from movie_recommender_system_with_gnns_tpu_torch import cli as tcli
 from movie_recommender_system_with_gnns_tpu_torch.config import (
     Config as TConfig, DataConfig as TData, ModelConfig as TModel, TrainConfig as TTrain)
@@ -26,6 +29,7 @@ from movie_recommender_system_with_gnns_tpu_torch.training import checkpoint as 
 from movie_recommender_system_with_gnns_tpu_torch.training import pipeline as tpipe
 from movie_recommender_system_with_gnns_tpu_torch.training import train as ttrain
 from movie_recommender_system_with_gnns_tpu_torch.training.compact import CompactClusters
+from movie_recommender_system_with_gnns_tpu_torch.utils.observability import MetricsLogger
 
 from torch_parity import CLUSTER_FIELDS, both_params, to_np
 
@@ -113,13 +117,19 @@ def test_prepare_training_data_routes(tmp_path):
     one = tpipe.prepare_training_data(
         cfg.replace(train=TTrain(trainer="full", use_clusters=False)), device="cpu")
     assert len(one.train) == 1 and one.train[0].num_edges == bundle.splits[0].shape[1]
-    for bad, exc, match in (
-            (dict(negatives="feasible"), NotImplementedError, "ROADMAP queue A"),
-            (dict(trainer="fullgraph", negatives="feasible"), NotImplementedError,
-             "ROADMAP queue A"),
-            (dict(trainer="other"), ValueError, "unknown trainer")):
-        with pytest.raises(exc, match=match):
-            tpipe.prepare_training_data(cfg.replace(train=TTrain(**bad)), device="cpu")
+    with pytest.raises(ValueError, match="unknown trainer"):
+        tpipe.prepare_training_data(cfg.replace(train=TTrain(trainer="other")), device="cpu")
+    # feasible negatives: the compact and full-graph trainers carry the member
+    # table; the full-node trainer warns (as JAX's does) and draws uniform ones
+    for trainer, table in (("compact", True), ("fullgraph", True), ("full", False)):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            b = tpipe.prepare_training_data(cfg.replace(train=TTrain(
+                trainer=trainer, negatives="feasible", num_clusters=3)), device="cpu")
+        warned = [x for x in w if "negatives='feasible'" in str(x.message)]
+        assert len(warned) == (0 if table else 1)
+        if table:
+            assert b.train.member_table.dtype == torch.int64
     # the full-graph trainer and popularity negatives are routed
     fg = tpipe.prepare_training_data(cfg.replace(train=TTrain(
         trainer="fullgraph", negatives="popularity", num_clusters=3)), device="cpu")
@@ -255,11 +265,31 @@ def test_load_params_if_exists(tmp_path, capsys):
 
 
 def test_state_checkpoints_not_ported(tmp_path):
-    _, cfg = _pipeline_cfgs(tmp_path, "compact", state_checkpoint_path="st.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        ttrain.state_checkpoint_path(cfg)
-    with pytest.raises(NotImplementedError, match="full train-state checkpoints"):
-        ttrain.train_model(cfg, None, None, None, None)
+    """Full-state checkpoints are written now: every ``state_checkpoint_every``
+    epochs, the state after that epoch with meta ``{"epoch": ...}``, which
+    the JAX package's loader reads back into its own state."""
+    path = str(tmp_path / "st.npz")
+    assert ttrain.state_checkpoint_path(_pipeline_cfgs(tmp_path, "compact")[1]) is None
+    assert ttrain.state_checkpoint_path(_pipeline_cfgs(
+        tmp_path, "compact", state_checkpoint_path=path)[1]) is None   # every 0
+    cfg_j, cfg = _pipeline_cfgs(tmp_path, "compact", state_checkpoint_path=path,
+                                state_checkpoint_every=2, epochs=3)
+    assert ttrain.state_checkpoint_path(cfg) == path
+    data, cl, val, test = tpipe.prepare_training_data(cfg, device="cpu")
+    seen = []
+    st = ttrain.create_train_state(cfg, data.num_users, data.num_items, device="cpu")
+    st, _ = ttrain.train_model(cfg, st, cl, val, test, state_meta={"run": "r"},
+                               on_epoch_end=lambda e, m, s: seen.append(
+                                   (e, (tmp_path / "st.npz").exists() and
+                                    tckpt.load_state_meta(path)["epoch"],
+                                    s.params.item_emb.clone())))
+    # written after epoch 1 only (epochs 0..2, every 2)
+    assert [(e, m) for e, m, _ in seen] == [(0, False), (1, 1), (2, 1)]
+    assert tckpt.load_state_meta(path) == {"num_leaves": 8, "epoch": 1, "run": "r"}
+    jst = jckpt.load_train_state(path, jtrain.create_train_state(
+        cfg_j, data.num_users, data.num_items))
+    np.testing.assert_array_equal(np.asarray(jst.params.item_emb), to_np(seen[1][2]))
+    assert int(jst.step) == 2 * cl.num_clusters
 
 
 def _cli_args(tmp_path, *extra):
@@ -293,13 +323,37 @@ def test_cli_train_then_recommend(tmp_path, capsys, extra):
 
 @pytest.mark.parametrize("flags", [["--mesh", "2x2"], ["--max-retries", "1"]])
 def test_cli_train_unported_flags(tmp_path, capsys, flags):
-    assert tcli.main(["--device", "cpu"] + _cli_args(tmp_path, "train", *flags)) == 2
-    assert "not ported" in capsys.readouterr().err
+    """``--mesh`` (ROADMAP A7) still returns 2; ``--max-retries`` trains
+    through the elastic driver, its recovery checkpoint in the run's
+    directory."""
+    run = tmp_path / "run"
+    args = ["--device", "cpu", "--checkpoint", str(run / "m.npz"),
+            "--histories-dir", str(tmp_path / "h")] + _cli_args(tmp_path, "train", *flags)
+    if flags[0] == "--mesh":
+        assert tcli.main(args) == 2
+        assert "not ported" in capsys.readouterr().err
+        return
+    run.mkdir()
+    assert tcli.main(args) == 0
+    out = capsys.readouterr().out
+    assert f"full-state checkpoints at {run / 'recovery_state.npz'}" in out
+    assert tckpt.load_state_meta(str(run / "recovery_state.npz"))["epoch"] == 1
+    rows = MetricsLogger.read(str(tmp_path / "h" / "metrics.jsonl"))
+    assert [r["step"] for r in rows] == [0, 1]
 
 
 @pytest.mark.parametrize("flags,match", [(["--negatives", "feasible"], "feasible")])
-def test_cli_train_unported_modes_raise(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(["--device", "cpu", "--checkpoint", str(tmp_path / "m.npz"),
-                   "--histories-dir", str(tmp_path / "h")]
-                  + _cli_args(tmp_path, "train", *flags))
+def test_cli_train_unported_modes_raise(tmp_path, capsys, flags, match):
+    """``--negatives feasible`` trains now (compact trainer, member table
+    attached), and every ``train`` writes one metrics row per epoch."""
+    hist = tmp_path / "h"
+    assert tcli.main(["--device", "cpu", "--checkpoint", str(tmp_path / "m.npz"),
+                      "--histories-dir", str(hist)]
+                     + _cli_args(tmp_path, "train", *flags, "--fused-bpr")) == 0
+    assert "Test Loss" in capsys.readouterr().out
+    rows = jobs.MetricsLogger.read(str(hist / "metrics.jsonl"))
+    assert [r["step"] for r in rows] == [0, 1]
+    assert set(rows[0]) == {"step", "ts", "train_loss", "val_loss", "val_recall",
+                            "epoch_time_s"}
+    np.testing.assert_array_equal(np.load(hist / "hist_train_loss.npy"),
+                                  [r["train_loss"] for r in rows])

@@ -119,9 +119,26 @@ def rel_err(a, b):
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
 
 
-def jax_epoch_draws(key, k, b, num_items, num):
+def jax_feasible_draws(key, shape, num_items, num_rounds=4):
+    """The ``num_rounds + 1`` candidate draws (R+1, *shape) of JAX's
+    ``sample_negative_feasible(key, ...)``, as a numpy array: its first
+    ``randint`` from ``key``, then one from each round's split; the port's
+    ``feasible_from_draws`` applies the rule to them."""
+    import jax
+    import jax.numpy as jnp
+
+    draws = [jax.random.randint(key, shape, 0, num_items, dtype=jnp.int32)]
+    for _ in range(num_rounds):
+        key, sub = jax.random.split(key)
+        draws.append(jax.random.randint(sub, shape, 0, num_items, dtype=jnp.int32))
+    return np.stack([np.asarray(d) for d in draws])
+
+
+def jax_epoch_draws(key, k, b, num_items, num, feasible_rounds=None):
     """The cluster order and per-step negatives a JAX compact epoch fn draws
-    from ``key`` (numpy arrays), to hand to the port's epoch fn."""
+    from ``key`` (numpy arrays), to hand to the port's epoch fn. With
+    ``feasible_rounds`` the second array holds each step's candidate draws,
+    (k, R+1, b[, num]) (:func:`jax_feasible_draws`), instead."""
     import jax
 
     from movie_recommender_system_with_gnns_tpu.ops.sampling import sample_negative
@@ -129,17 +146,22 @@ def jax_epoch_draws(key, k, b, num_items, num):
     perm_key, neg_key = jax.random.split(key)
     perm = np.asarray(jax.random.permutation(perm_key, k))
     keys = jax.random.split(neg_key, k)
+    shape = (b,) if num <= 1 else (b, num)
+    if feasible_rounds is not None:
+        return perm, np.stack([jax_feasible_draws(keys[j], shape, num_items,
+                                                  feasible_rounds) for j in range(k)])
     neg = np.stack([np.asarray(sample_negative(keys[j], b, num_items, num=num))
                     for j in range(k)])
     return perm, neg
 
 
 def jax_fullgraph_draws(key, e_real, num_steps, batch, num_items, num,
-                        alias_table=None):
+                        alias_table=None, feasible_rounds=None):
     """The permutation and per-step negatives a JAX full-graph epoch fn draws
     from ``key`` (``training/fullgraph.py::epoch_inner``), as numpy arrays to
     hand to the port's epoch fn; ``alias_table`` (prob, alias) for
-    popularity negatives."""
+    popularity negatives; with ``feasible_rounds`` each step's candidate
+    draws (num_steps, R+1, batch[, num]) instead of its negatives."""
     import jax
     import jax.numpy as jnp
 
@@ -149,6 +171,11 @@ def jax_fullgraph_draws(key, e_real, num_steps, batch, num_items, num,
     pkey, skey = jax.random.split(key)
     perm = np.asarray(jax.random.permutation(pkey, e_real).astype(jnp.int32))
     keys = jax.random.split(skey, num_steps)
+    if feasible_rounds is not None:
+        shape = (batch,) if num <= 1 else (batch, num)
+        return perm, np.stack([jax_feasible_draws(keys[s], shape, num_items,
+                                                  feasible_rounds)
+                               for s in range(num_steps)])
     if alias_table is None:
         draw = lambda k: sample_negative(k, batch, num_items, num)
     else:

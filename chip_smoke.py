@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --mesh-only]
 
 ``--kernels-only`` stops after phase 3 (a new kernel's first, short run).
+``--mesh-only`` (two or more cards) runs after the build only the meshes of
+several cards against the 1×1 mesh (``mesh_cards_only``).
 
 Phases:
   1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
@@ -101,6 +103,15 @@ Phases:
      card, loaded on the CPU and saved again, byte-equal; ``cli train
      --max-retries 1 --negatives feasible --fused-bpr --optimizer
      hybrid_adam``, in one ``[recovery]`` JSON line;
+  5e. the multi-device slice (``mesh_phase``) on a one-rank NCCL group (a
+     1×1 mesh; with two or more cards also 2×1 and 1×2, one card a rank):
+     the sharded step at a batch of 2^20 train positives against the
+     single-device full-node step, both bit-equal over two runs (fault C5),
+     timed with their launches and collective calls; the data-parallel
+     compact epoch with the fused BPR kernel against the single-device
+     epoch; the mesh's propagated tables and full-ranking eval against the
+     single-device ones; ``cli train --mesh 1x1 --full-eval`` at the small
+     size; one ``[mesh]`` JSON line;
   6. trained -> served: the checkpoint of phase 5 behind the ``ServingIndex``
      for one 32,768-user dispatch; then the CLI at a small synthetic size:
      ``train --fused-bpr --full-eval --epochs 1``, the three ``recommend``
@@ -121,6 +132,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -1975,6 +1987,503 @@ def recovery_phase(data, train_e, cfg, cc, val, test, hist_hybrid: dict,
     log(f"[recovery] {json.dumps(numbers)}")
 
 
+#: the mesh phase: the sharded step's batch (uniform samples of the train
+#: positives) and the steps it is timed over
+MESH = dict(batch=2 ** 20, timed_steps=3)
+
+
+def _grad_probe(out: list):
+    """An optimizer that keeps the step's clipped gradient (this rank's
+    rows) in ``out`` and leaves the tables as they are: the gradient itself,
+    which Adam's first update (``±lr`` wherever ``|g| ≫ eps``) would hide and
+    ``p0 - p1`` would round to the tables' ulp."""
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import Optimizer
+
+    def update(params, grads, opt_state):
+        out[:] = [g.clone() for g in grads]
+        return params, opt_state
+
+    return Optimizer(lambda params: None, update)
+
+
+def _mesh_step(mesh, z, device) -> tuple:
+    """One sharded step of ``mesh_phase`` from the tables, batch and
+    negatives in ``z``: (loss, the whole clipped gradient, users then
+    items)."""
+    from movie_recommender_system_with_gnns_tpu_torch.config import Config, ModelConfig
+    from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import (
+        LightGCNParams, params_from_numpy)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import TripletBatch
+    from movie_recommender_system_with_gnns_tpu_torch.parallel import sharding as sh
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import TrainState
+
+    cfg = Config(model=ModelConfig(num_layers=TRAIN["layers"], dim=FULL["dim"]))
+    u, i = z["u"], z["i"]
+    plan = sh.ShardPlan.create(u.shape[0], i.shape[0], mesh.mp)
+    m = mesh.coords[1]
+    coos = sh.shard_coos(sh.shard_graph(z["train_e"], plan), plan, m, device)
+    local = sh.shard_params(sh.pad_params(params_from_numpy(u, i, device), plan), plan, m)
+    grads = []
+    step = sh.make_sharded_train_step(cfg, mesh, plan, opt=_grad_probe(grads))
+    batch = TripletBatch(*(torch.from_numpy(z[k]).to(device) for k in ("user", "pos", "mask")))
+    _, loss = step(TrainState(local, None, 0), coos, batch, torch.from_numpy(z["neg"]).to(device))
+    g = sh.unpad_params(sh.gather_params(LightGCNParams(*grads), mesh), plan)
+    return float(loss), torch.cat(list(g)).cpu().numpy()
+
+
+def _mesh_rank(rank: int, world: int, dp: int, mp: int, port: int, path: str,
+               device_type: str = "cuda") -> None:
+    """One rank of a multi-card mesh (spawned when the machine has several
+    cards; ``device_type="cpu"`` runs it over gloo): :func:`_mesh_step`;
+    rank 0 writes the loss and the gradient."""
+    from movie_recommender_system_with_gnns_tpu_torch.parallel import mesh as pmesh
+
+    device = f"cuda:{rank}" if device_type == "cuda" else "cpu"
+    pmesh.distributed_init(device, init_method=f"tcp://localhost:{port}",
+                           world_size=world, rank=rank, timeout_s=300)
+    try:
+        with np.load(path) as z:
+            loss, grad = _mesh_step(pmesh.make_mesh(dp, mp, device=device), z, device)
+        if rank == 0:
+            np.savez(path.replace(".npz", f"_{dp}x{mp}.npz"), loss=loss, grad=grad)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_batch(train_e: np.ndarray, num_users: int, num_items: int):
+    """The mesh phase's step inputs: ``MESH["batch"]`` uniform samples of the
+    train positives and one negative each, on the card, from the seed."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import (
+        TripletBatch, sample_negative, triplets_from_edges)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    trip = triplets_from_edges(train_e, num_users, device="cuda")
+    b = min(MESH["batch"], trip.user.shape[0])
+    idx = torch.randint(0, trip.user.shape[0], (b,), generator=gen, device="cuda")
+    batch = TripletBatch(trip.user[idx], trip.pos_item[idx],
+                         torch.ones(b, dtype=torch.bool, device="cuda"))
+    return batch, sample_negative(gen, b, num_items)
+
+
+def save_mesh_inputs(p0, train_e, batch, neg) -> str:
+    """The tables, graph, batch and negatives the spawned ranks read."""
+    path = str(WORK / "mesh_inputs.npz")
+    np.savez(path, u=p0.user_emb.cpu().numpy(), i=p0.item_emb.cpu().numpy(),
+             train_e=train_e, user=batch.user.cpu().numpy(),
+             pos=batch.pos_item.cpu().numpy(), mask=batch.mask.cpu().numpy(),
+             neg=neg.cpu().numpy())
+    return path
+
+
+def mesh_cards_only(t_start: float, smi: str) -> int:
+    """``--mesh-only``: what exists only across cards and what it is held
+    against, and nothing else. The full graph and the mesh phase's step
+    inputs, then :func:`mesh_cards` over every mesh the cards allow (2×1,
+    1×2; with four, also 2×2, 4×1, 1×4) against the 1×1 mesh."""
+    from movie_recommender_system_with_gnns_tpu_torch.data.movielens import (
+        make_synthetic_movielens, split_edges)
+    from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import init_params
+    from movie_recommender_system_with_gnns_tpu_torch.parallel import mesh as pmesh
+
+    n = torch.cuda.device_count()
+    check(n >= 2, f"--mesh-only needs two or more cards, found {n}")
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    try:
+        data = make_synthetic_movielens(
+            FULL["users"], FULL["items"], FULL["interactions"], seed=SEED,
+            power=FULL["power"], num_communities=FULL["communities"])
+        train_e, _, _ = split_edges(data, str(WORK / "indexes"), seed=SEED)
+        batch, neg = mesh_batch(train_e, data.num_users, data.num_items)
+        p0 = init_params(data.num_users, data.num_items, FULL["dim"],
+                         generator=torch.Generator().manual_seed(SEED + 6), device="cuda")
+        path = save_mesh_inputs(p0, train_e, batch, neg)
+        pmesh.distributed_init("cuda")
+        shapes = [(2, 1), (1, 2)] + ([(2, 2), (4, 1), (1, 4)] if n >= 4 else [])
+        done = mesh_cards(pmesh.make_mesh(1, 1, device="cuda"), path, shapes)
+        torch.distributed.destroy_process_group()
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    log(f"[mesh] --mesh-only, {smi}: shapes {['1x1'] + done} in {time.time() - t_start:.1f} s")
+    return 0
+
+
+def mesh_cards(mesh, path: str, shapes, device_type: str = "cuda") -> list:
+    """Each of ``shapes`` (dp, mp) spawned over dp·mp ranks, one card each,
+    against the 1×1 mesh's step in this process: loss within rtol 2e-5, the
+    clipped gradient within 1e-5 of its largest entry. Returns the shapes
+    run."""
+    import torch.multiprocessing as mp
+
+    with np.load(path) as z:
+        ref_loss, ref = _mesh_step(mesh, z, mesh.device)
+    top = float(np.abs(ref).max())
+    done = []
+    for dp_, mp_ in shapes:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        mp.start_processes(_mesh_rank, args=(dp_ * mp_, dp_, mp_, port, path, device_type),
+                           nprocs=dp_ * mp_, start_method="spawn", join=True)
+        with np.load(path.replace(".npz", f"_{dp_}x{mp_}.npz")) as z:
+            loss, err = float(z["loss"]), float(np.abs(z["grad"] - ref).max())
+        check(abs(loss - ref_loss) <= 2e-5 * abs(ref_loss) and err <= 1e-5 * top,
+              f"mesh {dp_}x{mp_}: loss {loss!r} vs 1x1 {ref_loss!r}, clipped gradient "
+              f"{err:.3e} from 1x1's (largest entry {top:.3e})")
+        log(f"[mesh] {dp_}x{mp_} on {dp_ * mp_} cards: loss {loss:.8f} (1x1 {ref_loss:.8f}), "
+            f"clipped gradient within {err:.3e} of 1x1's (largest entry {top:.3e})")
+        done.append(f"{dp_}x{mp_}")
+    return done
+
+
+def mesh_phase(data, train_e, val_e, test_e, cfg, cc, val, test, smi: str) -> dict:
+    """Phase 5e: the multi-device slice at full width on a one-rank NCCL group
+    (mesh 1×1; a one-card machine gives one rank, and NCCL refuses two ranks
+    on one card); with two or more cards also 2×1 and 1×2 meshes, one card a
+    rank, each step's clipped gradient against the 1×1 mesh's
+    (:func:`mesh_cards`).
+    (a) one sharded step (batch ``MESH["batch"]`` of the train positives,
+    L = 3, d = 64) against the single-device full-node step through
+    ``spmm_rows`` and through ``spmm_segment`` (the plain ``index_add``)
+    from the same tables and negatives: loss rtol 2e-5, tables rtol 2e-4 /
+    atol 1e-6, and Adam's first moments, ``(1 - b1)`` times the clipped
+    gradient, of the sharded and the ``spmm_rows`` step within 1e-5 of the
+    plain step's largest entry; ``sorted_index_add`` at the train graph's
+    row runs (the propagation's sums and its gather's backward) bit-equal
+    to its plain version on the host; the sharded step bit-equal over two
+    runs, timed over ``MESH["timed_steps"]`` steps with its launches, NCCL
+    calls and peak memory, beside the full-node step through either sum;
+    (b) fault C5: two full-node steps bit-equal; (c)
+    ``make_compact_sharded_epoch_fn`` with the fused BPR kernel over the
+    compact clusters, one epoch against the single-device compact epoch
+    from the same order and negatives (``torch.equal``, accepting 1e-6),
+    B1 counted; (d) on phase 5's trained checkpoint, the mesh's propagated
+    tables against the single-device ones (ELL kernel; 1e-5 of the largest
+    entry), and its full-ranking eval,
+    layer-0 and propagated, against the single-device eval of the same
+    tables (for the propagated one, the mesh's own) within 1e-6; (e) ``cli
+    train --mesh 1x1 --full-eval`` at the small size, its recall equal to
+    the unsharded eval of its checkpoint. One ``[mesh]`` JSON line."""
+    import torch.distributed as dist
+
+    from movie_recommender_system_with_gnns_tpu_torch import cli
+    from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph
+    from movie_recommender_system_with_gnns_tpu_torch.data.movielens import (
+        make_synthetic_movielens, split_edges)
+    from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import (
+        LightGCNParams, init_params)
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_scatter
+    from movie_recommender_system_with_gnns_tpu_torch.ops._build import LAUNCHES as launches
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import DeviceCOO, spmm_segment
+    from movie_recommender_system_with_gnns_tpu_torch.parallel import mesh as pmesh
+    from movie_recommender_system_with_gnns_tpu_torch.parallel import sharding as sh
+    from movie_recommender_system_with_gnns_tpu_torch.serving.recommend import (
+        compute_serving_tables)
+    from movie_recommender_system_with_gnns_tpu_torch.training import compact
+    from movie_recommender_system_with_gnns_tpu_torch.training.checkpoint import load_params
+    from movie_recommender_system_with_gnns_tpu_torch.training.compact_sharded import (
+        make_compact_sharded_epoch_fn)
+    from movie_recommender_system_with_gnns_tpu_torch.training.evaluate import (
+        evaluate_full_ranking)
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import (
+        TrainState, make_adam, make_optimizer, make_train_step)
+    from movie_recommender_system_with_gnns_tpu_torch.utils.observability import MetricsLogger
+
+    t_phase = time.time()
+    nu, ni = data.num_users, data.num_items
+    L, d = TRAIN["layers"], FULL["dim"]
+    numbers = dict(card=smi)
+    # the earlier phases' cached blocks would leave NCCL no device memory for
+    # its communicators' buffers
+    torch.cuda.empty_cache()
+    pmesh.distributed_init("cuda")
+    mesh = pmesh.make_mesh(1, 1, device="cuda")
+    shapes = ["1x1"]
+    log(f"[mesh] one-rank NCCL group: backend {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, {torch.cuda.device_count()} card(s)")
+
+    # (a) the sharded step against the single-device full-node step
+    t0 = time.time()
+    plan = sh.ShardPlan.create(nu, ni, 1)
+    coos = sh.shard_coos(sh.shard_graph(train_e, plan), plan, 0, "cuda")
+    t_shard = time.time() - t0
+    t0 = time.time()
+    g = COOGraph.build(train_e, nu + ni)
+    coo = DeviceCOO.from_host(g, "cuda", row_runs=True)
+    torch.cuda.synchronize()
+    t_coo = time.time() - t0
+    check(torch.equal(coos[0].src[:g.num_edges].long(), coo.src[:g.num_edges].long())
+          and torch.equal(coos[0].dst[:g.num_edges].long(), coo.dst[:g.num_edges].long()),
+          "the 1x1 shard does not hold the full-node graph's edges in its order")
+    batch, neg = mesh_batch(train_e, nu, ni)
+    b = batch.user.shape[0]
+    cfg_m = cfg.replace(train=dataclasses.replace(cfg.train, fused_bpr=False))
+    adam = make_adam(cfg_m, lr_of=lambda t: cfg_m.train.lr)
+    p0 = init_params(nu, ni, d, generator=torch.Generator().manual_seed(SEED + 6),
+                     device="cuda")
+    copy = lambda p: LightGCNParams(p.user_emb.clone(), p.item_emb.clone())
+    step = sh.make_sharded_train_step(cfg_m, mesh, plan, opt=adam)
+
+    def sharded():
+        local = sh.shard_params(sh.pad_params(copy(p0), plan), plan, 0)
+        return step(TrainState(local, adam.init(local), 0), coos, batch, neg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    calls0 = dict(pmesh.COLLECTIVES)
+    t0 = time.perf_counter()
+    st_a, loss_a = sharded()
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    step_launches = dict(launches)
+    step_calls = {k: v - calls0.get(k, 0) for k, v in pmesh.COLLECTIVES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    st_b, loss_b = sharded()
+    same = [torch.equal(x, y) for x, y in zip(
+        st_a.params + st_a.opt_state.mu + st_a.opt_state.nu + (loss_a,),
+        st_b.params + st_b.opt_state.mu + st_b.opt_state.nu + (loss_b,))]
+    check(all(same), f"the sharded step is not bit-equal over two runs: {same}")
+    check(step_launches.get("sorted_index_add", 0) == 2 * L + 4,
+          f"the sharded step launched sorted_index_add {step_launches} times, "
+          f"expected {2 * L + 4} (a sum and a gather's backward per hop, four "
+          "triplet gathers' backward)")
+    del st_b
+    fn_step = make_train_step(cfg_m)
+    opt = make_optimizer(cfg_m)
+
+    def single():
+        p = copy(p0)
+        return fn_step(TrainState(p, opt.init(p), 0), coo, batch, None, neg=neg)
+
+    launches.clear()
+    st_s, loss_s = single()
+    single_launches = dict(launches)
+    st_s2, loss_s2 = single()
+    same_s = [torch.equal(x, y) for x, y in zip(
+        st_s.params + st_s.opt_state.mu + st_s.opt_state.nu + (loss_s,),
+        st_s2.params + st_s2.opt_state.mu + st_s2.opt_state.nu + (loss_s2,))]
+    check(all(same_s), f"(b) C5: two full-node steps differ: {same_s}")
+    del st_s2
+    full_a = sh.unpad_params(sh.gather_params(st_a.params, mesh), plan)
+    la, ls = loss_a.item(), loss_s.item()
+    errs = [((x - y).abs() - (2e-4 * y.abs() + 1e-6)).max().item()
+            for x, y in zip(full_a, st_s.params)]
+    check(abs(la - ls) <= 2e-5 * abs(ls) and max(errs) <= 0,
+          f"(a) sharded step vs full-node step: loss {la!r} vs {ls!r}, tables beyond "
+          f"rtol 2e-4 / atol 1e-6 by {errs}")
+    diff = max((x - y).abs().max().item() for x, y in zip(full_a, st_s.params))
+    # the clipped gradients, as Adam's first moments (1 - b1)·g after one
+    # update from zero, against the full-node step through the plain index_add
+    fn_plain = make_train_step(cfg_m, spmm=spmm_segment)
+
+    def plain():
+        p = copy(p0)
+        return fn_plain(TrainState(p, opt.init(p), 0), coo, batch, None, neg=neg)
+
+    st_p, loss_p = plain()
+    mu_ref = torch.cat(list(st_p.opt_state.mu))
+    mu_top = mu_ref.abs().max().item()
+    mu_a = sh.unpad_params(sh.gather_params(st_a.opt_state.mu, mesh), plan)
+    mu_err = {name: (torch.cat(list(m)) - mu_ref).abs().max().item()
+              for name, m in (("sharded", mu_a), ("full_node", st_s.opt_state.mu))}
+    lp = loss_p.item()
+    check(max(mu_err.values()) <= 1e-5 * mu_top and abs(la - lp) <= 2e-5 * abs(lp),
+          f"(a) first moments (1 - b1)·clipped gradient vs the full-node step through "
+          f"spmm_segment: {mu_err} (largest entry {mu_top:.3e}); loss {la!r} vs {lp!r}")
+    del full_a, st_s, st_p, mu_a, mu_ref
+    # sorted_index_add at the train graph's row runs: the propagation's sums
+    # over dst and its gather's backward over src, against the plain version
+    cot = torch.randn(coo.src.shape[0], d, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(SEED + 9))
+    runs_checked = {}
+    for label, order, starts, rows_ in (
+            ("row sums", coo.order, coo.starts, coo.num_nodes),
+            ("gather backward", coo.src_order, coo.src_starts, coo.num_src)):
+        out_k = cuda_scatter.sorted_index_add(cot, order, starts, rows_)
+        again = cuda_scatter.sorted_index_add(cot, order, starts, rows_)
+        torch.cuda.synchronize()
+        host = cuda_scatter.sorted_index_add_plain(cot.cpu(), order.cpu(), starts.cpu(),
+                                                   rows_)
+        run = int((starts[1:] - starts[:-1]).max())
+        what = (f"(a) sorted_index_add, {label} of the train graph ({cot.shape[0]} "
+                f"entries over {rows_} rows, longest run {run}, d={d}, f32)")
+        check(torch.equal(out_k, again), f"{what}: two calls differ")
+        check(torch.equal(out_k.cpu(), host), f"{what}: differs from the plain version's "
+              "sequential sum on the host")
+        runs_checked[label] = dict(entries=int(cot.shape[0]), rows=rows_, longest_run=run)
+    del cot, out_k, again, host
+    log(f"[mesh] (a) sharded step 1x1 (batch {b}, L={L}, d={d}) vs the full-node step "
+        f"(spmm_rows): loss {la:.8f} vs {ls:.8f}, max table diff {diff:.3e}; first "
+        f"moments (1 - b1)·clipped gradient vs the full-node step through spmm_segment "
+        f"(loss {lp:.8f}): sharded {mu_err['sharded']:.3e}, full-node "
+        f"{mu_err['full_node']:.3e} (largest entry {mu_top:.3e}); sorted_index_add at "
+        f"the train graph's runs {runs_checked} bit-equal to the plain version on the "
+        f"host and over two calls; the sharded step bit-equal over two runs; "
+        f"sorted_index_add {step_launches.get('sorted_index_add', 0)} launches a step "
+        f"({single_launches.get('sorted_index_add', 0)} in the full-node step); "
+        f"collectives a step {step_calls}; first step {first_ms:.1f} ms; (b) two "
+        f"full-node steps bit-equal (C5)")
+    local = sh.shard_params(sh.pad_params(copy(p0), plan), plan, 0)
+    st = TrainState(local, adam.init(local), 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH["timed_steps"]):
+        st, _ = step(st, coos, batch, neg)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / MESH["timed_steps"]
+    p = copy(p0)
+    st1 = TrainState(p, opt.init(p), 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH["timed_steps"]):
+        st1, _ = fn_step(st1, coo, batch, None, neg=neg)
+    torch.cuda.synchronize()
+    single_ms = 1e3 * (time.perf_counter() - t0) / MESH["timed_steps"]
+    p = copy(p0)
+    st2 = TrainState(p, opt.init(p), 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH["timed_steps"]):
+        st2, _ = fn_plain(st2, coo, batch, None, neg=neg)
+    torch.cuda.synchronize()
+    segment_ms = 1e3 * (time.perf_counter() - t0) / MESH["timed_steps"]
+    del st2
+    prof = profile_window("sharded step (1x1)", 2, 8,
+                          lambda: step(st, coos, batch, neg))
+    numbers.update(step=dict(batch=b, loss=la, single_loss=ls, max_table_diff=diff,
+                             plain_loss=lp, mu_err=mu_err, mu_largest=mu_top,
+                             row_runs_checked=runs_checked, ms=step_ms,
+                             single_device_ms=single_ms,
+                             single_device_spmm_segment_ms=segment_ms, first_ms=first_ms,
+                             launches=step_launches, collectives=step_calls,
+                             peak_gb=peak / 1e9, busy_ms=prof["busy_ms"],
+                             idle_share=prof["idle_share"], shard_s=t_shard,
+                             full_node_graph_s=t_coo))
+    log(f"[mesh] (a) sharded step {step_ms:.2f} ms, full-node step {single_ms:.2f} ms "
+        f"through spmm_rows, {segment_ms:.2f} ms through spmm_segment (mean of "
+        f"{MESH['timed_steps']}), peak device memory {peak / 1e9:.2f} GB")
+    del st, st1, st_a, coo
+
+    # with several cards: 2x1 and 1x2 meshes, one card a rank, against 1x1
+    if torch.cuda.device_count() >= 2:
+        shapes += mesh_cards(mesh, save_mesh_inputs(p0, train_e, batch, neg),
+                             ((2, 1), (1, 2)))
+    log(f"[mesh] mesh shapes run: {shapes}")
+    numbers["shapes"] = shapes
+    del batch, neg, coos
+
+    # (c) the data-parallel compact epoch with B1 against the single-device one
+    cfg_c = cfg.replace(train=dataclasses.replace(cfg.train, fused_bpr=True))
+    k = cc.num_clusters
+    gen_c = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    perm = torch.randperm(k, generator=gen_c, device="cuda").tolist()
+    negs = torch.stack([compact._step_negatives(cfg_c, gen_c, cc, c, ni) for c in perm])
+    opt_c = make_optimizer(cfg_c)
+    p0c = init_params(nu, ni, d, generator=torch.Generator().manual_seed(SEED + 8),
+                      device="cuda")
+    fresh = lambda: TrainState(copy(p0c), opt_c.init(copy(p0c)), 0)
+    epoch_sh = make_compact_sharded_epoch_fn(cfg_c, mesh)(cc)
+    launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, la_c = epoch_sh(fresh(), cc, None, perm=perm, neg=negs)
+    torch.cuda.synchronize()
+    sh_epoch_s = time.perf_counter() - t0
+    compact_launches = dict(launches)
+    t0 = time.perf_counter()
+    b_, lb_c = compact.make_compact_epoch_fn(cfg_c)(fresh(), cc, None, perm=perm, neg=negs)
+    torch.cuda.synchronize()
+    single_epoch_s = time.perf_counter() - t0
+    pairs = list(zip(a.params + a.opt_state.mu + a.opt_state.nu,
+                     b_.params + b_.opt_state.mu + b_.opt_state.nu))
+    equal = all(torch.equal(x, y) for x, y in pairs) and la_c == lb_c
+    worst = max((x - y).abs().max().item() for x, y in pairs)
+    check(worst <= 1e-6 and abs(la_c - lb_c) <= 1e-6,
+          f"(c) compact superstep 1x1 vs the single-device step: max diff {worst:.3e}, "
+          f"loss {la_c!r} vs {lb_c!r}")
+    check(compact_launches.get("bpr_tile", 0) == k,
+          f"(c) bpr_tile launched {compact_launches.get('bpr_tile', 0)} times for {k} "
+          "supersteps")
+    numbers.update(compact=dict(supersteps=k, bit_equal=equal, max_diff=worst,
+                                launches=compact_launches, epoch_s=sh_epoch_s,
+                                single_device_epoch_s=single_epoch_s, loss=la_c))
+    log(f"[mesh] (c) compact epoch 1x1 with B1 ({k} supersteps, one cluster each) vs "
+        f"the single-device epoch: bit-equal {equal} (max diff {worst:.3e}); launches "
+        f"{compact_launches}; {sh_epoch_s:.3f} s vs {single_epoch_s:.3f} s")
+    del a, b_, negs, p0c
+
+    # (d) mesh propagation and eval against the single-device ones, on the
+    # trained checkpoint of phase 5 (untrained tables hit almost nothing)
+    trained, _ = load_params(cfg.train.checkpoint_path, "cuda")
+    t_mesh = compute_serving_tables(trained, train_e, cfg_c, mode="propagated", mesh=mesh)
+    t_one = compute_serving_tables(trained, train_e, cfg_c, mode="propagated")
+    tab_err = max(rel_max(x, y) for x, y in zip(t_mesh, t_one))
+    check(tab_err <= 1e-5, f"(d) mesh propagated tables vs single-device: {tab_err:.3e} "
+          "of the largest entry")
+    evals = {}
+    kw = dict(k=TOP_K, max_users=EVAL["max_users"], cfg=cfg_c)
+    for prop in (False, True):
+        r_m = evaluate_full_ranking(trained, train_e, test_e, nu, mesh=mesh,
+                                    use_propagated=prop, **kw)
+        sharded_flag = evaluate_full_ranking.last_timings["sharded"]
+        # the single-device eval of the same tables: the mesh's own propagation
+        r_1 = evaluate_full_ranking(t_mesh if prop else trained, train_e, test_e, nu, **kw)
+        check(sharded_flag and max(abs(x - y) for x, y in zip(r_m, r_1)) <= 1e-6,
+              f"(d) mesh eval (propagated={prop}) {r_m} vs single-device {r_1}")
+        evals["propagated" if prop else "layer0"] = dict(mesh=r_m, single=r_1)
+    # recorded beside them: the single-device eval through its own (ELL) tables
+    evals["propagated"]["single_ell"] = evaluate_full_ranking(
+        trained, train_e, test_e, nu, use_propagated=True, **kw)
+    numbers.update(tables_rel_err=tab_err, eval=evals)
+    log(f"[mesh] (d) propagated tables 1x1 vs single-device (ELL kernel): {tab_err:.3e} "
+        f"of the largest entry; full-ranking eval (recall, ndcg) of the trained "
+        f"checkpoint, mesh vs single-device on the same tables: {evals}")
+    del t_mesh, t_one, trained
+
+    # (e) cli train --mesh 1x1 --full-eval at the small size
+    hist_dir = WORK / "mesh_hist"
+    ckpt = WORK / "mesh_model.npz"
+    shutil.rmtree(hist_dir, ignore_errors=True)
+    ckpt.unlink(missing_ok=True)
+    args = ["--device", "cuda", "--dataset", "synthetic",
+            "--synthetic-users", str(SMALL["users"]), "--synthetic-items", str(SMALL["items"]),
+            "--synthetic-interactions", str(SMALL["interactions"]),
+            "--synthetic-communities", str(SMALL["communities"]),
+            "--synthetic-power", str(SMALL["power"]),
+            "--indexes-dir", str(WORK / "mesh_indexes"), "--checkpoint", str(ckpt),
+            "--histories-dir", str(hist_dir), "--epochs", "1",
+            "train", "--mesh", "1x1", "--full-eval", "--full-eval-users", "2000"]
+    launches.clear()
+    t0 = time.time()
+    rc = cli.main(args)
+    t_cli = time.time() - t0
+    check(rc == 0, f"(e) cli train --mesh 1x1 exited {rc}")
+    rows = MetricsLogger.read(str(hist_dir / "metrics.jsonl"))
+    check([r["step"] for r in rows] == [0, 1] and rows[1].get("sharded") is True,
+          f"(e) cli train --mesh 1x1 metrics rows: {rows}")
+    small = make_synthetic_movielens(      # the graph the CLI generated
+        SMALL["users"], SMALL["items"], SMALL["interactions"], seed=SEED,
+        power=SMALL["power"], num_communities=SMALL["communities"])
+    tr_s, _, te_s = split_edges(small, str(WORK / "mesh_indexes"), seed=SEED)
+    params_s, meta = load_params(str(ckpt), "cuda")
+    r_ref = evaluate_full_ranking(params_s, tr_s, te_s, small.num_users, k=TOP_K,
+                                  max_users=2000)
+    check(abs(rows[1]["test_full_recall"] - r_ref[0]) <= 1e-6
+          and abs(rows[1]["test_full_ndcg"] - r_ref[1]) <= 1e-6,
+          f"(e) cli --mesh 1x1 recall {rows[1]['test_full_recall']} vs the unsharded "
+          f"eval of its checkpoint {r_ref}")
+    numbers.update(cli=dict(s=t_cli, recall=rows[1]["test_full_recall"],
+                            unsharded_recall=r_ref[0], launches=dict(launches)))
+    log(f"[mesh] (e) cli train --mesh 1x1 --full-eval: rc 0 in {t_cli:.1f} s, recall "
+        f"{rows[1]['test_full_recall']:.6f} = the unsharded eval of its checkpoint "
+        f"{r_ref[0]:.6f}; launches {dict(launches)}")
+    dist.destroy_process_group()
+    numbers["phase_s"] = time.time() - t_phase
+    log(f"[mesh] {json.dumps(numbers)}")
+    return numbers
+
+
 def lazy_phase(cfg, cc, cc_seg, main_path: str, c_id: int, neg, data, val, test,
                hist_adam: dict, copy, steps: int, scatters: int):
     """Phase 5a: the lazy-row optimizers at full width. ``hybrid_adam`` (the
@@ -2181,6 +2690,9 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
             elif "Compiling entry function" in line:
                 log(f"[build]   {line.strip()[:120]}")
+
+    if "--mesh-only" in sys.argv[1:]:
+        return mesh_cards_only(t_start, smi)
 
     # 3. kernels against their plain versions
     kernel_err = kernel_phase()
@@ -2659,6 +3171,9 @@ def main() -> int:
 
         # 5d. full-state checkpoints, recovery and feasible negatives
         recovery_phase(data, train_e, cfg, cc, val, test, hist_h, timings, fgp, smi)
+
+        # 5e. the multi-device slice on a one-rank NCCL group
+        mesh_phase(data, train_e, val_e, test_e, cfg, cc, val, test, smi)
         del cc, val, test, fgp
 
         # 6. trained -> served, then the CLI at a small synthetic size

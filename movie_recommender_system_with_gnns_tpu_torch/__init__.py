@@ -10,7 +10,9 @@ Ported so far: the batched serving path, whose fused score-and-chunk-max pass
 of exact top-k retrieval is a hand-written CUDA kernel
 (``csrc/score_chunkmax.cu``, bound in ``ops/cuda_mips.py``), and training with
 the full-node and compact cluster trainers, whose fused BPR loss and gradients
-are a second one (``csrc/bpr_tile.cu``, bound in ``ops/cuda_bpr.py``).
+are a second one (``csrc/bpr_tile.cu``, bound in ``ops/cuda_bpr.py``), the
+full-graph trainer, and multi-device training over ``torch.distributed``
+(``parallel/``, ``training/distributed.py``, ``training/compact_sharded.py``).
 """
 
 from .config import Config

@@ -23,8 +23,18 @@ the last full-state checkpoint, bit-equal to an uninterrupted run);
 ``--full-eval`` adds the full-ranking Recall@k / NDCG@k on the test split
 after training. Every ``train`` appends one row per epoch to
 ``<histories-dir>/metrics.jsonl``. ``recommend --propagated`` scores with
-the K-layer propagated tables. ``--mesh``, the history plot and ``eda`` are
-not ported yet.
+the K-layer propagated tables. The history plot and ``eda`` are not ported
+yet.
+
+``train --mesh DPxMP`` trains the row-sharded full-graph trainer
+(``training/distributed.py``) over DP·MP ranks, one card each, and
+``--full-eval`` then evaluates with the catalog sharded over them:
+
+    torchrun --nproc-per-node=4 -m movie_recommender_system_with_gnns_tpu_torch.cli \
+        train --mesh 2x2 --full-eval
+
+``--mesh 1x1`` runs in one process without a launcher; any other mesh
+without one raises. Only rank 0 prints and writes files.
 """
 
 from __future__ import annotations
@@ -70,27 +80,70 @@ def metrics_path(cfg: Config) -> str:
     return os.path.join(cfg.train.histories_dir, "metrics.jsonl")
 
 
-def train_from_args(args):
+def mesh_from_args(args):
+    """The mesh of ``train --mesh DPxMP`` (None without the option): the
+    launcher's ranks (``torchrun`` sets ``RANK`` and ``WORLD_SIZE``), or one
+    rank in this process for ``1x1``. A mesh of more ranks without a
+    launcher raises with the command line that runs it; one that does not
+    fit the launcher's world size raises in ``make_mesh``."""
+    if not getattr(args, "mesh", None):
+        return None
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh
+
+    dp, mp = (int(x) for x in args.mesh.lower().split("x"))
+    launched = dist.is_initialized() or ("RANK" in os.environ and "WORLD_SIZE" in os.environ)
+    if dp * mp > 1 and not launched:
+        raise ValueError(
+            f"--mesh {args.mesh} needs {dp * mp} ranks, one card each; start them with "
+            f"torchrun --nproc-per-node={dp * mp} -m "
+            f"movie_recommender_system_with_gnns_tpu_torch.cli train --mesh {args.mesh} "
+            "[options]")
+    return make_mesh(dp, mp, device=args.device)
+
+
+def train_from_args(args, mesh=None):
     """Reference train_test.py __main__ (:259-293): build data, resume if a
     checkpoint exists, train (through the elastic driver with
-    ``--max-retries``), log each epoch to :func:`metrics_path`, persist
-    histories. Returns ``(cfg, bundle, state)``: the config with its cosine
-    horizon, the pipeline's bundle and the trained state."""
+    ``--max-retries``; the sharded trainer on ``mesh``), log each epoch to
+    :func:`metrics_path`, persist histories. Returns ``(cfg, bundle,
+    state)``: the config with its cosine horizon, the pipeline's bundle (no
+    clusters on a mesh) and the trained state."""
     from .training.checkpoint import load_params_if_exists, save_params
-    from .training.pipeline import prepare_training_data
+    from .training.pipeline import TrainingBundle, load_and_split, prepare_training_data
     from .training.recovery import train_with_recovery
-    from .training.train import create_train_state, save_histories, train_model
+    from .training.train import (build_eval_batch, create_train_state, save_histories,
+                                 train_model)
     from .utils.device import resolve_device
     from .utils.observability import MetricsLogger
 
-    device = resolve_device(args.device)
+    main = mesh is None or mesh.is_main
+    say = print if main else (lambda *a, **k: None)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     cfg = _build_cfg(args)
-    print(f"device: {device}")
-    bundle = prepare_training_data(cfg, device=device)
+    say(f"device: {device}")
+    if mesh is None:
+        bundle = prepare_training_data(cfg, device=device)
+    else:
+        import torch.distributed as dist
+
+        from .config import MeshConfig
+
+        cfg = cfg.replace(mesh=MeshConfig(data_parallel=mesh.dp, model_parallel=mesh.mp))
+        if not main:       # rank 0 writes the split's index files first
+            dist.barrier()
+        data, splits = load_and_split(cfg)
+        if main:
+            dist.barrier()
+        n = data.num_users + data.num_items
+        bundle = TrainingBundle(
+            data, None, build_eval_batch(splits[1], n, data.num_users, device),
+            build_eval_batch(splits[2], n, data.num_users, device), splits)
     data, clusters, val, test = bundle
-    print(f"Number of users: {data.num_users}")
-    print(f"Number of items: {data.num_items}")
-    print(f"Number of relevant interactions: {data.edge_index.shape[1]}")
+    say(f"Number of users: {data.num_users}")
+    say(f"Number of items: {data.num_items}")
+    say(f"Number of relevant interactions: {data.edge_index.shape[1]}")
 
     if cfg.train.lr_schedule == "cosine" and cfg.train.lr_total_steps <= 0:
         from .training.fullgraph import FullGraphTrainData
@@ -110,48 +163,54 @@ def train_from_args(args):
                     meta={"val_recall": recall, "config": cfg.to_json()})
 
     logger = MetricsLogger(metrics_path(cfg))
-    if args.max_retries > 0:
+    if mesh is not None:
+        from .training.distributed import train_model_sharded
+
+        params, hist = train_model_sharded(
+            cfg, data.num_users, data.num_items, bundle.splits[0], val, test, mesh=mesh,
+            save_checkpoint=lambda p, r: save_cb(state._replace(params=p), r),
+            metrics_logger=logger, params=state.params)
+        state = state._replace(params=params)
+    elif args.max_retries > 0:
         state, hist = train_with_recovery(
             cfg, state, clusters, val, test, max_retries=args.max_retries,
             save_checkpoint=save_cb, metrics_logger=logger)
     else:
         state, hist = train_model(cfg, state, clusters, val, test,
                                   save_checkpoint=save_cb, metrics_logger=logger)
-    save_histories(hist, cfg.train.histories_dir)
+    if main:
+        save_histories(hist, cfg.train.histories_dir)
     return cfg, bundle, state
-
-
-def unported_train_flag(args) -> bool:
-    """Print the ``train`` option given that is not ported yet (``--mesh``,
-    ROADMAP A7) and return True; False when there is none."""
-    if args.mesh:
-        print("train --mesh is not ported to the PyTorch package yet; run it "
-              "with movie_recommender_system_with_gnns_tpu.cli", file=sys.stderr)
-        return True
-    return False
 
 
 def cmd_train(args) -> int:
     """Train (:func:`train_from_args`), then the optional full-ranking eval
-    of the layer-0 tables on the test split."""
-    if unported_train_flag(args):
-        return 2
-    cfg, bundle, state = train_from_args(args)
+    of the layer-0 tables on the test split (catalog sharded over the mesh
+    with ``--mesh``). A process group this command starts, it ends."""
+    import torch.distributed as dist
 
-    if args.full_eval:
-        from .training.evaluate import evaluate_full_ranking
-        from .utils.observability import MetricsLogger
+    owned = not dist.is_initialized()
+    mesh = mesh_from_args(args)
+    try:
+        cfg, bundle, state = train_from_args(args, mesh)
+        if args.full_eval:
+            from .training.evaluate import evaluate_full_ranking
+            from .utils.observability import MetricsLogger
 
-        train_e, _, test_e = bundle.splits
-        recall, ndcg = evaluate_full_ranking(
-            state.params, train_e, test_e, bundle.data.num_users, k=args.full_eval_k,
-            max_users=args.full_eval_users)
-        print(f"Full-ranking test Recall@{args.full_eval_k}: {recall:.4f}, "
-              f"NDCG@{args.full_eval_k}: {ndcg:.4f}")
-        print(f"full-ranking eval timings: {evaluate_full_ranking.last_timings}")
-        MetricsLogger(metrics_path(cfg)).log(
-            cfg.train.epochs, test_full_recall=recall, test_full_ndcg=ndcg,
-            **evaluate_full_ranking.last_timings)
+            train_e, _, test_e = bundle.splits
+            recall, ndcg = evaluate_full_ranking(
+                state.params, train_e, test_e, bundle.data.num_users, k=args.full_eval_k,
+                max_users=args.full_eval_users, mesh=mesh)
+            if mesh is None or mesh.is_main:
+                print(f"Full-ranking test Recall@{args.full_eval_k}: {recall:.4f}, "
+                      f"NDCG@{args.full_eval_k}: {ndcg:.4f}")
+                print(f"full-ranking eval timings: {evaluate_full_ranking.last_timings}")
+                MetricsLogger(metrics_path(cfg)).log(
+                    cfg.train.epochs, test_full_recall=recall, test_full_ndcg=ndcg,
+                    **evaluate_full_ranking.last_timings)
+    finally:
+        if owned and mesh is not None and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 
@@ -291,7 +350,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "count^0.75 alias-table draws (fullgraph trainer)")
     pt.add_argument("--fused-bpr", action="store_true",
                     help="fused CUDA BPR loss+grad kernel (ops/cuda_bpr.py)")
-    pt.add_argument("--mesh", default=None, help="not ported yet")
+    pt.add_argument("--mesh", default=None,
+                    help="DPxMP: the row-sharded full-graph trainer over DP*MP ranks "
+                         "(torchrun; 1x1 runs in this process)")
     pt.add_argument("--max-retries", type=int, default=0,
                     help="elastic training: retry transient failures up to N "
                          "times from the last full-state checkpoint")

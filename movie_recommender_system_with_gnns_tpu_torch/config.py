@@ -1,7 +1,7 @@
 """Configuration tree of the port: the JAX package's frozen dataclasses, field
 for field, so one JSON config (``Config.to_json``) loads in both packages.
 
-Fields that only parts not ported yet read (the multi-device paths, the
+Fields that only parts not ported yet read (the sharded hybrid path, the
 microbatched loss, the chunked-ELL remainder's width) are kept so a config
 written by either package round-trips unchanged. Full-state checkpoints
 (``state_checkpoint_path`` / ``state_checkpoint_every``) are written by
@@ -109,7 +109,9 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout (read by the multi-device slice, not yet ported)."""
+    """Device-mesh layout: ``cli train --mesh DPxMP`` sets it, and
+    ``training/distributed.py::train_model_sharded`` builds its default mesh
+    from it (``parallel/mesh.py::make_mesh``: rank ``d·mp + m`` at ``(d, m)``)."""
 
     data_axis: str = "data"
     model_axis: str = "model"

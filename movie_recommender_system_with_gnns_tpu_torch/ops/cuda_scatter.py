@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ._build import LAUNCHES
@@ -48,6 +49,14 @@ def sort_rows(idx: torch.Tensor, rows: int) -> Tuple[torch.Tensor, torch.Tensor]
         keys, torch.arange(lo, lo + rows + 1, dtype=keys.dtype, device=keys.device),
         out_int32=True)
     return order.to(torch.int32), starts
+
+
+def sort_rows_np(keys: np.ndarray, rows: int) -> Tuple[np.ndarray, np.ndarray]:
+    """NumPy twin of :func:`sort_rows` for lists built once on the host:
+    (stable order, row starts), int32."""
+    order = np.argsort(keys, kind="stable")
+    starts = np.searchsorted(keys[order], np.arange(rows + 1), side="left")
+    return order.astype(np.int32), starts.astype(np.int32)
 
 
 def sorted_index_add_plain(x: torch.Tensor, order: torch.Tensor,

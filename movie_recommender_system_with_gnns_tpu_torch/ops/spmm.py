@@ -7,8 +7,10 @@
     destinations; the reference-semantics propagation (PyG LGConv's normalized
     scatter-add, reference models/light_gcn.py:33);
   * :func:`spmm_rows`: the same sum, each row's run of the sorted edges
-    summed in edge order by ``ops/cuda_scatter.py::scatter_rows``, so two
-    calls on the card give the same bits (``train_model``'s evaluations);
+    summed in edge order by ``ops/cuda_scatter.py::scatter_rows`` and each
+    source row's gradient over its run by ``gather_rows``, so two calls or
+    two steps on the card give the same bits (the full-node trainer,
+    ``train_model``'s evaluations and each shard of the sharded trainer);
   * :func:`make_spmm_chunked`: the same sum over edge chunks, so the
     (E, d) message tensor never exists whole;
   * :class:`DeviceELL` and :func:`spmm_ell`: the degree-bucketed ELL layout
@@ -30,9 +32,8 @@ The JAX package's remainder is a chunked ELL (``ChunkedEll``,
 ``spmm_chunked_ell``), a TPU workaround that keeps scatters short. The port
 does not carry it: its remainder is a degree-bucketed :class:`DeviceELL`,
 propagated by the ELL SpMM kernel (``ops/cuda_spmm.py``), or the dst-sorted
-COO that :func:`spmm_segment` reads. The sharded remainder that uses the
-chunked ELL's rectangular form waits for the multi-device slice (ROADMAP
-queue A 7).
+COO that :func:`spmm_segment` reads. The sharded hybrid remainder that uses
+the chunked ELL's rectangular form is not ported (ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -51,9 +52,14 @@ from .topk import DTypeLike
 @dataclass(frozen=True)
 class DeviceCOO:
     """COOGraph on a device: dst-sorted edges with a static padded length.
-    ``order`` / ``starts`` (int32, ``from_host(..., row_runs=True)``) list each
-    destination's run of the edges as ``cuda_scatter.sort_rows(dst,
-    num_nodes)`` would, for :func:`spmm_rows`."""
+
+    ``num_nodes`` output rows are summed from a table of ``num_src`` rows
+    (``num_nodes`` unless given: a shard of ``parallel/sharding.py`` writes
+    its local rows from the all-gathered table). ``from_host(...,
+    row_runs=True)`` adds the int32 row runs that ``cuda_scatter.sort_rows``
+    would give, for :func:`spmm_rows`: ``order`` / ``starts`` of ``dst``
+    over ``num_nodes`` rows, ``src_order`` / ``src_starts`` of ``src`` over
+    ``num_src`` rows. The four come together or not at all."""
 
     src: torch.Tensor   # (E_pad,) int32
     dst: torch.Tensor   # (E_pad,) int32, sorted ascending
@@ -61,23 +67,43 @@ class DeviceCOO:
     num_nodes: int
     order: Optional[torch.Tensor] = None   # (E_pad,) int32: 0 .. E_pad - 1
     starts: Optional[torch.Tensor] = None  # (num_nodes + 1,) int32
+    src_order: Optional[torch.Tensor] = None   # (E_pad,) int32
+    src_starts: Optional[torch.Tensor] = None  # (num_src + 1,) int32
+    num_src: Optional[int] = None
+
+    def __post_init__(self):
+        if self.num_src is None:
+            object.__setattr__(self, "num_src", self.num_nodes)
+        runs = (self.order, self.starts, self.src_order, self.src_starts)
+        if any(r is None for r in runs) and any(r is not None for r in runs):
+            raise ValueError("DeviceCOO's row runs come as one set: order, starts, "
+                             "src_order and src_starts, or none of them")
 
     @staticmethod
     def from_host(g: COOGraph, device: DeviceLike = None,
                   row_runs: bool = False) -> "DeviceCOO":
+        return DeviceCOO.from_arrays(g.src, g.dst, g.w, g.num_nodes, device, row_runs)
+
+    @staticmethod
+    def from_arrays(src: np.ndarray, dst: np.ndarray, w: np.ndarray, num_nodes: int,
+                    device: DeviceLike = None, row_runs: bool = False,
+                    num_src: Optional[int] = None) -> "DeviceCOO":
+        """Upload host arrays (``dst`` sorted) of ``num_nodes`` output rows
+        over a source table of ``num_src`` rows (default ``num_nodes``)."""
+        from .cuda_scatter import sort_rows_np
+
         dev = resolve_device(device)
+        num_src = num_nodes if num_src is None else int(num_src)
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         runs = {}
         if row_runs:
-            starts = np.searchsorted(g.dst, np.arange(g.num_nodes + 1), side="left")
-            runs = dict(order=torch.arange(g.dst.shape[0], dtype=torch.int32, device=dev),
-                        starts=torch.from_numpy(starts.astype(np.int32)).to(dev))
-        return DeviceCOO(
-            src=torch.from_numpy(g.src).to(dev),
-            dst=torch.from_numpy(g.dst).to(dev),
-            w=torch.from_numpy(g.w).to(dev),
-            num_nodes=g.num_nodes,
-            **runs,
-        )
+            starts = np.searchsorted(dst, np.arange(num_nodes + 1), side="left")
+            src_order, src_starts = sort_rows_np(src, num_src)
+            runs = dict(order=torch.arange(dst.shape[0], dtype=torch.int32, device=dev),
+                        starts=up(starts.astype(np.int32)),
+                        src_order=up(src_order), src_starts=up(src_starts))
+        return DeviceCOO(src=up(src), dst=up(dst), w=up(w), num_nodes=num_nodes,
+                         num_src=num_src, **runs)
 
 
 def spmm_segment(coo: DeviceCOO, emb: torch.Tensor) -> torch.Tensor:
@@ -93,13 +119,20 @@ def spmm_rows(coo: DeviceCOO, emb: torch.Tensor) -> torch.Tensor:
     sorted edges in edge order (``scatter_rows``; ``index_add`` on the CPU),
     so it is bit-equal from call to call on the card, where ``index_add``'s
     float atomics are not. Needs ``coo``'s row runs (``from_host(...,
-    row_runs=True)``)."""
-    from .cuda_scatter import scatter_rows
+    row_runs=True)``). The gather is ``gather_rows``, whose backward sums
+    each table row over its run of the edges in order too
+    (``sorted_index_add``), so a step through it is as reproducible as its
+    forward."""
+    from .cuda_scatter import gather_rows, scatter_rows
 
     if coo.starts is None:
         raise ValueError("spmm_rows needs the graph's row runs: build it with "
                          "DeviceCOO.from_host(..., row_runs=True)")
-    gathered = emb.index_select(0, coo.src) * coo.w[:, None].to(emb.dtype)
+    if emb.shape[0] != coo.num_src:
+        raise ValueError(f"spmm_rows: the table has {emb.shape[0]} rows, the graph "
+                         f"gathers from {coo.num_src}")
+    rows = gather_rows(emb, coo.src, coo.src_order, coo.src_starts)
+    gathered = rows * coo.w[:, None].to(emb.dtype)
     return scatter_rows(gathered, coo.dst, coo.order, coo.starts, coo.num_nodes)
 
 

@@ -52,7 +52,14 @@ def compute_serving_tables(
     and the hand-written SpMM kernel (``ops/cuda_spmm.py``), which gathers rows
     and builds no (E, d) message tensor. Tables on the CPU propagate through
     ``spmm_segment``, in edge chunks once the message tensor would exceed
-    ``chunk_budget_bytes``. ``mesh`` (sharded propagation) is not ported.
+    ``chunk_budget_bytes``.
+
+    With ``mesh`` (``parallel/mesh.py::Mesh``; every rank calls with the
+    same tables) the tables propagate row-sharded over its ``model`` axis,
+    through the sharded trainer's propagation
+    (``parallel/sharding.py::make_sharded_propagate``, edges chunked by
+    ``cfg.train.spmm_chunks``), and every rank gets the whole unpadded
+    tables back.
     """
     if mode == "layer0":
         return params
@@ -61,9 +68,7 @@ def compute_serving_tables(
     if train_edges is None or cfg is None:
         raise ValueError("propagated serving needs train_edges + cfg")
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded propagation is not ported to the PyTorch package "
-            "(ROADMAP queue A 8: multi-device paths)")
+        return _sharded_tables(params, train_edges, cfg, mesh)
     from ..models.lightgcn import propagate
 
     dev = params.user_emb.device
@@ -94,6 +99,24 @@ def compute_serving_tables(
     fu, fi = propagate(params, graph, spmm, cfg.model.num_layers,
                        cfg.model.readout)
     return LightGCNParams(fu, fi)
+
+
+def _sharded_tables(params: LightGCNParams, train_edges: np.ndarray, cfg, mesh
+                    ) -> LightGCNParams:
+    from ..parallel.mesh import Mesh
+    from ..parallel.sharding import (ShardPlan, gather_params, make_sharded_propagate,
+                                     pad_params, shard_coos, shard_graph, shard_params,
+                                     unpad_params)
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    plan = ShardPlan.create(params.user_emb.shape[0], params.item_emb.shape[0], mesh.mp)
+    m = mesh.coords[1]
+    coos = shard_coos(shard_graph(train_edges, plan), plan, m, params.user_emb.device,
+                      cfg.train.spmm_chunks)
+    local = make_sharded_propagate(cfg, mesh, plan)(
+        shard_params(pad_params(params, plan), plan, m), coos)
+    return unpad_params(gather_params(local, mesh), plan)
 
 
 def _exclusion_mask(num_cols: int, excluded: Optional[Sequence[int]],

@@ -59,7 +59,8 @@ from ..config import Config
 from ..data.graph import gcn_norm
 from ..models.lightgcn import LightGCNParams
 from ..ops.bpr import select_bpr_loss
-from ..ops.cuda_scatter import gather_rows, scatter_rows, sort_rows, sorted_index_add
+from ..ops.cuda_scatter import (gather_rows, scatter_rows, sort_rows, sort_rows_np,
+                                sorted_index_add)
 from ..ops.sampling import (build_member_table, check_negatives_mode, member_keys,
                              sample_negative, sample_negative_feasible)
 from ..ops.spmm import block_matmul
@@ -92,13 +93,6 @@ class ClusterLists(NamedTuple):
     neg_keys: torch.Tensor
 
 
-def _np_sort_rows(keys: np.ndarray, rows: int) -> Tuple[np.ndarray, np.ndarray]:
-    """NumPy twin of ``sort_rows``: (stable order, row starts), int32."""
-    order = np.argsort(keys, kind="stable")
-    starts = np.searchsorted(keys[order], np.arange(rows + 1), side="left")
-    return order.astype(np.int32), starts.astype(np.int32)
-
-
 def _np_cluster_lists(item_ids, src, dst, user_local, pos_local, mask,
                       u_pad: int, i_pad: int) -> Tuple[np.ndarray, ...]:
     """:class:`ClusterLists`' fields for one cluster's host arrays; a valid
@@ -106,9 +100,9 @@ def _np_cluster_lists(item_ids, src, dst, user_local, pos_local, mask,
     n_local = u_pad + i_pad
     valid = np.ones(len(item_ids), bool)
     valid[1:] = item_ids[1:] != item_ids[:-1]
-    return (*_np_sort_rows(src, n_local), *_np_sort_rows(dst, n_local),
-            *_np_sort_rows(np.where(mask, user_local, u_pad), u_pad),
-            *_np_sort_rows(np.where(mask, pos_local, i_pad), i_pad),
+    return (*sort_rows_np(src, n_local), *sort_rows_np(dst, n_local),
+            *sort_rows_np(np.where(mask, user_local, u_pad), u_pad),
+            *sort_rows_np(np.where(mask, pos_local, i_pad), i_pad),
             np.concatenate([item_ids, item_ids + valid]).astype(np.int32))
 
 

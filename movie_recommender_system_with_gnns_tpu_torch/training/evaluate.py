@@ -81,6 +81,25 @@ def _batch_pairs(ptr: torch.Tensor, items: torch.Tensor, batch: torch.Tensor,
     return rows, items[pos]
 
 
+def _sharded_select(s: torch.Tensor, trr: torch.Tensor, trc: torch.Tensor, lo: int,
+                    num_items: int, kk: int, k: int) -> torch.Tensor:
+    """The global top-``k`` columns from each rank's ``s``, the scores of
+    its catalog shard (columns ``lo`` on): its train-seen pairs and padded
+    tail masked, its top-``kk`` with global indices, all-gathered over every
+    rank and merged."""
+    from ..ops.topk import merge_topk
+    from ..parallel.mesh import gather_rows_of
+
+    mine = (trc >= lo) & (trc < lo + s.shape[1])
+    s[trr[mine], trc[mine] - lo] = NEG_INF
+    s[:, max(num_items - lo, 0):] = NEG_INF                   # the padded tail
+    sc, ti = twophase_select(s, kk)
+    all_s = gather_rows_of(sc.float().contiguous(), None)     # (ranks·B, kk)
+    all_i = gather_rows_of((ti + lo).contiguous(), None)
+    b = s.shape[0]
+    return merge_topk(all_s.view(-1, b, kk), all_i.view(-1, b, kk), k)[1]
+
+
 def evaluate_full_ranking(
     params: LightGCNParams,
     train_edges: np.ndarray,
@@ -115,14 +134,23 @@ def evaluate_full_ranking(
     items happens on the device too. ``score_dtype="bfloat16"`` halves the
     score matrix (exact top-k of the rounded scores; near-ties may order
     differently than f32). Recall and NDCG are summed on the host in float64.
-    ``mesh`` (catalog sharded over devices) is not ported.
+
+    With ``mesh`` (``parallel/mesh.py::Mesh``; every rank calls with the same
+    arguments) the catalog is row-sharded over ALL ranks: padded after the
+    normalization to a multiple of the rank count, the padded tail masked as
+    seen. Each rank scores its shard and takes its top-``min(k, rows)``
+    through the same selection, the candidates are all-gathered and merged
+    (``ops/topk.py::merge_topk``, ties to the lowest index), and every rank
+    returns the same metrics. ``use_propagated`` then propagates through the
+    sharded trainer's propagation (``compute_serving_tables(mesh=)``).
 
     The wall-clock breakdown is left in ``evaluate_full_ranking.last_timings``.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded evaluation is not ported to the PyTorch package "
-            "(ROADMAP queue A 8: multi-device paths)")
+        from ..parallel.mesh import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
     t_start = time.perf_counter()
     num_items = params.item_emb.shape[0]
     if use_propagated:
@@ -130,7 +158,8 @@ def evaluate_full_ranking(
             raise ValueError("use_propagated=True requires cfg")
         from ..serving.recommend import compute_serving_tables
 
-        tables = compute_serving_tables(params, train_edges, cfg, mode="propagated")
+        tables = compute_serving_tables(params, train_edges, cfg, mode="propagated",
+                                        mesh=mesh)
         user_table, item_table = tables.user_emb, tables.item_emb
     else:
         user_table, item_table = params.user_emb, params.item_emb
@@ -150,7 +179,16 @@ def evaluate_full_ranking(
 
     sd = as_dtype(score_dtype)
     cat = normalize_embedding(item_table) if normalize else item_table
-    kk = min(k, num_items)
+    kk, col0, cols = min(k, num_items), 0, num_items
+    if mesh is not None:
+        # pad AFTER normalization: padded rows are zero AND masked as seen
+        cols = -(-num_items // mesh.size) * mesh.size
+        rows_per = cols // mesh.size
+        kk, col0 = min(k, rows_per), mesh.rank * rows_per
+        if mesh.size * kk < k:
+            raise ValueError(f"catalog shard of {rows_per} rows cannot "
+                             f"produce global top-{k} over {mesh.size} devices")
+        cat = torch.nn.functional.pad(cat, (0, 0, 0, cols - num_items))[col0:col0 + rows_per]
     # don't over-pad tiny eval sets to groups × batch_users
     gb = int(min(groups * batch_users,
                  -(-max(eval_users.size, 1) // batch_users) * batch_users))
@@ -171,18 +209,21 @@ def evaluate_full_ranking(
         q = normalize_embedding(rows) if normalize else rows
         s = _scores(q, cat, sd)                               # (B, I)
         trr, trc = _batch_pairs(trp, tri, batch, int(lens_tr[batch_np].sum()))
-        s[trr, trc] = NEG_INF                                 # train-seen exclusion
-        _, ti = twophase_select(s, kk)                        # (B, kk)
+        if mesh is None:
+            s[trr, trc] = NEG_INF                             # train-seen exclusion
+            _, ti = twophase_select(s, kk)                    # (B, kk)
+        else:
+            ti = _sharded_select(s, trr, trc, col0, num_items, kk, k)
         evr, evc = _batch_pairs(evp, evi, batch, int(lens_ev[batch_np].sum()))
-        evm = torch.zeros(s.shape, dtype=torch.bool, device=dev)
+        evm = torch.zeros((s.shape[0], cols), dtype=torch.bool, device=dev)
         evm[evr, evc] = True
         hit_chunks.append(torch.gather(evm, 1, ti))
     total_cnt = int(eval_users.size)
     recall_mean = ndcg_mean = 0.0
     if total_cnt:
         hits = torch.cat(hit_chunks).cpu().numpy().astype(np.float64)
-        if kk < k:
-            hits = np.pad(hits, ((0, 0), (0, k - kk)))
+        if hits.shape[1] < k:
+            hits = np.pad(hits, ((0, 0), (0, k - hits.shape[1])))
         discounts = 1.0 / np.log2(np.arange(2, k + 2))
         cumdisc = np.concatenate([[0.0], np.cumsum(discounts)])
         num_rel = lens_ev[eval_users]
@@ -197,7 +238,7 @@ def evaluate_full_ranking(
         "mask_build_s": round(t_pairs, 4),
         "score_topk_s": round(t_score, 4),
         "total_s": round(time.perf_counter() - t_start, 4),
-        "sharded": False,
+        "sharded": mesh is not None,
         "dispatch_users": gb,
         "score_dtype": str(score_dtype or "float32").replace("torch.", ""),
         "groupby_cached": groupby_cached,

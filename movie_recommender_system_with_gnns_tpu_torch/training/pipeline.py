@@ -59,7 +59,9 @@ def build_cluster_batches(
     """Pad each cluster's edges/triplets to bucketed static shapes and upload.
 
     ``shared_shape=True`` pads every cluster to ONE common bucket; padding is
-    zero-weight edges + masked triplets, which are loss-neutral.
+    zero-weight edges + masked triplets, which are loss-neutral. Each graph
+    carries its row runs, so the full-node trainer's step propagates through
+    ``spmm_rows`` and is bit-reproducible on the card.
     """
     dev = resolve_device(device)
     sizes = [e.shape[1] for e in parts if e.shape[1] > 0]
@@ -71,7 +73,8 @@ def build_cluster_batches(
         if e.shape[1] == 0:
             continue  # reference also skips empty clusters (dataset_handler.py:310-312)
         e_pad = common if common is not None else _bucket(e.shape[1], bucket_floor)
-        g = DeviceCOO.from_host(COOGraph.build(e, num_nodes, pad_to=e_pad), dev)
+        g = DeviceCOO.from_host(COOGraph.build(e, num_nodes, pad_to=e_pad), dev,
+                                row_runs=True)
         # positives = the user→item half; pad to half the edge bucket
         b = triplets_from_edges(e, num_users, pad_to=e_pad // 2, device=dev)
         out.append(ClusterBatch(graph=g, batch=b, num_edges=int(e.shape[1])))

@@ -21,7 +21,8 @@ bias-corrected second moment. The update runs IN PLACE on the state's tables
 and moments (no second copy of the tables per step); a caller that wants to
 keep a state clones it first. The JAX package's ``lax.scan`` epoch fusions
 (``StackedClusters``, ``make_epoch_fn``) have no PyTorch counterpart: the
-full-node trainer runs the per-cluster loop.
+full-node trainer runs the per-cluster loop, propagating through
+``spmm_rows`` so that its step is bit-reproducible on the card.
 """
 
 from __future__ import annotations
@@ -116,18 +117,39 @@ def adam_step_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     p.addcdiv_(mu, denom, value=-lr / bc1)
 
 
-def make_optimizer(cfg: Config) -> Optimizer:
-    """clip-by-global-norm(1.0) → Adam, matching train_test.py:95,:236, as
-    plain functions on tensors that follow ``optax.chain(clip_by_global_norm,
-    adam)`` step for step."""
+def make_adam(cfg: Config, lr_of: Optional[Callable[[int], float]] = None) -> Optimizer:
+    """Adam alone (optax ``adam``), in place on the tables and moments, from
+    gradients already clipped; ``lr_of(t)`` defaults to
+    :func:`make_lr_schedule`. The sharded trainer clips with the norm over
+    all shards and then runs this on its own rows."""
     tc = cfg.train
-    lr_of = make_lr_schedule(cfg)
-    b1, b2, eps, max_norm = tc.adam_b1, tc.adam_b2, tc.adam_eps, tc.grad_clip_norm
+    lr_of = make_lr_schedule(cfg) if lr_of is None else lr_of
+    b1, b2, eps = tc.adam_b1, tc.adam_b2, tc.adam_eps
 
     def init(params: LightGCNParams) -> AdamState:
         z = lambda: LightGCNParams(torch.zeros_like(params.user_emb),
                                    torch.zeros_like(params.item_emb))
         return AdamState(count=0, mu=z(), nu=z())
+
+    @torch.no_grad()
+    def update(params: LightGCNParams, grads, opt_state: AdamState
+               ) -> Tuple[LightGCNParams, AdamState]:
+        count = opt_state.count + 1
+        bc1, bc2 = bias_corrections(count, b1, b2)
+        lr = lr_of(opt_state.count)
+        for p, g, mu, nu in zip(params, grads, opt_state.mu, opt_state.nu):
+            adam_step_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps)
+        return params, AdamState(count, opt_state.mu, opt_state.nu)
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(cfg: Config) -> Optimizer:
+    """clip-by-global-norm(1.0) → Adam, matching train_test.py:95,:236, as
+    plain functions on tensors that follow ``optax.chain(clip_by_global_norm,
+    adam)`` step for step."""
+    adam = make_adam(cfg)
+    max_norm = cfg.train.grad_clip_norm
 
     @torch.no_grad()
     def update(params: LightGCNParams, grads: LightGCNParams,
@@ -136,14 +158,9 @@ def make_optimizer(cfg: Config) -> Optimizer:
         # optax: untouched when norm < max_norm, else (g / norm) * max_norm;
         # stays on the device (no host sync per step)
         clip = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-        count = opt_state.count + 1
-        bc1, bc2 = bias_corrections(count, b1, b2)
-        lr = lr_of(opt_state.count)
-        for p, g, mu, nu in zip(params, grads, opt_state.mu, opt_state.nu):
-            adam_step_(p, g * clip, mu, nu, lr, bc1, bc2, b1, b2, eps)
-        return params, AdamState(count, opt_state.mu, opt_state.nu)
+        return adam.update(params, [g * clip for g in grads], opt_state)
 
-    return Optimizer(init, update)
+    return Optimizer(adam.init, update)
 
 
 def create_train_state(cfg: Config, num_users: int, num_items: int,
@@ -235,9 +252,14 @@ def loss_and_grads(loss_fn: Callable, params: LightGCNParams, *args
     return loss.detach(), LightGCNParams(gu, gi)
 
 
-def make_train_step(cfg: Config, spmm: Callable = spmm_segment):
+def make_train_step(cfg: Config, spmm: Callable = spmm_rows):
     """Build ``train_step(state, graph, batch, generator, neg=None)``; ``neg``
-    injects the negatives instead of drawing them."""
+    injects the negatives instead of drawing them. ``spmm`` defaults to
+    :func:`~..ops.spmm.spmm_rows` over the row runs of
+    ``pipeline.build_cluster_batches``' graphs: every sum of repeated rows,
+    forward and backward, runs in an order fixed by the data, so a step is
+    bit-equal from run to run on the card. :func:`~..ops.spmm.spmm_segment`
+    (``index_add``) stays the plain oracle."""
     check_negatives_mode(cfg.train.negatives)
     opt = make_optimizer(cfg)
 
@@ -376,7 +398,7 @@ def train_model(
     clusters,
     val: Tuple[DeviceCOO, TripletBatch],
     test: Tuple[DeviceCOO, TripletBatch],
-    spmm: Callable = spmm_segment,
+    spmm: Callable = spmm_rows,
     on_epoch_end: Optional[Callable] = None,  # (epoch, metrics[, state]) -> None
     save_checkpoint: Optional[Callable[[TrainState, float], None]] = None,
     metrics_logger=None,
@@ -389,7 +411,8 @@ def train_model(
     eval. ``clusters`` is a :class:`~.compact.CompactClusters` (compact
     trainer), a :class:`~.fullgraph.FullGraphTrainData` (full-graph trainer)
     or a list of :class:`ClusterBatch` (full-node trainer). ``spmm`` is the
-    full-node trainer's propagation; the evaluations sum through
+    full-node trainer's propagation (:func:`~..ops.spmm.spmm_rows` over the
+    clusters' row runs by default); the evaluations sum through
     :func:`~..ops.spmm.spmm_rows` over ``val``/``test`` from
     :func:`build_eval_batch`, bit-equal from run to run on the card.
     ``start_epoch``/``best_recall`` continue an interrupted run: each epoch's

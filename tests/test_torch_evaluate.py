@@ -122,7 +122,7 @@ def test_group_cache_and_rejected_arguments(tiny_data, splits):
     with pytest.raises(ValueError, match="requires cfg"):
         T.evaluate_full_ranking(pt, train_e, test_e, tiny_data.num_users,
                                 use_propagated=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A 8"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         T.evaluate_full_ranking(pt, train_e, test_e, tiny_data.num_users, mesh=object())
 
 

@@ -28,10 +28,14 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_no_jax():
     files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "tools").glob("probe_*.py"))
-             + [ROOT / "tools" / "fullgraph_quality.py"])
+             + [ROOT / "tools" / "fullgraph_quality.py"]
+             # the multi-rank tests' ranks: they start without JAX
+             + [ROOT / "tests" / "torch_dist_ranks.py"])
     assert len(files) > 10
     scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
-    assert {"utils/observability.py", "training/recovery.py"} <= scanned
+    assert {"utils/observability.py", "training/recovery.py", "parallel/mesh.py",
+            "parallel/sharding.py", "training/distributed.py",
+            "training/compact_sharded.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []
@@ -53,6 +57,7 @@ def test_entry_points_default_to_cuda(tmp_path):
     from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph
     from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import triplets_from_edges
     from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import DeviceCOO, densify_blocks
+    from movie_recommender_system_with_gnns_tpu_torch.parallel.mesh import make_mesh
     from movie_recommender_system_with_gnns_tpu_torch.training.checkpoint import (
         load_params, save_params)
     from movie_recommender_system_with_gnns_tpu_torch.training.compact import (
@@ -89,7 +94,11 @@ def test_entry_points_default_to_cuda(tmp_path):
             lambda: densify_blocks(idx, idx, idx, np.ones(2, np.float32), 1, 4),
             lambda: prepare_training_data(Config()),
             lambda: cli.main(["--indexes-dir", str(tmp_path / "idx"), "--checkpoint",
-                              str(tmp_path / "m.npz"), "train", "--fused-bpr"])):
+                              str(tmp_path / "m.npz"), "train", "--fused-bpr"]),
+            # the multi-device slice: a mesh on the card (NCCL) by default
+            lambda: make_mesh(1, 1),
+            lambda: cli.main(["--indexes-dir", str(tmp_path / "idx"), "--checkpoint",
+                              str(tmp_path / "m.npz"), "train", "--mesh", "1x1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert create_train_state(Config(), 4, 5, device="cpu").params.user_emb.device.type == "cpu"

@@ -7,6 +7,8 @@ stable argsort, and ``ops/spmm.py::spmm_rows`` against the JAX package's
 ``chip_smoke.py`` on the card.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -122,3 +124,37 @@ def test_spmm_rows_matches_jax_spmm_segment(tiny_data, pad):
     bare = spmm.DeviceCOO.from_host(COOGraph.build(e, n, pad_to=pad_to), "cpu")
     with pytest.raises(ValueError, match="row_runs=True"):
         spmm.spmm_rows(bare, x)
+
+
+@pytest.mark.parametrize("num_src", [None, 400])
+def test_spmm_rows_source_runs_gradient_matches_spmm_segment(tiny_data, num_src):
+    """``from_host(..., row_runs=True)`` also lists ``src``'s runs over the
+    source table (``sort_rows(src, num_src)``); through them ``spmm_rows``'
+    gather is ``gather_rows``, and its gradient (summed by
+    ``sorted_index_add``) matches ``spmm_segment``'s (``index_add``) within
+    1e-6, on the square graph and on a rectangular one that gathers from a
+    larger table (a shard of the sharded trainer)."""
+    from movie_recommender_system_with_gnns_tpu_torch.data.graph import COOGraph
+    from movie_recommender_system_with_gnns_tpu_torch.ops import spmm
+
+    n = tiny_data.num_users + tiny_data.num_items
+    g = COOGraph.build(tiny_data.edge_index, n)
+    coo = spmm.DeviceCOO.from_arrays(g.src, g.dst, g.w, n, "cpu", row_runs=True,
+                                     num_src=num_src)
+    rows = coo.num_src
+    assert rows == (n if num_src is None else num_src)
+    ref_order, ref_starts = cuda_scatter.sort_rows(coo.src, rows)
+    assert torch.equal(coo.src_order, ref_order) and torch.equal(coo.src_starts, ref_starts)
+    rng = np.random.default_rng(3)
+    emb = torch.from_numpy(rng.standard_normal((rows, 16)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((n, 16)).astype(np.float32))
+    grads = []
+    for fn in (spmm.spmm_rows, spmm.spmm_segment):
+        x = emb.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(fn(coo, x), x, cot)
+        grads.append(gx)
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="gathers from"):
+        spmm.spmm_rows(coo, emb[:-1])
+    with pytest.raises(ValueError, match="one set"):
+        dataclasses.replace(coo, src_order=None, src_starts=None)

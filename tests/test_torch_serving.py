@@ -158,7 +158,7 @@ def test_compute_serving_tables(port_data):
     assert T.compute_serving_tables(tp) is tp
     with pytest.raises(ValueError, match="train_edges"):
         T.compute_serving_tables(tp, port_data.edge_index, mode="propagated")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A 8"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         T.compute_serving_tables(tp, port_data.edge_index, TConfig(),
                                  mode="propagated", mesh=object())
     with pytest.raises(ValueError, match="unknown serving mode"):

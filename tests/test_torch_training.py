@@ -167,6 +167,29 @@ def test_full_node_steps_match_jax(tmp_path):
     assert state.step == 5
 
 
+def test_full_node_step_bit_equal_over_two_runs(tmp_path):
+    """The full-node trainer's graphs carry both kinds of row run, its step
+    propagates through ``spmm_rows`` by default, and two steps from one
+    state and negatives give the same tables and moments bit for bit (the
+    card's counterpart is ``chip_smoke.py``'s check, fault C5)."""
+    _, cfg = _pipeline_cfgs(tmp_path, "full")
+    bt = tpipe.prepare_training_data(cfg, device="cpu")
+    cb = bt.train[0]
+    assert cb.graph.starts is not None and cb.graph.src_order is not None
+    _, pt = both_params(bt.data.num_users, bt.data.num_items, 8, seed=5, std=0.05)
+    step = ttrain.make_train_step(cfg)
+    neg = torch.randint(0, bt.data.num_items, cb.batch.user.shape,
+                        generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    runs = []
+    for _ in range(2):
+        p = LightGCNParams(pt.user_emb.clone(), pt.item_emb.clone())
+        st, loss = step(ttrain.TrainState(p, ttrain.make_optimizer(cfg).init(p), 0),
+                        cb.graph, cb.batch, None, neg=neg)
+        runs.append(list(st.params) + list(st.opt_state.mu) + list(st.opt_state.nu) + [loss])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert not torch.equal(runs[0][1], pt.item_emb)
+
+
 def test_eval_step_matches_jax_loss(tmp_path):
     """The eval loss is the train loss on the eval graph; the recall is a
     Monte-Carlo estimate (tests/test_torch_bpr.py holds it to JAX on injected
@@ -323,15 +346,17 @@ def test_cli_train_then_recommend(tmp_path, capsys, extra):
 
 @pytest.mark.parametrize("flags", [["--mesh", "2x2"], ["--max-retries", "1"]])
 def test_cli_train_unported_flags(tmp_path, capsys, flags):
-    """``--mesh`` (ROADMAP A7) still returns 2; ``--max-retries`` trains
-    through the elastic driver, its recovery checkpoint in the run's
-    directory."""
+    """``--mesh 2x2`` without a launcher raises with the ``torchrun`` command
+    line that runs it (``--mesh 1x1`` runs in one process:
+    ``tests/test_torch_sharding.py``); ``--max-retries`` trains through the
+    elastic driver, its recovery checkpoint in the run's directory."""
     run = tmp_path / "run"
     args = ["--device", "cpu", "--checkpoint", str(run / "m.npz"),
             "--histories-dir", str(tmp_path / "h")] + _cli_args(tmp_path, "train", *flags)
     if flags[0] == "--mesh":
-        assert tcli.main(args) == 2
-        assert "not ported" in capsys.readouterr().err
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node=4 -m "
+                           "movie_recommender_system_with_gnns_tpu_torch.cli train --mesh 2x2"):
+            tcli.main(args)
         return
     run.mkdir()
     assert tcli.main(args) == 0

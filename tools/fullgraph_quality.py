@@ -42,15 +42,17 @@ def main(argv=None) -> int:
     if args.cmd != "train":
         print("fullgraph_quality.py takes the arguments of `cli train`", file=sys.stderr)
         return 2
-    if cli.unported_train_flag(args):
-        return 2
     t0 = time.time()
-    cfg, bundle, state = cli.train_from_args(args)
+    mesh = cli.mesh_from_args(args)
+    cfg, bundle, state = cli.train_from_args(args, mesh)
     train_e, _, test_e = bundle.splits
     normalize = cfg.train.loss != "standard"
     recall, ndcg = evaluate_full_ranking(
         state.params, train_e, test_e, bundle.data.num_users, k=args.full_eval_k,
-        max_users=args.full_eval_users, use_propagated=True, cfg=cfg, normalize=normalize)
+        max_users=args.full_eval_users, use_propagated=True, cfg=cfg, normalize=normalize,
+        mesh=mesh)
+    if mesh is not None and not mesh.is_main:
+        return 0
     print(f"TEST full-ranking Recall@{args.full_eval_k} {recall:.4f} "
           f"NDCG@{args.full_eval_k} {ndcg:.4f} (propagated, "
           f"{'cosine' if normalize else 'dot'} scores); wall {time.time() - t0:.1f} s")

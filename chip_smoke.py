@@ -5,7 +5,8 @@
 
 ``--kernels-only`` stops after phase 3 (a new kernel's first, short run).
 ``--mesh-only`` (two or more cards) runs after the build only the meshes of
-several cards against the 1×1 mesh (``mesh_cards_only``).
+several cards against the 1×1 mesh (``mesh_cards_only``): the segment step
+and the hybrid step.
 
 Phases:
   1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
@@ -33,7 +34,11 @@ Phases:
      graph whose rows all read higher ids (one side of the work list empty),
      weights that are not the graph's own gcn_norm, a remainder with a third
      of its rows empty (d = 256), the transpose of an asymmetric graph and
-     the backward over it; every case bit-equal over two calls. ``mips_block``: with and without mask,
+     the backward over it; rectangular graphs with a source table of their
+     own size (fewer rows than sources with emptied rows and a split hub
+     row, d 64 and 30; its transpose, more rows than sources; the backward
+     of one over the other); every case bit-equal over two calls.
+     ``mips_block``: with and without mask,
      N no multiple of the block, k in {1, 10, 100}, Q no multiple of the query
      band, a row with fewer than k live columns, planted exact ties, d in
      {64, 100}; then d = 30 (4-byte copies), d = 256 and k = 1000 (candidate
@@ -112,6 +117,20 @@ Phases:
      epoch; the mesh's propagated tables and full-ranking eval against the
      single-device ones; ``cli train --mesh 1x1 --full-eval`` at the small
      size; one ``[mesh]`` JSON line;
+  5f. the sharded hybrid path (``sharded_hybrid_phase``) at the JAX
+     package's bench configuration on a one-rank NCCL group: 64 parts
+     (doubled while a block is too wide), ghost columns up to 4,608, bf16
+     blocks, the symmetric VJP, over the interaction split. Host times of
+     the partition and of ``shard_hybrid_graph``; one step with f32 blocks
+     against the single-device ``spmm_hybrid_sym`` step (loss rtol 2e-5,
+     Adam's first moments within 1e-5 of the largest entry), and without
+     the symmetric VJP; with bf16 blocks a step bit-equal over two runs
+     (6 B4 launches, its collectives), timed at the epoch's batch and at
+     2^20 and profiled; three epochs of ``make_sharded_epoch_fn``, one with
+     host syncs made errors, the third timed; the mesh's propagated tables
+     against the ELL route; B4 at a 4-rank shard's shape (55,398 rows from
+     221,592 sources) and its transpose against the plain version, timed
+     beside ``torch.sparse.mm``; one ``[sharded-hybrid]`` JSON line;
   6. trained -> served: the checkpoint of phase 5 behind the ``ServingIndex``
      for one 32,768-user dispatch; then the CLI at a small synthetic size:
      ``train --fused-bpr --full-eval --epochs 1``, the three ``recommend``
@@ -831,16 +850,59 @@ def ell_kernel_phase() -> float:
     worst = max(worst, ell_case(ell_t, weighted_coo(asym[::-1], n, w_a), x,
                                 "d=64 transpose of an asymmetric graph"))
     worst = max(worst, ell_backward_case(ell_f, ell_t, x))
-    return worst
+    return max(worst, ell_rect_cases(e, n, gen))
 
 
-def weighted_coo(e, n: int, w):
-    """A ``DeviceCOO`` of edges ``e`` with the weights ``w`` (dst-sorted)."""
+def ell_rect_cases(e, n: int, gen) -> float:
+    """Phase 3, B4 with a source table of its own size: the edges into the
+    first ``r = n // 3`` nodes, with a fifth of those rows emptied, as
+    ``r`` rows read from the ``n``-row table (``num_src > num_nodes``; the
+    hub's row split into segments, d 64 and 30), and its transpose, ``n``
+    rows from ``r`` sources (``num_src < num_nodes``; a row of every
+    source, isolated rows empty), each by :func:`ell_case`, then the
+    backward of the first over the second. Padding slots point at
+    ``num_src``, rows padding a bucket at ``num_nodes``. Returns the
+    largest f32 abs error."""
+    from movie_recommender_system_with_gnns_tpu_torch.data.graph import EllGraph, gcn_norm
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import DeviceELL
+
+    r = n // 3
+    rng = np.random.default_rng(SEED + 7)
+    emptied = np.flatnonzero(rng.random(r) < 0.2)
+    emptied = emptied[emptied != 0]            # the hub's row stays
+    keep = (e[1] < r) & ~np.isin(e[1], emptied)
+    sub, w = e[:, keep], gcn_norm(e, n)[keep]
+    down = EllGraph.build(sub, r, weights=w, num_src=n)
+    up = EllGraph.build(sub[::-1], n, weights=w, num_src=r)
+    ell = DeviceELL.from_host(down, "cuda")
+    ell_t = DeviceELL.from_host(up, "cuda")
+    check(len(ell.schedule.split_rows) and len(ell_t.schedule.split_rows)
+          and (ell.num_nodes, ell.num_src, ell_t.num_nodes, ell_t.num_src) == (r, n, n, r),
+          "the rectangular test graphs lost their split rows or their shapes")
+    worst = 0.0
+    for d in (64, 30):
+        x = torch.randn(n, d, device="cuda", generator=gen)
+        worst = max(worst, ell_case(ell, weighted_coo(sub, n, w, rows=r), x,
+                                    f"rectangular d={d}: {r} rows from {n} sources, "
+                                    f"{emptied.size} emptied", zero_rows=tuple(emptied)))
+    x = torch.randn(r, 64, device="cuda", generator=gen)
+    no_edge = np.setdiff1d(np.arange(n), sub[0])
+    worst = max(worst, ell_case(ell_t, weighted_coo(sub[::-1], r, w, rows=n), x,
+                                f"rectangular transpose d=64: {n} rows from {r} sources",
+                                zero_rows=tuple(no_edge)))
+    x = torch.randn(n, 64, device="cuda", generator=gen)
+    return max(worst, ell_backward_case(ell, ell_t, x))
+
+
+def weighted_coo(e, n: int, w, rows: int = None):
+    """A ``DeviceCOO`` of edges ``e`` with the weights ``w`` (dst-sorted):
+    ``rows`` outputs (``n`` unless given) from a table of ``n`` rows."""
     from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import DeviceCOO
 
     order = np.argsort(e[1], kind="stable")
     up = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a[order], dt)).to("cuda")
-    return DeviceCOO(up(e[0], np.int32), up(e[1], np.int32), up(w, np.float32), n)
+    return DeviceCOO(up(e[0], np.int32), up(e[1], np.int32), up(w, np.float32),
+                     n if rows is None else rows, num_src=n)
 
 
 def ell_backward_case(ell, ell_t, x) -> float:
@@ -852,7 +914,7 @@ def ell_backward_case(ell, ell_t, x) -> float:
     from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import spmm_ell_cuda
     from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import spmm_ell
 
-    cot = torch.randn_like(x)
+    cot = torch.randn(ell.num_nodes, x.shape[1], device=x.device, dtype=x.dtype)
     grads = []
     before = _build.LAUNCHES["ell_spmm"]
     for fn in (lambda v: spmm_ell_cuda(ell, v, transpose=ell_t),) * 2 + (
@@ -868,7 +930,8 @@ def ell_backward_case(ell, ell_t, x) -> float:
     check(bool((err <= 1e-4 + 1e-3 * ref.abs()).all()),
           f"ell_spmm transposed backward vs autodiff of the plain spmm_ell: max abs "
           f"err {err.max().item():.3e}")
-    log(f"[kernel] ell_spmm backward over the transpose (d={x.shape[1]}): max abs err "
+    log(f"[kernel] ell_spmm backward over the transpose ({ell.num_nodes} rows from "
+        f"{ell.num_src}, d={x.shape[1]}): max abs err "
         f"{err.max().item():.3e} vs autodiff of the plain spmm_ell, bit-equal over two "
         f"calls, one launch forward and one backward")
     return err.max().item()
@@ -991,20 +1054,21 @@ def ell_bound(ell, d: int, itemsize: int, bw: float):
     """Least time (ms) of one hop over these blocks, from their data: the
     slots that hold an edge read once (id + weight, 8 bytes), the one padding
     id that ends a row short of its bucket's width, each row's node id, the
-    table read once and written once; 2 d operations per edge. The padding
+    table read once (``num_src`` rows) and the result written once
+    (``num_nodes`` rows); 2 d operations per edge. The padding
     behind a row's first padding id is not needed, so it is not counted. Also
     returns the time if every gather were charged its d·itemsize bytes, and
     the time of reading every slot, padding included."""
     slots = sum(b.nbr.numel() for b in ell.blocks)
     rows = sum(b.node_ids.numel() for b in ell.blocks)
-    edges = sum(int((b.nbr != ell.num_nodes).sum()) for b in ell.blocks)
-    ends = sum(int((b.nbr[:, -1] == ell.num_nodes).sum()) for b in ell.blocks)
-    table = ell.num_nodes * d * itemsize
-    byts = edges * 8 + ends * 4 + rows * 4 + 2 * table
+    edges = sum(int((b.nbr != ell.num_src).sum()) for b in ell.blocks)
+    ends = sum(int((b.nbr[:, -1] == ell.num_src).sum()) for b in ell.blocks)
+    table_in, table_out = (k * d * itemsize for k in (ell.num_src, ell.num_nodes))
+    byts = edges * 8 + ends * 4 + rows * 4 + table_in + table_out
     flops = 2.0 * d * edges
     t_bytes, t_ops = byts / bw * 1e3, flops / F32_FLOPS * 1e3
-    gathered = (edges * 8 + ends * 4 + rows * 4 + edges * d * itemsize + table) / bw * 1e3
-    all_slots = (slots * 8 + rows * 4 + 2 * table) / bw * 1e3
+    gathered = (edges * 8 + ends * 4 + rows * 4 + edges * d * itemsize + table_out) / bw * 1e3
+    all_slots = (slots * 8 + rows * 4 + table_in + table_out) / bw * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             byts, flops, slots, edges, gathered, all_slots)
 
@@ -1247,6 +1311,49 @@ def new_path_phase(data, splits, ckpt_path, cfg, bw: float):
     return rows
 
 
+def scatter_case(idx, rows: int, d: int, gen, what: str, bw: float) -> dict:
+    """``sorted_index_add`` (``gather_rows``' backward) at one index set
+    ``idx`` over ``rows`` rows, on a random f32 cotangent of width ``d``:
+    bit-equal to the plain version's sequential sum on the host and over
+    two calls, within 1e-5 of the largest entry of ``index_add_`` on the
+    card, and equal to ``gather_rows``' gradient; timed beside ``zeros`` +
+    ``index_add_``, with its bound (bytes)."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_scatter
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_scatter import sort_rows
+
+    order, starts = sort_rows(idx, rows)
+    g_rows = torch.randn(idx.numel(), d, device="cuda", generator=gen)
+    sc = lambda: cuda_scatter.sorted_index_add(g_rows, order, starts, rows)
+    lib = lambda: torch.zeros(rows, d, device="cuda").index_add_(0, idx, g_rows)
+    out_k, out_l = sc(), lib()
+    table = torch.randn(rows, d, device="cuda", generator=gen).requires_grad_(True)
+    (g_tab,) = torch.autograd.grad(cuda_scatter.gather_rows(table, idx, order, starts),
+                                   table, g_rows)
+    torch.cuda.synchronize()
+    out_h = cuda_scatter.sorted_index_add_plain(g_rows.cpu(), order.cpu(), starts.cpu(), rows)
+    top = out_l.abs().max().item()
+    err = (out_k - out_l).abs().max().item()
+    check(torch.equal(out_k.cpu(), out_h), f"{what}: differs from the plain version's "
+          f"sequential sum on the host (max abs "
+          f"{(out_k.cpu() - out_h).abs().max().item():.3e})")
+    check(torch.equal(out_k, sc()), f"{what}: two calls differ")
+    check(err <= 1e-5 * top, f"{what}: {err:.3e} from index_add_ on the card, largest "
+          f"entry {top:.3e}")
+    check(torch.equal(g_tab, out_k), f"{what}: gather_rows' gradient differs from the "
+          f"kernel's sum")
+    del out_h, out_l, table, g_tab
+    k_ms, l_ms = time_ms(sc, 10), time_ms(lib, 10)
+    run = int((starts[1:] - starts[:-1]).max())
+    byts = idx.numel() * d * 4 + 4 * idx.numel() + 4 * (rows + 1) + rows * d * 4
+    log(f"[kernel] {what} ({idx.numel()} entries over {rows} rows, longest run {run}, "
+        f"d={d}, f32): bit-equal to the plain version on the host, over two calls and "
+        f"as gather_rows' gradient; max abs err vs index_add_ on the card {err:.3e} "
+        f"(largest entry {top:.3e}); {k_ms:.4f} ms by CUDA events, zeros + index_add_ "
+        f"{l_ms:.4f} ms, bound {byts / bw * 1e3:.4f} ms (bytes: {byts / 1e6:.1f} MB)")
+    return dict(entries=idx.numel(), rows=rows, longest_run=run, ms=k_ms, index_add_ms=l_ms,
+                bound_ms=byts / bw * 1e3, max_abs_err=err)
+
+
 def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> dict:
     """Phase 5c: ``train-fullgraph-full``, the full-graph trainer on the
     interaction split of the same graph at the JAX flagship's width (L = 3,
@@ -1270,8 +1377,7 @@ def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> dict:
         make_synthetic_movielens, split_edges)
     from movie_recommender_system_with_gnns_tpu_torch.data.partition import (
         forward_half, partition_assignments)
-    from movie_recommender_system_with_gnns_tpu_torch.ops import _build, cuda_scatter, cuda_spmm
-    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_scatter import sort_rows
+    from movie_recommender_system_with_gnns_tpu_torch.ops import _build, cuda_spmm
     from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import (
         ell_schedule, spmm_ell_cuda)
     from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import (
@@ -1448,42 +1554,9 @@ def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> dict:
     step_i = torch.cat([fg.pos_item[perm],
                         sample_negative_alias(gen, b, ni, *fg.alias_table,
                                               num=FG["negatives"]).reshape(-1)])
-    scatter = {}
-    for side, idx, rows in (("users", step_u, nu), ("items", step_i, ni)):
-        what = f"sorted_index_add at a full-graph step's {side}"
-        order, starts = sort_rows(idx, rows)
-        g_rows = torch.randn(idx.numel(), d, device="cuda", generator=gen)
-        sc = lambda: cuda_scatter.sorted_index_add(g_rows, order, starts, rows)
-        lib = lambda: torch.zeros(rows, d, device="cuda").index_add_(0, idx, g_rows)
-        out_k, out_l = sc(), lib()
-        table = torch.randn(rows, d, device="cuda", generator=gen).requires_grad_(True)
-        (g_tab,) = torch.autograd.grad(cuda_scatter.gather_rows(table, idx, order, starts),
-                                       table, g_rows)
-        torch.cuda.synchronize()
-        out_h = cuda_scatter.sorted_index_add_plain(g_rows.cpu(), order.cpu(), starts.cpu(),
-                                                    rows)
-        top = out_l.abs().max().item()
-        err = (out_k - out_l).abs().max().item()
-        check(torch.equal(out_k.cpu(), out_h), f"{what}: differs from the plain version's "
-              f"sequential sum on the host (max abs "
-              f"{(out_k.cpu() - out_h).abs().max().item():.3e})")
-        check(torch.equal(out_k, sc()), f"{what}: two calls differ")
-        check(err <= 1e-5 * top, f"{what}: {err:.3e} from index_add_ on the card, largest "
-              f"entry {top:.3e}")
-        check(torch.equal(g_tab, out_k), f"{what}: gather_rows' gradient differs from the "
-              f"kernel's sum")
-        del out_h, out_l, table, g_tab
-        k_ms, l_ms = time_ms(sc, 10), time_ms(lib, 10)
-        run = int((starts[1:] - starts[:-1]).max())
-        byts = idx.numel() * d * 4 + 4 * idx.numel() + 4 * (rows + 1) + rows * d * 4
-        scatter[side] = dict(entries=idx.numel(), rows=rows, longest_run=run, ms=k_ms,
-                             index_add_ms=l_ms, bound_ms=byts / bw * 1e3, max_abs_err=err)
-        log(f"[kernel] {what} ({idx.numel()} entries over {rows} rows, longest run {run}, "
-            f"d={d}, f32): bit-equal to the plain version on the host, over two calls and "
-            f"as gather_rows' gradient; max abs err vs index_add_ on the card {err:.3e} "
-            f"(largest entry {top:.3e}); {k_ms:.4f} ms by CUDA events, zeros + index_add_ "
-            f"{l_ms:.4f} ms, bound {byts / bw * 1e3:.4f} ms (bytes: {byts / 1e6:.1f} MB)")
-        del out_k, g_rows, order, starts
+    scatter = {side: scatter_case(idx, rows, d, gen, f"sorted_index_add at a full-graph "
+                                  f"step's {side}", bw)
+               for side, idx, rows in (("users", step_u, nu), ("items", step_i, ni))}
     # a step sums four gathered tables' gradients: two over each index set
     det_ms = 2 * (scatter["users"]["ms"] + scatter["items"]["ms"])
     lib_ms = 2 * (scatter["users"]["index_add_ms"] + scatter["items"]["index_add_ms"])
@@ -1638,7 +1711,7 @@ def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> dict:
         fullgraph_bound_by=hop_by, fullgraph_library_ms=hop_lib,
         fullgraph_max_abs_err=r_err)
     del state, state0, bundle, emb
-    return dict(cfg=cfg, fg=fg, val=val, test=test)
+    return dict(cfg=cfg, fg=fg, val=val, test=test, train_e=train_e)
 
 
 def states_equal(a, b) -> list:
@@ -2031,11 +2104,43 @@ def _mesh_step(mesh, z, device) -> tuple:
     return float(loss), torch.cat(list(g)).cpu().numpy()
 
 
+def _mesh_hybrid_step(mesh, z, device) -> tuple:
+    """One sharded hybrid step (``HYB``'s graph at this mesh's ``pm``, the
+    symmetric VJP) from the tables, batch and negatives in ``z``, over its
+    interaction-split graph and partition: (loss, the whole clipped
+    gradient, users then items). The blocks are f32: with bf16 blocks each
+    data rank rounds its own cotangents to bf16 before the sum over
+    ``data``, so meshes of another ``dp`` differ by that rounding (about
+    4e-4 of the largest entry on the CPU's gloo rehearsal)."""
+    from movie_recommender_system_with_gnns_tpu_torch.config import Config, ModelConfig
+    from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import (
+        LightGCNParams, params_from_numpy)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import TripletBatch
+    from movie_recommender_system_with_gnns_tpu_torch.parallel import sharding as sh
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import TrainState
+
+    cfg = Config(model=ModelConfig(num_layers=TRAIN["layers"], dim=FULL["dim"]))
+    u, i = z["u"], z["i"]
+    plan = sh.ShardPlan.create(u.shape[0], i.shape[0], mesh.mp)
+    m = mesh.coords[1]
+    g = hybrid_graph(z["hyb_e"], u.shape[0], i.shape[0], mesh.mp, z["node_part"],
+                     int(z["parts"]), block_dtype="float32")[0]
+    shard = sh.shard_hybrid(g, plan, m, device)
+    local = sh.shard_params(sh.pad_params(params_from_numpy(u, i, device), plan), plan, m)
+    grads = []
+    step = sh.make_sharded_train_step(cfg, mesh, plan, opt=_grad_probe(grads), hybrid=True)
+    batch = TripletBatch(*(torch.from_numpy(z[k]).to(device) for k in ("user", "pos", "mask")))
+    _, loss = step(TrainState(local, None, 0), shard, batch, torch.from_numpy(z["neg"]).to(device))
+    g = sh.unpad_params(sh.gather_params(LightGCNParams(*grads), mesh), plan)
+    return float(loss), torch.cat(list(g)).cpu().numpy()
+
+
 def _mesh_rank(rank: int, world: int, dp: int, mp: int, port: int, path: str,
                device_type: str = "cuda") -> None:
     """One rank of a multi-card mesh (spawned when the machine has several
-    cards; ``device_type="cpu"`` runs it over gloo): :func:`_mesh_step`;
-    rank 0 writes the loss and the gradient."""
+    cards; ``device_type="cpu"`` runs it over gloo): :func:`_mesh_step`,
+    and :func:`_mesh_hybrid_step` when the inputs hold a hybrid graph;
+    rank 0 writes the losses and the gradients."""
     from movie_recommender_system_with_gnns_tpu_torch.parallel import mesh as pmesh
 
     device = f"cuda:{rank}" if device_type == "cuda" else "cpu"
@@ -2043,9 +2148,12 @@ def _mesh_rank(rank: int, world: int, dp: int, mp: int, port: int, path: str,
                            world_size=world, rank=rank, timeout_s=300)
     try:
         with np.load(path) as z:
-            loss, grad = _mesh_step(pmesh.make_mesh(dp, mp, device=device), z, device)
+            mesh = pmesh.make_mesh(dp, mp, device=device)
+            loss, grad = _mesh_step(mesh, z, device)
+            hybrid = _mesh_hybrid_step(mesh, z, device) if "hyb_e" in z else ()
         if rank == 0:
-            np.savez(path.replace(".npz", f"_{dp}x{mp}.npz"), loss=loss, grad=grad)
+            np.savez(path.replace(".npz", f"_{dp}x{mp}.npz"), loss=loss, grad=grad,
+                     **dict(zip(("hyb_loss", "hyb_grad"), hybrid)))
     finally:
         torch.distributed.destroy_process_group()
 
@@ -2065,21 +2173,25 @@ def mesh_batch(train_e: np.ndarray, num_users: int, num_items: int):
     return batch, sample_negative(gen, b, num_items)
 
 
-def save_mesh_inputs(p0, train_e, batch, neg) -> str:
-    """The tables, graph, batch and negatives the spawned ranks read."""
+def save_mesh_inputs(p0, train_e, batch, neg, hybrid: dict = None) -> str:
+    """The tables, graph, batch and negatives the spawned ranks read; with
+    ``hybrid`` also the hybrid step's graph (``hyb_e``), ``node_part`` and
+    ``parts``."""
     path = str(WORK / "mesh_inputs.npz")
     np.savez(path, u=p0.user_emb.cpu().numpy(), i=p0.item_emb.cpu().numpy(),
              train_e=train_e, user=batch.user.cpu().numpy(),
              pos=batch.pos_item.cpu().numpy(), mask=batch.mask.cpu().numpy(),
-             neg=neg.cpu().numpy())
+             neg=neg.cpu().numpy(), **(hybrid or {}))
     return path
 
 
 def mesh_cards_only(t_start: float, smi: str) -> int:
     """``--mesh-only``: what exists only across cards and what it is held
     against, and nothing else. The full graph and the mesh phase's step
-    inputs, then :func:`mesh_cards` over every mesh the cards allow (2×1,
-    1×2; with four, also 2×2, 4×1, 1×4) against the 1×1 mesh."""
+    inputs, with the interaction split's hybrid graph (phase 5f's
+    partition), then :func:`mesh_cards` over every mesh the cards allow
+    (2×1, 1×2; with four, also 2×2, 4×1, 1×4) against the 1×1 mesh, the
+    segment step and the hybrid step."""
     from movie_recommender_system_with_gnns_tpu_torch.data.movielens import (
         make_synthetic_movielens, split_edges)
     from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import init_params
@@ -2097,7 +2209,11 @@ def mesh_cards_only(t_start: float, smi: str) -> int:
         batch, neg = mesh_batch(train_e, data.num_users, data.num_items)
         p0 = init_params(data.num_users, data.num_items, FULL["dim"],
                          generator=torch.Generator().manual_seed(SEED + 6), device="cuda")
-        path = save_mesh_inputs(p0, train_e, batch, neg)
+        hyb_e = split_edges(data, str(WORK / "indexes_i"), seed=SEED,
+                            split_level="interaction")[0]
+        _, node_part, parts, _, _ = hybrid_graph(hyb_e, data.num_users, data.num_items, 1)
+        path = save_mesh_inputs(p0, train_e, batch, neg,
+                                dict(hyb_e=hyb_e, node_part=node_part, parts=parts))
         pmesh.distributed_init("cuda")
         shapes = [(2, 1), (1, 2)] + ([(2, 2), (4, 1), (1, 4)] if n >= 4 else [])
         done = mesh_cards(pmesh.make_mesh(1, 1, device="cuda"), path, shapes)
@@ -2111,12 +2227,13 @@ def mesh_cards_only(t_start: float, smi: str) -> int:
 def mesh_cards(mesh, path: str, shapes, device_type: str = "cuda") -> list:
     """Each of ``shapes`` (dp, mp) spawned over dp·mp ranks, one card each,
     against the 1×1 mesh's step in this process: loss within rtol 2e-5, the
-    clipped gradient within 1e-5 of its largest entry. Returns the shapes
-    run."""
+    clipped gradient within 1e-5 of its largest entry; the same for the
+    hybrid step when the inputs hold its graph. Returns the shapes run."""
     import torch.multiprocessing as mp
 
     with np.load(path) as z:
         ref_loss, ref = _mesh_step(mesh, z, mesh.device)
+        hyb_ref = _mesh_hybrid_step(mesh, z, mesh.device) if "hyb_e" in z else None
     top = float(np.abs(ref).max())
     done = []
     for dp_, mp_ in shapes:
@@ -2132,6 +2249,16 @@ def mesh_cards(mesh, path: str, shapes, device_type: str = "cuda") -> list:
               f"{err:.3e} from 1x1's (largest entry {top:.3e})")
         log(f"[mesh] {dp_}x{mp_} on {dp_ * mp_} cards: loss {loss:.8f} (1x1 {ref_loss:.8f}), "
             f"clipped gradient within {err:.3e} of 1x1's (largest entry {top:.3e})")
+        if hyb_ref is not None:
+            with np.load(path.replace(".npz", f"_{dp_}x{mp_}.npz")) as z:
+                h_loss = float(z["hyb_loss"])
+                h_err = float(np.abs(z["hyb_grad"] - hyb_ref[1]).max())
+            h_top = float(np.abs(hyb_ref[1]).max())
+            check(abs(h_loss - hyb_ref[0]) <= 2e-5 * abs(hyb_ref[0]) and h_err <= 1e-5 * h_top,
+                  f"mesh {dp_}x{mp_} hybrid step: loss {h_loss!r} vs 1x1 {hyb_ref[0]!r}, "
+                  f"clipped gradient {h_err:.3e} from 1x1's (largest entry {h_top:.3e})")
+            log(f"[mesh] {dp_}x{mp_} hybrid step: loss {h_loss:.8f} (1x1 {hyb_ref[0]:.8f}), "
+                f"clipped gradient within {h_err:.3e} of 1x1's (largest entry {h_top:.3e})")
         done.append(f"{dp_}x{mp_}")
     return done
 
@@ -2481,6 +2608,426 @@ def mesh_phase(data, train_e, val_e, test_e, cfg, cc, val, test, smi: str) -> di
     dist.destroy_process_group()
     numbers["phase_s"] = time.time() - t_phase
     log(f"[mesh] {json.dumps(numbers)}")
+    return numbers
+
+
+#: phase 5f: the JAX package's own sharded configuration (``bench.py``'s
+#: ``SCALES["full"]`` and ``bench_sharded_epoch``: 64 parts, 8 refine
+#: rounds and no kept-edge balance pass, ghost cap 4,608, blocks up to
+#: 4,608 wide in bf16), 16 steps an epoch; the batch of phase 5e's sharded
+#: step for the comparison with it; the pm of the rectangular B4 case
+HYB = dict(parts=64, refine_rounds=8, balance_tol=0.0, ghost_cap=4608,
+           max_block_nodes=4608, steps=16, epochs=3, timed_steps=3,
+           segment_batch=2 ** 20, shard_pm=4)
+
+
+def hybrid_graph(train_e: np.ndarray, num_users: int, num_items: int, pm: int,
+                 node_part=None, parts: int = None, block_dtype: str = "bfloat16"):
+    """``bench.py``'s loop: the native partition into ``HYB["parts"]`` parts,
+    then ``shard_hybrid_graph`` at ``pm``; a block wider than
+    ``HYB["max_block_nodes"]`` doubles the parts. Given ``node_part`` and
+    ``parts``, only the build. Returns (graph, node_part, parts, partition
+    s, build s)."""
+    from movie_recommender_system_with_gnns_tpu_torch.data.partition import (
+        forward_half, partition_assignments)
+    from movie_recommender_system_with_gnns_tpu_torch.parallel import sharding as sh
+
+    nu, n = num_users, num_users + num_items
+    plan = sh.ShardPlan.create(num_users, num_items, pm)
+    given = node_part is not None
+    parts = parts or HYB["parts"]
+    t_part = t_build = 0.0
+    uv = None if given else forward_half(train_e, nu)
+    while True:
+        if not given:
+            t0 = time.time()
+            pu, pi = partition_assignments(train_e, nu, n, parts, seed=SEED,
+                                           balance_tol=HYB["balance_tol"], uv=uv,
+                                           refine_rounds=HYB["refine_rounds"])
+            node_part = np.concatenate([pu, pi])
+            t_part += time.time() - t0
+        t0 = time.time()
+        try:
+            g = sh.shard_hybrid_graph(train_e, plan, node_part, parts,
+                                      block_dtype=block_dtype,
+                                      max_block_nodes=HYB["max_block_nodes"],
+                                      ghost_cap=HYB["ghost_cap"])
+            t_build += time.time() - t0
+            return g, node_part, parts, t_part, t_build
+        except ValueError:
+            t_build += time.time() - t0
+            check(not given and parts < 1024, f"no sharded hybrid graph fits at {parts} parts")
+            parts *= 2
+
+
+def rank_remainder(g, m: int):
+    """Model rank ``m``'s remainder of a ``ShardedHybrid`` as host edges
+    ``(2, k)`` (padded global source id, local row) and their weights."""
+    k = int(g.off_counts[m])
+    return np.stack([g.off.src[m, :k], g.off.dst_local[m, :k]]), g.off.w[m, :k]
+
+
+def hybrid_shard_b4_case(train_e, nu: int, ni: int, node_part, parts: int, bw: float,
+                         d: int) -> dict:
+    """B4 at a true shard's shape: rank 0 of a ``HYB["shard_pm"]``-rank
+    ``shard_hybrid_graph`` of the train graph, its ``l_rows`` local rows
+    read from the ``n_pad``-row table, and its transpose, each held by
+    :func:`ell_case` against the plain ``spmm_ell`` and ``spmm_segment``
+    (f32 and a bf16 table, bit-equal over two calls), then timed by CUDA
+    events beside the plain version and ``torch.sparse.mm`` on the same
+    rectangular CSR, with its bound."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import spmm_ell_cuda
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import DeviceELL, spmm_ell
+    from movie_recommender_system_with_gnns_tpu_torch.parallel import sharding as sh
+
+    plan = sh.ShardPlan.create(nu, ni, HYB["shard_pm"])
+    g, _, _, _, t_build = hybrid_graph(train_e, nu, ni, HYB["shard_pm"], node_part, parts)
+    l_rows = plan.u_loc + plan.i_loc
+    e_off, w = rank_remainder(g, 0)
+    k = e_off.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    out = dict(pm=HYB["shard_pm"], rows=l_rows, sources=plan.n_pad, edges=k,
+               shard_hybrid_graph_s=t_build)
+    for name, ell_g, e, rows, n_src, split in (
+            ("shard", sh.remainder_ell(g, plan, 0), e_off, l_rows, plan.n_pad, plan.u_pad),
+            ("transpose", sh.remainder_ell(g, plan, 0, transpose=True), e_off[::-1],
+             plan.n_pad, l_rows, plan.u_loc)):
+        ell = DeviceELL.from_host(ell_g, "cuda", src_split=split)
+        check((ell.num_nodes, ell.num_src) == (rows, n_src),
+              f"the {name}'s ELL is {ell.num_nodes} rows from {ell.num_src}")
+        x = torch.randn(n_src, d, device="cuda", generator=gen)
+        empty = np.setdiff1d(np.arange(rows), e[1])
+        err = ell_case(ell, weighted_coo(e, n_src, w, rows=rows), x,
+                       f"pm={HYB['shard_pm']} rank 0 {name}: {rows} rows from {n_src} "
+                       f"sources, {k} edges, {empty.size} rows empty",
+                       zero_rows=tuple(empty))
+        ms = time_ms(lambda: spmm_ell_cuda(ell, x), 20)
+        # the same hop over a work list without the source side order
+        one = DeviceELL.from_host(ell_g, "cuda")
+        check(not one.schedule.item_side.any() and set(ell.schedule.item_side.tolist()) == {0, 1}
+              and torch.equal(spmm_ell_cuda(one, x), spmm_ell_cuda(ell, x)),
+              f"the {name}'s hop differs without the side order, or a list has the wrong sides")
+        sides = dict(by_side=[], one_side=[])
+        for _ in range(3):
+            sides["by_side"].append(time_ms(lambda: spmm_ell_cuda(ell, x), 20))
+            sides["one_side"].append(time_ms(lambda: spmm_ell_cuda(one, x), 20))
+        del one
+        plain_ms = time_ms(lambda: spmm_ell(ell, x), 3, warmup=1)
+        order = np.argsort(e[1], kind="stable")
+        rowptr = np.concatenate([[0], np.cumsum(np.bincount(e[1], minlength=rows))])
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(rowptr.astype(np.int32)).to("cuda"),
+            torch.from_numpy(e[0][order].astype(np.int32)).to("cuda"),
+            torch.from_numpy(w[order]).to("cuda"), size=(rows, n_src))
+        ref = spmm_ell_cuda(ell, x)
+        check(bool(((torch.sparse.mm(csr, x) - ref).abs() <= 1e-6 + 1e-3 * ref.abs()).all()),
+              f"torch.sparse.mm on the {name}'s CSR disagrees with ell_spmm")
+        lib_ms = time_ms(lambda: torch.sparse.mm(csr, x), 20)
+        bound, by, byts, _, slots, edges, _, _ = ell_bound(ell, d, 4, bw)
+        check(edges == k, f"the {name}'s ELL holds {edges} edges, the shard {k}")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, **sides,
+                         bound_by=by, bound_mb=byts / 1e6, slots=slots, max_abs_err=err,
+                         buckets=[(b.rows, b.width) for b in ell_g.blocks],
+                         items=len(ell.schedule.items))
+        log(f"[kernel] ell_spmm at the pm={HYB['shard_pm']} shard's {name} ({rows} rows from "
+            f"{n_src}, {k} edges in {slots} slots, d={d}, f32): {ms:.4f} ms by CUDA events, "
+            f"plain {plain_ms:.4f} ms, torch.sparse.mm (CSR) {lib_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}: {byts / 1e6:.1f} MB), {bound / ms:.3f} of it; "
+            f"by source side {sides['by_side']}, one side {sides['one_side']} ms")
+        del ell, x, csr, ref
+    return out
+
+
+def sharded_hybrid_phase(data, train_e: np.ndarray, smi: str, bw: float, b4_row: dict) -> dict:
+    """Phase 5f: the sharded hybrid path (JAX ``make_sharded_epoch_fn``,
+    ``"hybrid-mxu[64x4608]+chunked-ell, symmetric-vjp"``) at the JAX
+    package's bench configuration (:data:`HYB`) on a one-rank NCCL group
+    (mesh 1×1), over the interaction split's train graph (symmetric, as the
+    symmetric VJP needs), L = 3, d = 64, f32 compute, uniform negatives,
+    Adam at ``cfg.train.lr``. (f) the host time of the partition and of
+    ``shard_hybrid_graph``, apart; (a) one step with f32 blocks against the
+    single-device ``spmm_hybrid_sym`` step (``make_train_step``) from the
+    same tables, batch and negatives: loss within rtol 2e-5, Adam's first
+    moments ``(1 - b1)·clipped gradient`` within 1e-5 of the reference's
+    largest entry; (b) the step without the symmetric VJP (autograd through
+    the collectives, B4 over the transposed ELL) against it, moments within
+    1e-5, and B4 over that transpose by :func:`ell_case`; (c) the step's
+    kernels at its own inputs against their plain versions (B4 over the
+    rank's remainder by :func:`ell_case`, ``sorted_index_add`` at the
+    batch's sorted users and items by :func:`scatter_case`); with bf16
+    blocks, the step bit-equal over two runs, its launches and
+    collectives, timed at the epoch's batch and at phase 5e's 2^20, profiled;
+    (d) three epochs through ``make_sharded_epoch_fn``,
+    the second with host syncs made errors, the third timed alone (s per
+    epoch, launches and collectives per step, peak memory), finite and
+    falling losses; (e) ``make_sharded_propagate(hybrid=True)`` with f32
+    blocks on the trained tables against ``compute_serving_tables(mode=
+    "propagated")`` (the ELL route) within 1e-5 of the largest entry; B4 at
+    a pm = 4 shard's shape and its transpose. One ``[sharded-hybrid]`` JSON
+    line; B4's row gains the path's launches and the shard's numbers."""
+    import torch.distributed as dist
+
+    from movie_recommender_system_with_gnns_tpu_torch.config import (
+        Config, ModelConfig, TrainConfig)
+    from movie_recommender_system_with_gnns_tpu_torch.data.partition import forward_half
+    from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import (
+        LightGCNParams, init_params)
+    from movie_recommender_system_with_gnns_tpu_torch.ops._build import LAUNCHES as launches
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import spmm_ell_cuda
+    from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import (
+        TripletBatch, sample_negative)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import (
+        DeviceELL, build_hybrid_graph, spmm_hybrid_sym)
+    from movie_recommender_system_with_gnns_tpu_torch.parallel import mesh as pmesh
+    from movie_recommender_system_with_gnns_tpu_torch.parallel import sharding as sh
+    from movie_recommender_system_with_gnns_tpu_torch.serving.recommend import (
+        compute_serving_tables)
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import (
+        TrainState, make_adam, make_optimizer, make_train_step)
+
+    t_phase = time.time()
+    nu, ni = data.num_users, data.num_items
+    n, L, d = nu + ni, TRAIN["layers"], FULL["dim"]
+    numbers = dict(card=smi)
+    torch.cuda.empty_cache()
+    pmesh.distributed_init("cuda")
+    mesh = pmesh.make_mesh(1, 1, device="cuda")
+    plan = sh.ShardPlan.create(nu, ni, 1)
+
+    # (f) the host build: partition, then the sharded graph
+    g, node_part, parts, t_part, t_build = hybrid_graph(train_e, nu, ni, 1)
+    _, p_w = g.blk_ids.shape[1:]
+    cfg = Config(model=ModelConfig(num_layers=L, dim=d),
+                 train=TrainConfig(symmetric_vjp=True, fullgraph_steps=HYB["steps"]))
+    uv = forward_half(train_e, nu)
+    user = torch.from_numpy(uv[0].astype(np.int32)).to("cuda")
+    pos = torch.from_numpy(uv[1].astype(np.int32)).to("cuda")
+    sp = sh.sharded_epoch_plan(cfg, int(user.shape[0]), 1)
+    b = sp["batch"]
+    numbers["setup"] = dict(parts=parts, block_width=p_w, partition_s=t_part,
+                            shard_hybrid_graph_s=t_build,
+                            blocks_gb_bf16=parts * p_w ** 2 * 2 / 1e9,
+                            train_edges=int(train_e.shape[1]), **g.stats, **sp,
+                            masked=sp["num_steps"] * b - sp["e_real"])
+    log(f"[sharded-hybrid] set-up on the host: {json.dumps(numbers['setup'])}")
+    check(g.stats["absorbed_edges"] > 0, "no edge moved onto the ghost columns")
+
+    p0 = init_params(nu, ni, d, generator=torch.Generator().manual_seed(SEED + 10),
+                     device="cuda")
+    copy = lambda p: LightGCNParams(p.user_emb.clone(), p.item_emb.clone())
+    local0 = lambda: sh.shard_params(sh.pad_params(copy(p0), plan), plan, 0)
+    full = lambda pair: torch.cat(list(sh.unpad_params(sh.gather_params(pair, mesh), plan)))
+    adam = make_adam(cfg, lr_of=lambda t: cfg.train.lr)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    first = torch.randperm(sp["e_real"], generator=gen, device="cuda")[:b]
+    tb = TripletBatch(user[first], pos[first], torch.ones(b, dtype=torch.bool, device="cuda"))
+    neg = sample_negative(gen, b, ni)
+
+    def one_step(shard, sym: bool, batch=tb, negs=neg):
+        local = local0()
+        step = sh.make_sharded_train_step(cfg, mesh, plan, adam, hybrid=True, symmetric=sym)
+        return step(TrainState(local, adam.init(local), 0), shard, batch, negs)
+
+    # (a) f32 blocks against the single-device full-graph propagation's step
+    g32 = dataclasses.replace(g, block_dtype="float32")
+    t0 = time.time()
+    shard32 = sh.shard_hybrid(g32, plan, 0, "cuda")
+    torch.cuda.synchronize()
+    t_upload = time.time() - t0
+    st_a, loss_a = one_step(shard32, True)
+    mu_a = full(st_a.opt_state.mu)
+    del st_a
+    h32 = build_hybrid_graph(train_e, n, node_part, parts, block_dtype="float32",
+                             max_block_nodes=HYB["max_block_nodes"], device="cuda")
+    opt = make_optimizer(cfg)
+    p = copy(p0)
+    st_r, loss_r = make_train_step(cfg, spmm=spmm_hybrid_sym)(
+        TrainState(p, opt.init(p), 0), h32, tb, None, neg=neg)
+    mu_r = torch.cat(list(st_r.opt_state.mu))
+    del st_r, h32
+    top = mu_r.abs().max().item()
+    la, lr_ = loss_a.item(), loss_r.item()
+    err_a = (mu_a - mu_r).abs().max().item()
+    check(abs(la - lr_) <= 2e-5 * abs(lr_) and err_a <= 1e-5 * top,
+          f"(a) hybrid step (f32 blocks) vs the single-device spmm_hybrid_sym step: loss "
+          f"{la!r} vs {lr_!r}, first moments {err_a:.3e} apart (largest entry {top:.3e})")
+    # (b) autograd through the collectives and B4's transposed rectangular ELL
+    shard32t = dataclasses.replace(shard32, off_ell_t=DeviceELL.from_host(
+        sh.remainder_ell(g32, plan, 0, transpose=True), "cuda", src_split=plan.u_loc))
+    st_b, loss_b = one_step(shard32t, False)
+    # B4 over the remainder's transpose, the backward of (b)'s three hops,
+    # at its own shape against the plain versions
+    l_rows = plan.u_loc + plan.i_loc
+    e_off, w_off = rank_remainder(g, 0)
+    gen_k = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    empty_t = np.setdiff1d(np.arange(plan.n_pad), e_off[0])
+    t_err = ell_case(shard32t.off_ell_t, weighted_coo(e_off[::-1], l_rows, w_off,
+                                                      rows=plan.n_pad),
+                     torch.randn(l_rows, d, device="cuda", generator=gen_k),
+                     f"(b) the 1x1 remainder's transpose ({plan.n_pad} rows from {l_rows} "
+                     f"sources, {e_off.shape[1]} edges, {empty_t.size} rows empty)",
+                     zero_rows=tuple(empty_t))
+    err_b = (full(st_b.opt_state.mu) - mu_a).abs().max().item()
+    top_a = mu_a.abs().max().item()
+    check(err_b <= 1e-5 * top_a and abs(loss_b.item() - la) <= 2e-5 * abs(la),
+          f"(b) the step without the symmetric VJP: first moments {err_b:.3e} from the "
+          f"symmetric step's (largest {top_a:.3e}), loss {loss_b.item()!r} vs {la!r}")
+    del st_b, shard32, shard32t, mu_a, mu_r
+    torch.cuda.empty_cache()
+    numbers["check"] = dict(loss=la, single_device_loss=lr_, mu_err=err_a, mu_largest=top,
+                            autograd_mu_err=err_b, f32_upload_s=t_upload)
+    log(f"[sharded-hybrid] (a) f32 blocks vs the single-device spmm_hybrid_sym step: loss "
+        f"{la:.8f} vs {lr_:.8f}, first moments within {err_a:.3e} (largest {top:.3e}); (b) "
+        f"without the symmetric VJP within {err_b:.3e} of it")
+
+    # (c) bf16 blocks: bit-equal over two runs; launches, collectives, times
+    shard = sh.shard_hybrid(g, plan, 0, "cuda")
+    torch.cuda.synchronize()
+    # the step's two kernels at its own inputs against their plain versions:
+    # B4 over the rank's remainder (the layer's (n_pad, d) table in, l_rows
+    # rows out), sorted_index_add at the batch's sorted users and items (the
+    # triplet gathers' backward, as _local_loss sorts them)
+    x_off = torch.randn(plan.n_pad, d, device="cuda", generator=gen_k)
+    empty = np.setdiff1d(np.arange(l_rows), e_off[1])
+    off_err = ell_case(shard.off_ell, weighted_coo(e_off, plan.n_pad, w_off, rows=l_rows),
+                       x_off, f"(c) the 1x1 remainder ({l_rows} rows from {plan.n_pad} "
+                       f"sources, {e_off.shape[1]} edges, {empty.size} rows empty)",
+                       zero_rows=tuple(empty))
+    off_ms = time_ms(lambda: spmm_ell_cuda(shard.off_ell, x_off), 20)
+    del x_off
+    items = torch.cat([tb.pos_item.reshape(-1), neg.reshape(-1)])
+    on_path = dict(
+        remainder=dict(rows=l_rows, sources=plan.n_pad, edges=int(e_off.shape[1]), ms=off_ms,
+                       max_abs_err=off_err, transpose_max_abs_err=t_err),
+        **{f"scatter_{side}": scatter_case(idx, rows, d, gen_k, f"(c) sorted_index_add at "
+                                           f"the epoch batch's {side}", bw)
+           for side, idx, rows in (("users", tb.user, plan.u_pad), ("items", items, plan.i_pad))})
+    del items
+    launches.clear()
+    calls0 = dict(pmesh.COLLECTIVES)
+    t0 = time.perf_counter()
+    st_c, loss_c = one_step(shard, True)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    step_launches = dict(launches)
+    step_calls = {k: v - calls0.get(k, 0) for k, v in pmesh.COLLECTIVES.items()
+                  if v - calls0.get(k, 0)}
+    st_c2, loss_c2 = one_step(shard, True)
+    same = [torch.equal(x, y) for x, y in zip(
+        st_c.params + st_c.opt_state.mu + st_c.opt_state.nu + (loss_c,),
+        st_c2.params + st_c2.opt_state.mu + st_c2.opt_state.nu + (loss_c2,))]
+    check(all(same), f"(c) the bf16 hybrid step is not bit-equal over two runs: {same}")
+    check(step_launches.get("ell_spmm", 0) == 2 * L,
+          f"(c) the hybrid step launched ell_spmm {step_launches} times, expected {2 * L}")
+    want_calls = dict(all_gather=4 * L + 4, reduce_scatter=4, reduce_scatter_rows=4 * L,
+                      all_reduce=4)
+    check(step_calls == want_calls, f"(c) the hybrid step's collectives {step_calls}, "
+          f"expected {want_calls}")
+    del st_c, st_c2
+    step = sh.make_sharded_train_step(cfg, mesh, plan, adam, hybrid=True, symmetric=True)
+    local = local0()
+    st = TrainState(local, adam.init(local), 0)
+    b20 = min(HYB["segment_batch"], sp["e_real"])
+    idx = torch.randint(0, sp["e_real"], (b20,), generator=gen, device="cuda")
+    tb20 = TripletBatch(user[idx], pos[idx], torch.ones(b20, dtype=torch.bool, device="cuda"))
+    neg20 = sample_negative(gen, b20, ni)
+    step_ms = {}
+    for what, batch_, neg_ in (("epoch_batch", tb, neg), ("batch_2_20", tb20, neg20)):
+        st, _ = step(st, shard, batch_, neg_)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HYB["timed_steps"]):
+            st, _ = step(st, shard, batch_, neg_)
+        torch.cuda.synchronize()
+        step_ms[what] = 1e3 * (time.perf_counter() - t0) / HYB["timed_steps"]
+    prof = profile_window("sharded hybrid step (1x1)", 4, 10, lambda: step(st, shard, tb, neg))
+    del st, tb20, neg20
+    log(f"[sharded-hybrid] (c) bf16 blocks: two steps bit-equal; a step "
+        f"{step_ms['epoch_batch']:.2f} ms at the epoch's batch {b}, {step_ms['batch_2_20']:.2f} ms at {b20} (mean of "
+        f"{HYB['timed_steps']}); launches {step_launches}; collectives {step_calls}")
+
+    # (d) three epochs, the second with host syncs made errors, the third timed
+    build = sh.make_sharded_epoch_fn(cfg, mesh, plan, adam, hybrid=True, symmetric=True)
+    local = local0()
+    state = TrainState(local, adam.init(local), 0)
+    epoch = build(state)
+    gen_e = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    launches.clear()
+    losses = []
+    state, loss, plan_e = epoch(state, shard, user, pos, gen_e)
+    losses.append(loss.item())
+    ran = []
+    site = sync_site(lambda: ran.append(epoch(state, shard, user, pos, gen_e)))
+    check(site is None, f"(d) the sharded epoch synchronised with the host at {site}")
+    state, loss, _ = ran[0]
+    losses.append(loss.item())
+    before = dict(launches)
+    calls0 = dict(pmesh.COLLECTIVES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, loss, _ = epoch(state, shard, user, pos, gen_e)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses.append(loss.item())
+    steps = plan_e["num_steps"]
+    per_step = {k: (v - before.get(k, 0)) / steps for k, v in launches.items()}
+    calls_step = {k: (v - calls0.get(k, 0)) / steps for k, v in pmesh.COLLECTIVES.items()
+                  if v - calls0.get(k, 0)}
+    path_launches = dict(launches)
+    check(plan_e == sp and per_step.get("ell_spmm") == 2 * L,
+          f"(d) plan {plan_e} (expected {sp}), ell_spmm launches a step {per_step}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(d) epoch losses not finite and falling: {losses}")
+    log(f"[sharded-hybrid] (d) epochs: losses {losses}; the second with host syncs made "
+        f"errors: none; the third {epoch_s:.3f} s ({1e3 * epoch_s / steps:.2f} ms a step), "
+        f"launches a step {per_step}, collectives a step {calls_step}, peak "
+        f"{peak / 1e9:.2f} GB")
+
+    # (e) propagated tables with f32 blocks against the single-device ELL route
+    trained = sh.unpad_params(sh.gather_params(state.params, mesh), plan)
+    del shard, state
+    torch.cuda.empty_cache()
+    shard32 = sh.shard_hybrid(g32, plan, 0, "cuda")
+    local_t = sh.shard_params(sh.pad_params(copy(trained), plan), plan, 0)
+    t_mesh = sh.unpad_params(sh.gather_params(sh.make_sharded_propagate(
+        cfg, mesh, plan, hybrid=True)(local_t, shard32), mesh), plan)
+    t_one = compute_serving_tables(trained, train_e, cfg, mode="propagated")
+    tab_err = max(rel_max(x, y) for x, y in zip(t_mesh, t_one))
+    check(tab_err <= 1e-5, f"(e) hybrid mesh propagated tables vs the ELL route: "
+          f"{tab_err:.3e} of the largest entry")
+    del shard32, t_mesh, t_one, trained, local_t
+    torch.cuda.empty_cache()
+    log(f"[sharded-hybrid] (e) make_sharded_propagate(hybrid=True), f32 blocks, vs "
+        f"compute_serving_tables(mode='propagated'): {tab_err:.3e} of the largest entry")
+    dist.destroy_process_group()
+
+    # B4 at a true shard's shape (four model ranks' rank 0) and its transpose
+    rect = hybrid_shard_b4_case(train_e, nu, ni, node_part, parts, bw, d)
+    numbers.update(
+        step=dict(ms=step_ms["epoch_batch"], ms_at_2_20=step_ms["batch_2_20"],
+                  batch=b, batch_2_20=b20, first_ms=first_ms, launches=step_launches,
+                  collectives=step_calls, busy_ms=prof["busy_ms"],
+                  idle_share=prof["idle_share"], kernels=prof["kernels"]),
+        epoch=dict(s=epoch_s, ms_per_step=1e3 * epoch_s / steps, losses=losses,
+                   launches_per_step=per_step, collectives_per_step=calls_step,
+                   peak_gb=peak / 1e9, launches=path_launches),
+        on_path=on_path, tables_rel_err=tab_err, rect_shard=rect,
+        phase_s=time.time() - t_phase)
+    b4_row.update(
+        launches=b4_row["launches"] + path_launches.get("ell_spmm", 0),
+        launches_sharded_hybrid=path_launches.get("ell_spmm", 0),
+        launches_per_sharded_hybrid_step=per_step.get("ell_spmm", 0),
+        rect_shard=dict(rows=rect["rows"], sources=rect["sources"], edges=rect["edges"],
+                        **{k: rect["shard"][k] for k in (
+                            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                            "max_abs_err")},
+                        transpose_ms=rect["transpose"]["ms"],
+                        transpose_library_ms=rect["transpose"]["library_ms"],
+                        transpose_bound_ms=rect["transpose"]["bound_ms"],
+                        transpose_max_abs_err=rect["transpose"]["max_abs_err"]))
+    log(f"[sharded-hybrid] {json.dumps(numbers)}")
     return numbers
 
 
@@ -3174,7 +3721,12 @@ def main() -> int:
 
         # 5e. the multi-device slice on a one-rank NCCL group
         mesh_phase(data, train_e, val_e, test_e, cfg, cc, val, test, smi)
-        del cc, val, test, fgp
+        del cc, val, test
+
+        # 5f. the sharded hybrid path at the JAX package's bench configuration
+        sharded_hybrid_phase(data, fgp["train_e"], smi, bw,
+                             next(r for r in rows if r["name"] == "ell_spmm"))
+        del fgp
 
         # 6. trained -> served, then the CLI at a small synthetic size
         launches.clear()

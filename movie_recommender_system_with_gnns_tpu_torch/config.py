@@ -1,9 +1,9 @@
 """Configuration tree of the port: the JAX package's frozen dataclasses, field
 for field, so one JSON config (``Config.to_json``) loads in both packages.
 
-Fields that only parts not ported yet read (the sharded hybrid path, the
-microbatched loss, the chunked-ELL remainder's width) are kept so a config
-written by either package round-trips unchanged. Full-state checkpoints
+Fields that only parts not ported yet read (the microbatched loss, the
+chunked-ELL remainder's width) are kept so a config written by either
+package round-trips unchanged. Full-state checkpoints
 (``state_checkpoint_path`` / ``state_checkpoint_every``) are written by
 ``training/train.py::train_model`` and read by ``training/recovery.py``.
 

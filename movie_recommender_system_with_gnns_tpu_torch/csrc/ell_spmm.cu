@@ -7,12 +7,16 @@
 //
 // What it computes, for every row r of every bucket (rows x width slots):
 //   out[node_ids[r], :] = sum_s  w[r, s] * emb[nbr[r, s], :]
-// over the slots whose neighbour id is not the padding id num_nodes. A row's
-// neighbours come first and its padding after them (EllGraph.build writes
-// them so, and DeviceELL.from_host checks it), so a row is read only up to
-// its first padding id. Products and sums are exact f32 whatever the table
-// type (f32 or bf16); the result is rounded once to the table type. Rows
-// whose node id is num_nodes pad a bucket and are never scheduled. Writing
+// over the slots whose neighbour id is not the padding id num_src, the row
+// count of the table emb (num_src x d), which may differ from the row count
+// of out (num_nodes x d): a shard of the sharded hybrid remainder sums its
+// local rows from the all-gathered table. A row's neighbours come first and
+// its padding after them (EllGraph.build writes them so, and
+// DeviceELL.from_host checks it), so a row is read only up to its first
+// padding id. Products and sums are exact f32 whatever the table type (f32
+// or bf16); the result is rounded once to the table type. Rows whose node id
+// is num_nodes pad a bucket and are never scheduled (the host drops them from
+// the work list), so the kernel itself never reads num_nodes. Writing
 // straight to out[node_ids[r]] restores node order, so no inverse-permutation
 // pass follows.
 //
@@ -52,8 +56,8 @@
 //
 // Bound on this card: bytes. A hop must read every true edge's slot (8 bytes:
 // id and weight) and the one padding id that ends a row, read the table once
-// and write it once; the arithmetic is 2 d operations per true edge. The
-// padding behind a row's first padding id is not read. Each gather reads a
+// and write the result once; the arithmetic is 2 d operations per true edge.
+// The padding behind a row's first padding id is not read. Each gather reads a
 // whole table row (d * 4 bytes per edge), over ten times those bytes, but the
 // table of the full graph (57 MB at d = 64) nearly fits the 50 MB L2, so most
 // gathers are L2 hits: the L2's rate and the gathers in flight set the time.
@@ -167,7 +171,7 @@ struct Walker {
                          : (kGatherRegs / (NV * VEC)) > 16 ? 16
                          : kGatherRegs / (NV * VEC);
   const T* emb;
-  int d, dv, num_nodes, G, ng, g, gl, lane;
+  int d, dv, num_src, G, ng, g, gl, lane;
 
   // The slot ids and weights of slots [c, c + 32) of one row (cut at `end`),
   // one slot per lane; slots past `end` read as padding.
@@ -178,7 +182,7 @@ struct Walker {
       id = load_slot(nb + s);
       wt = load_slot(wr + s);
     } else {
-      id = num_nodes;
+      id = num_src;
       wt = 0.0f;
     }
   }
@@ -247,11 +251,11 @@ struct Walker {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[v][i] = 0.0f;
     while (true) {
-      const unsigned live = __ballot_sync(kFull, id != num_nodes);
+      const unsigned live = __ballot_sync(kFull, id != num_src);
       const bool row_done = live != kFull || c + 32 >= s1;
       const int nr = row_done ? r + 1 : r;
       const int nc = row_done ? s0 : c + 32;
-      int nid = num_nodes;
+      int nid = num_src;
       float nwt = 0.0f;
       int nnode = node;
       if (nr < r1) {
@@ -288,12 +292,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 ell_spmm_kernel(const T* __restrict__ emb, T* __restrict__ out, const Buckets bk,
                 const int4* __restrict__ items, int n_items,
                 const int4* __restrict__ split_rows, unsigned* __restrict__ counters,
-                float* __restrict__ scratch, int d, int num_nodes, int G) {
+                float* __restrict__ scratch, int d, int num_src, int G) {
   Walker<T, VEC, NV> wk;
   wk.emb = emb;
   wk.d = d;
   wk.dv = d / VEC;
-  wk.num_nodes = num_nodes;
+  wk.num_src = num_src;
   wk.G = G;
   wk.ng = 32 / G;
   wk.lane = threadIdx.x & 31;
@@ -411,7 +415,7 @@ int pow2_at_least(int x) {
 template <typename T, int VEC, int NV>
 cudaError_t launch_nv(const void* emb, void* out, const Buckets& bk, const void* items,
                       int n_items, const void* split_rows, void* counters, void* scratch,
-                      int d, int num_nodes, int G, int num_sms, cudaStream_t stream) {
+                      int d, int num_src, int G, int num_sms, cudaStream_t stream) {
   static int per_sm = 0;      // blocks an SM holds, from the occupancy calculator
   if (per_sm == 0) {
     int n = 0;
@@ -425,20 +429,20 @@ cudaError_t launch_nv(const void* emb, void* out, const Buckets& bk, const void*
   const int blocks = (int)(want < full ? want : full);
   ell_spmm_kernel<T, VEC, NV><<<blocks, kThreads, 0, stream>>>(
       (const T*)emb, (T*)out, bk, (const int4*)items, n_items, (const int4*)split_rows,
-      (unsigned*)counters, (float*)scratch, d, num_nodes, G);
+      (unsigned*)counters, (float*)scratch, d, num_src, G);
   return cudaGetLastError();
 }
 
 template <typename T, int VEC>
 cudaError_t launch(const void* emb, void* out, const Buckets& bk, const void* items,
                    int n_items, const void* split_rows, void* counters, void* scratch,
-                   int d, int num_nodes, int num_sms, cudaStream_t stream) {
+                   int d, int num_src, int num_sms, cudaStream_t stream) {
   const int dv = d / VEC;
   const int G = dv >= 32 ? 32 : pow2_at_least(dv);
   const int nv = pow2_at_least((dv + G - 1) / G);
 #define ELL_LAUNCH(NV)                                                                  \
   return launch_nv<T, VEC, NV>(emb, out, bk, items, n_items, split_rows, counters,     \
-                               scratch, d, num_nodes, G, num_sms, stream)
+                               scratch, d, num_src, G, num_sms, stream)
   switch (nv) {
     case 1: ELL_LAUNCH(1);
     case 2: ELL_LAUNCH(2);
@@ -456,21 +460,24 @@ cudaError_t launch(const void* emb, void* out, const Buckets& bk, const void* it
 
 }  // namespace
 
-// One hop over every bucket: emb (num_nodes, d) and out (num_nodes, d) of
-// one type (f32, or bf16 when bf16 != 0). Bucket b (of nbuckets <= 32) is
+// One hop over every bucket: emb (num_src, d) and out (num_nodes, d) of one
+// type (f32, or bf16 when bf16 != 0); num_src is the slots' padding id.
+// Bucket b (of nbuckets <= 32) is
 // nbr[b] (rows, widths[b]) int32, w[b] (rows, widths[b]) f32 and node_ids[b]
 // (rows,) int32. items (n_items, 4) and split_rows (n_split, 4) int32 as the
 // kernel documents them; counters (1 + n_split,) uint32, zero before the call
 // and zero after it; scratch holds one f32 row of d per segment of a split
 // row. Writes out[node_ids[r]] for every scheduled row; never
 // synchronizes. Returns the cudaError_t of the launch.
-extern "C" int ell_spmm(const void* emb, void* out, int d, int num_nodes, int bf16,
+extern "C" int ell_spmm(const void* emb, void* out, int d, int num_nodes, int num_src,
+                        int bf16,
                         const void* const* nbr, const void* const* w,
                         const void* const* node_ids, const int* widths, int nbuckets,
                         const void* items, int n_items, const void* split_rows,
                         void* counters, void* scratch, int num_sms, void* stream) {
   if (n_items <= 0) return (int)cudaSuccess;
-  if (d <= 0 || d > 512 || nbuckets <= 0 || nbuckets > kMaxBuckets || num_sms <= 0)
+  if (d <= 0 || d > 512 || nbuckets <= 0 || nbuckets > kMaxBuckets || num_sms <= 0 ||
+      num_nodes <= 0 || num_src <= 0)
     return (int)cudaErrorInvalidValue;
   Buckets bk = {};
   for (int b = 0; b < nbuckets; ++b) {
@@ -486,14 +493,14 @@ extern "C" int ell_spmm(const void* emb, void* out, int d, int num_nodes, int bf
   cudaError_t e;
   if (bf16) {
     e = vec4 ? launch<__nv_bfloat16, 4>(emb, out, bk, items, n_items, split_rows, counters,
-                                        scratch, d, num_nodes, num_sms, s)
+                                        scratch, d, num_src, num_sms, s)
              : launch<__nv_bfloat16, 1>(emb, out, bk, items, n_items, split_rows, counters,
-                                        scratch, d, num_nodes, num_sms, s);
+                                        scratch, d, num_src, num_sms, s);
   } else {
     e = vec4 ? launch<float, 4>(emb, out, bk, items, n_items, split_rows, counters, scratch,
-                                d, num_nodes, num_sms, s)
+                                d, num_src, num_sms, s)
              : launch<float, 1>(emb, out, bk, items, n_items, split_rows, counters, scratch,
-                                d, num_nodes, num_sms, s);
+                                d, num_src, num_sms, s);
   }
   return (int)e;
 }

@@ -9,8 +9,9 @@ the degree-bucketed ELL layout that the ELL SpMM kernel reads.
     equal the JAX package's element for element.
   * :class:`EllGraph`: nodes grouped into degree buckets; each bucket is a
     dense (rows × width) neighbour-index / weight matrix padded to the
-    bucket's width. Padding slots point at the phantom row ``num_nodes`` with
-    weight 0. Arrays equal the JAX package's element for element.
+    bucket's width. Padding slots point at the phantom row ``num_src`` (the
+    source table's row count, ``num_nodes`` unless given) with weight 0.
+    Square arrays equal the JAX package's element for element.
 
 Pure NumPy; the arrays move to the device in ``ops/spmm.py`` (``DeviceCOO``,
 ``DeviceELL``).
@@ -86,9 +87,10 @@ class EllBlock:
     """One degree bucket: ``rows`` nodes, each padded to ``width`` neighbours.
 
     ``nbr`` (rows, width) int32 — neighbour node ids; padding entries point at
-    the phantom row ``num_nodes``. ``w`` (rows, width) float32 — edge weights,
-    zero on padding. ``node_ids`` (rows,) int32 — global node id of each row,
-    ``num_nodes`` on the rows that pad the bucket to ``row_align``.
+    the phantom row ``num_src`` (``num_nodes`` for a square graph). ``w``
+    (rows, width) float32 — edge weights, zero on padding. ``node_ids``
+    (rows,) int32 — global node id of each row, ``num_nodes`` on the rows
+    that pad the bucket to ``row_align``.
     """
 
     node_ids: np.ndarray
@@ -108,12 +110,18 @@ class EllBlock:
 class EllGraph:
     """Degree-bucketed ELL adjacency: the concatenation of the blocks covers
     every node exactly once; ``inv_perm`` maps node id to its row in the
-    concatenated block order."""
+    concatenated block order. ``num_nodes`` output rows read a source table
+    of ``num_src`` rows (``num_nodes`` for a square graph)."""
 
     blocks: List[EllBlock]
     inv_perm: np.ndarray      # (num_nodes,) int32
     num_nodes: int
     num_edges: int
+    num_src: Optional[int] = None
+
+    def __post_init__(self):
+        if self.num_src is None:
+            object.__setattr__(self, "num_src", self.num_nodes)
 
     @staticmethod
     def build(
@@ -122,6 +130,7 @@ class EllGraph:
         width_buckets: Sequence[int] = (8, 32, 128, 512, 2048, 8192, 32768),
         row_align: int = 8,
         weights: Optional[np.ndarray] = None,
+        num_src: Optional[int] = None,
     ) -> "EllGraph":
         """Bucket nodes by degree; each node lands in the smallest bucket whose
         width holds its whole neighbour list (none is dropped: the last
@@ -129,7 +138,16 @@ class EllGraph:
 
         The edge weights are ``gcn_norm`` of the given edges, or ``weights``
         (E,) float32 when given: a subset of a larger graph (the hybrid
-        propagation's remainder) keeps its graph's global GCN weights."""
+        propagation's remainder) keeps its graph's global GCN weights.
+
+        ``num_src`` makes the graph rectangular: ``num_nodes`` destination
+        rows (``edge_index[1]``) read sources ``edge_index[0]`` of a table of
+        ``num_src`` rows, and padding slots point at ``num_src`` (JAX
+        ``ChunkedEll.build(num_src=...)``; a shard of the sharded hybrid
+        remainder, ``l_rows`` local rows from the ``n_pad``-row gathered
+        table). Left None the graph is square and its arrays are those of
+        the square build, byte for byte."""
+        n_src = num_nodes if num_src is None else int(num_src)
         w_all = (gcn_norm(edge_index, num_nodes) if weights is None
                  else np.asarray(weights, np.float32))
         if w_all.shape != (edge_index.shape[1],):
@@ -158,7 +176,7 @@ class EllGraph:
             if sel.size == 0:
                 continue
             rows = _round_up(sel.size, row_align)
-            nbr = np.full((rows, wd), num_nodes, dtype=np.int32)
+            nbr = np.full((rows, wd), n_src, dtype=np.int32)
             bw = np.zeros((rows, wd), dtype=np.float32)
             # every edge whose destination is in this bucket
             row_of = np.full(num_nodes, -1, dtype=np.int64)
@@ -178,7 +196,7 @@ class EllGraph:
         valid = concat < num_nodes
         inv_perm[concat[valid]] = np.flatnonzero(valid)
         return EllGraph(blocks=blocks, inv_perm=inv_perm, num_nodes=num_nodes,
-                        num_edges=int(edge_index.shape[1]))
+                        num_edges=int(edge_index.shape[1]), num_src=n_src)
 
     @property
     def padding_ratio(self) -> float:

@@ -17,7 +17,11 @@ bipartite graph before the other. A split row's segments are summed in
 segment order by the warp that finishes its last segment, so the result is
 bit-equal from run to run. Tables whose d is no multiple of 4 (or whose rows
 are not aligned for vector loads) take the kernel's scalar-load
-instantiation; d is at most 512.
+instantiation; d is at most 512. The table may have another row count than
+the result (``DeviceELL.num_src``: a shard's local rows summed from the
+all-gathered table); the kernel reads ``num_src`` as the padding id of a
+row's slots, and the host drops the rows whose node id is ``num_nodes``,
+which pad a bucket.
 
 The TPU kernel has no backward. Here the gradient of ``Â·E`` is one more
 launch over ``Âᵀ``, when the caller gives it (``spmm_ell_cuda(...,
@@ -56,7 +60,7 @@ class EllSchedule:
     whole rows ``row0 .. row1 - 1``; ``(-1 - i, segment, slot0, slot1)`` for
     one slot segment of split row ``i``. ``split_rows`` (n_split, 4) int32:
     ``(bucket, row, first scratch row, segments)``. ``item_side`` is 0 for an
-    item whose rows read higher node ids than their own (users, in a
+    item whose rows read the higher side of the source table (users, in a
     users-first bipartite graph) and 1 otherwise. The host arrays have device
     copies; ``counters`` (1 + n_split) int32 deal the items and count each
     split row's finished segments, and are zero between calls, so launches
@@ -102,31 +106,46 @@ def _cdiv(a, b):
 
 
 def ell_schedule(blocks: Sequence, num_nodes: int, device: DeviceLike = None,
-                 budget: int = SLOT_BUDGET, by_side: bool = True) -> EllSchedule:
+                 budget: int = SLOT_BUDGET, by_side: bool = True,
+                 num_src: Optional[int] = None,
+                 src_split: Optional[int] = None) -> EllSchedule:
     """Work list of one hop over ELL ``blocks`` (host arrays ``node_ids``,
     ``nbr``, ``w`` per bucket, padding trailing each row), vectorised NumPy.
 
     Rows whose node id is ``num_nodes`` pad a bucket and are not scheduled;
-    every other row is, isolated rows included (their output is zero). A
+    every other row is, isolated rows included (their output is zero).
+    Slots whose id is ``num_src`` (``num_nodes`` unless given) pad a row: a
     row's live slots are those before its first padding id. A row of more
     than ``budget`` live slots is split into segments of at most ``budget``
     (a multiple of 32, so every segment starts on a 32-slot chunk); the other
     rows form runs of consecutive rows whose live slots (at least 1 per row)
     add up to at most ``budget``. With ``by_side`` the list takes the rows
-    that read higher ids than their own first, then the others, so on a
-    users-first bipartite graph a sweep gathers from one table at a time;
-    within a side, buckets go widest first."""
+    that read the higher side first, then the others, so on a users-first
+    bipartite graph a sweep gathers from one table at a time; within a
+    side, buckets go widest first. A row's side is read from its first
+    slot: in a square graph, a source below the row's own id is the lower
+    side; a rectangular graph's rows and sources are numbered apart, so it
+    takes ``src_split``, the first source of the higher side (the sharded
+    remainder's ``u_pad``: sources from it on are items), and without one
+    has a single side. The side order changes only the order of the
+    gathers, never the result."""
     if budget < 32 or budget % 32:
         raise ValueError(f"budget must be a positive multiple of 32, got {budget}")
     if len(blocks) > MAX_BUCKETS:
         raise ValueError(f"the kernel takes at most {MAX_BUCKETS} buckets, got {len(blocks)}")
+    num_src = num_nodes if num_src is None else int(num_src)
     per_bucket = []
     for b, blk in enumerate(blocks):
         nbr, ids = np.asarray(blk.nbr), np.asarray(blk.node_ids)
         if nbr.size == 0:
             continue
-        live = np.count_nonzero(nbr != num_nodes, axis=1)
-        side = (nbr[:, 0] < ids) if by_side else np.zeros(ids.shape, bool)
+        live = np.count_nonzero(nbr != num_src, axis=1)
+        if not by_side or (num_src != num_nodes and src_split is None):
+            side = np.zeros(ids.shape, bool)
+        elif src_split is None:
+            side = nbr[:, 0] < ids
+        else:
+            side = nbr[:, 0] < src_split
         per_bucket.append((b, live, side, ids < num_nodes))
     items, sides, splits = [], [], []
     n_split = n_seg = 0
@@ -179,7 +198,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.ell_spmm
     if fn.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i32, i32, i32, p, p, p, p, i32, p, i32, p, p, p, i32, p]
+        fn.argtypes = [p, p, i32, i32, i32, i32, p, p, p, p, i32, p, i32, p, p, p, i32, p]
         fn.restype = ctypes.c_int
         lib.ell_spmm_error_string.argtypes = [ctypes.c_int]
         lib.ell_spmm_error_string.restype = ctypes.c_char_p
@@ -190,22 +209,24 @@ def ell_spmm_into(ell: DeviceELL, emb: torch.Tensor, out: torch.Tensor,
                   schedule: Optional[EllSchedule] = None) -> None:
     """One launch over ``schedule``'s items (default: ``ell.schedule``, the
     whole hop): ``out[node_ids[r]] = Σ_s w[r, s]·emb[nbr[r, s]]`` for each
-    scheduled row. ``emb`` and ``out`` are CUDA tensors (num_nodes,
-    d ≤ 512), contiguous, f32 or bf16, of one type. ``schedule`` may be a
-    :meth:`EllSchedule.select` of ``ell.schedule`` (one bucket's or one
+    scheduled row. ``emb`` (num_src, d ≤ 512) and ``out`` (num_nodes, d)
+    are CUDA tensors, contiguous, f32 or bf16, of one type. ``schedule`` may
+    be a :meth:`EllSchedule.select` of ``ell.schedule`` (one bucket's or one
     side's items, for timing them alone)."""
-    n = ell.num_nodes
-    if (emb.device.type != "cuda" or emb.dim() != 2 or emb.shape[0] != n
+    n, n_src = ell.num_nodes, ell.num_src
+    if (emb.device.type != "cuda" or emb.dim() != 2 or emb.shape[0] != n_src
             or not 0 < emb.shape[1] <= MAX_DIM
             or emb.dtype not in (torch.float32, torch.bfloat16)):
-        raise ValueError(f"emb must be a CUDA tensor ({n}, d <= {MAX_DIM}), "
+        raise ValueError(f"emb must be a CUDA tensor ({n_src}, d <= {MAX_DIM}), "
                          f"float32 or bfloat16, got {tuple(emb.shape)} {emb.dtype} "
                          f"on {emb.device}")
-    if (out.shape != emb.shape or out.dtype != emb.dtype or out.device != emb.device
-            or not emb.is_contiguous() or not out.is_contiguous()):
-        raise ValueError("emb and out must be contiguous and of one shape, type and "
-                         f"device, got {tuple(emb.shape)} {emb.dtype} on {emb.device} "
-                         f"and {tuple(out.shape)} {out.dtype} on {out.device}")
+    if (out.shape != (n, emb.shape[1]) or out.dtype != emb.dtype
+            or out.device != emb.device or not emb.is_contiguous()
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be ({n}, d) and emb and out contiguous, of one "
+                         f"type and device, got emb {tuple(emb.shape)} {emb.dtype} on "
+                         f"{emb.device} and out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}")
     for blk in ell.blocks:
         for name, t, dt in (("node_ids", blk.node_ids, torch.int32),
                             ("nbr", blk.nbr, torch.int32), ("w", blk.w, torch.float32)):
@@ -232,7 +253,7 @@ def ell_spmm_into(ell: DeviceELL, emb: torch.Tensor, out: torch.Tensor,
     lib = _library()
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
-        err = lib.ell_spmm(emb.data_ptr(), out.data_ptr(), d, n,
+        err = lib.ell_spmm(emb.data_ptr(), out.data_ptr(), d, n, n_src,
                            int(emb.dtype == torch.bfloat16), *ptrs, widths, nb,
                            sched.device_items.data_ptr(), n_items,
                            sched.device_split_rows.data_ptr(), sched.counters.data_ptr(),
@@ -246,17 +267,20 @@ def ell_spmm_into(ell: DeviceELL, emb: torch.Tensor, out: torch.Tensor,
 
 def _hop(ell: DeviceELL, emb: torch.Tensor) -> torch.Tensor:
     """One hop: the plain version for a CPU table, one kernel launch for a
-    CUDA one."""
+    CUDA one. The kernel writes every one of the ``num_nodes`` rows (the
+    blocks cover each node once; a row without a neighbour is zero)."""
     if emb.device.type == "cpu":
         return spmm_ell(ell, emb)
-    out = torch.empty_like(emb)
+    out = emb.new_empty((ell.num_nodes, emb.shape[1]))
     ell_spmm_into(ell, emb, out)
     return out
 
 
 class _EllSpmm(torch.autograd.Function):
     """Forward is one hop over ``ell``; backward one hop of the cotangent over
-    ``transpose`` (``Âᵀ``, built by the caller), and raises without it."""
+    ``transpose`` (``Âᵀ``, built by the caller: for a rectangular ``ell``,
+    ``num_src`` rows read from ``num_nodes`` sources), and raises without
+    it."""
 
     @staticmethod
     def forward(ctx, emb, ell, transpose):
@@ -278,7 +302,8 @@ class _EllSpmm(torch.autograd.Function):
 def spmm_ell_cuda(ell: DeviceELL, emb: torch.Tensor,
                   transpose: Optional[DeviceELL] = None) -> torch.Tensor:
     """``Â·emb`` over the ELL blocks; same signature and result as
-    :func:`ops.spmm.spmm_ell`. emb (num_nodes, d), f32 or bf16, d ≤ 512.
+    :func:`ops.spmm.spmm_ell`. emb (num_src, d), f32 or bf16, d ≤ 512; the
+    result (num_nodes, d).
 
     ``transpose`` is ``Âᵀ`` as a :class:`DeviceELL` (the same edges with src
     and dst swapped, the same weights): the gradient of the result is then

@@ -30,10 +30,12 @@
 
 The JAX package's remainder is a chunked ELL (``ChunkedEll``,
 ``spmm_chunked_ell``), a TPU workaround that keeps scatters short. The port
-does not carry it: its remainder is a degree-bucketed :class:`DeviceELL`,
-propagated by the ELL SpMM kernel (``ops/cuda_spmm.py``), or the dst-sorted
-COO that :func:`spmm_segment` reads. The sharded hybrid remainder that uses
-the chunked ELL's rectangular form is not ported (ROADMAP A7b).
+carries every remainder as a degree-bucketed :class:`DeviceELL` on the ELL
+SpMM kernel (``ops/cuda_spmm.py``), or as the dst-sorted COO that
+:func:`spmm_segment` reads. The chunked ELL's rectangular form, a shard's
+local rows summed from the all-gathered table, is a :class:`DeviceELL` with
+a source table of its own size (``num_src``; ``parallel/sharding.py``'s
+hybrid remainder).
 """
 
 from __future__ import annotations
@@ -162,37 +164,54 @@ def make_spmm_chunked(num_chunks: int
 
 class DeviceEllBlock(NamedTuple):
     node_ids: torch.Tensor  # (rows,) int32; num_nodes on rows that pad the bucket
-    nbr: torch.Tensor       # (rows, width) int32; padding points at num_nodes
+    nbr: torch.Tensor       # (rows, width) int32; padding points at num_src
     w: torch.Tensor         # (rows, width) float32, zero on padding
 
 
 @dataclass(frozen=True)
 class DeviceELL:
-    """Degree-bucketed ELL adjacency on a device (scatter-free propagation).
-    ``schedule`` is the SpMM kernel's work list over the blocks
+    """Degree-bucketed ELL adjacency on a device (scatter-free propagation):
+    ``num_nodes`` output rows summed from a table of ``num_src`` rows
+    (``num_nodes`` unless given: a rectangular shard of the sharded hybrid
+    remainder). ``schedule`` is the SpMM kernel's work list over the blocks
     (``ops/cuda_spmm.py::EllSchedule``), built once by :meth:`from_host`."""
 
     blocks: Tuple[DeviceEllBlock, ...]
     inv_perm: torch.Tensor  # (num_nodes,) int64: node id -> row of the concatenated blocks
     num_nodes: int
     schedule: Optional[object] = None
+    num_src: Optional[int] = None
+
+    def __post_init__(self):
+        if self.num_src is None:
+            object.__setattr__(self, "num_src", self.num_nodes)
 
     @staticmethod
-    def from_host(g: EllGraph, device: DeviceLike = None) -> "DeviceELL":
+    def from_host(g: EllGraph, device: DeviceLike = None,
+                  src_split: Optional[int] = None) -> "DeviceELL":
         """Upload an :class:`~..data.graph.EllGraph`, the port's or the JAX
-        package's (any object with the same NumPy fields). The blocks must
-        cover every node exactly once (the kernel writes each node's row
-        from its block and nothing else), and a row's padding slots must
-        trail its neighbours (the kernel reads a row up to its first padding
-        id), as ``EllGraph.build`` lays them out."""
+        package's (any object with the same NumPy fields; one without
+        ``num_src`` is square). The blocks must cover every node exactly
+        once (the kernel writes each node's row from its block and nothing
+        else), every slot must hold a source row or the padding id
+        ``num_src``, and a row's padding slots must trail its neighbours
+        (the kernel reads a row up to its first padding id), as
+        ``EllGraph.build`` lays them out. ``src_split`` is the first item
+        row of a rectangular bipartite graph's source table, for the work
+        list's side order (``ops/cuda_spmm.py::ell_schedule``)."""
         dev = resolve_device(device)
+        num_src = int(getattr(g, "num_src", None) or g.num_nodes)
         ids = (np.concatenate([np.asarray(b.node_ids) for b in g.blocks])
                if g.blocks else np.zeros(0, np.int64))
         real = ids[ids < g.num_nodes]
         if real.size != g.num_nodes or np.unique(real).size != g.num_nodes:
             raise ValueError("EllGraph blocks do not cover every node exactly once")
         for blk in g.blocks:
-            pad = np.asarray(blk.nbr) == g.num_nodes
+            nbr = np.asarray(blk.nbr)
+            if nbr.size and (nbr.min() < 0 or nbr.max() > num_src):
+                raise ValueError(f"EllGraph block reads row {nbr.min()} or {nbr.max()} of a "
+                                 f"source table of {num_src} rows (padding {num_src})")
+            pad = nbr == num_src
             if (pad[:, :-1] & ~pad[:, 1:]).any():
                 raise ValueError("EllGraph block has a neighbour behind a padding "
                                  "slot; padding must trail each row")
@@ -207,19 +226,25 @@ class DeviceELL:
                                         up(b.w, np.float32)) for b in g.blocks),
             inv_perm=up(g.inv_perm, np.int64),
             num_nodes=int(g.num_nodes),
-            schedule=ell_schedule(g.blocks, int(g.num_nodes), dev),
+            schedule=ell_schedule(g.blocks, int(g.num_nodes), dev, num_src=num_src,
+                                  src_split=src_split),
+            num_src=num_src,
         )
 
 
 def spmm_ell(ell: DeviceELL, emb: torch.Tensor) -> torch.Tensor:
     """Scatter-free propagation over degree-bucketed ELL blocks, plain PyTorch.
 
-    For each bucket: gather (rows, width, d) neighbour rows of the table
-    extended by one zero row (where padding slots point), multiply by the
-    edge weights, reduce over the width. Products and sums are f32 whatever
-    the table type; the result is rounded once to ``emb.dtype``. Block outputs
+    ``emb`` has ``ell.num_src`` rows, the result ``ell.num_nodes``. For each
+    bucket: gather (rows, width, d) neighbour rows of the table extended by
+    one zero row (where padding slots point), multiply by the edge weights,
+    reduce over the width. Products and sums are f32 whatever the table
+    type; the result is rounded once to ``emb.dtype``. Block outputs
     concatenate in bucket order; one gather by ``inv_perm`` restores node
     order."""
+    if emb.shape[0] != ell.num_src:
+        raise ValueError(f"spmm_ell: the table has {emb.shape[0]} rows, the graph reads "
+                         f"{ell.num_src}")
     emb_pad = torch.cat([emb, emb.new_zeros((1, emb.shape[1]))]).float()
     outs = [torch.einsum("rw,rwd->rd", blk.w, emb_pad[blk.nbr.long()])
             for blk in ell.blocks]

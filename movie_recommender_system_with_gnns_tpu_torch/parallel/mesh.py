@@ -12,7 +12,8 @@ them). NCCL carries the collectives on the card, gloo on the CPU.
 Autograd does not differentiate ``torch.distributed`` calls, so the
 collectives inside a differentiated function are ``autograd.Function``s with
 their transposes written out (JAX's ``shard_map`` derives them):
-:func:`all_gather_rows` (backward: reduce-scatter, summed) and :func:`psum`
+:func:`all_gather_rows` (backward: reduce-scatter, summed),
+:func:`reduce_scatter_rows` (backward: all-gather) and :func:`psum`
 (backward: the same sum of the cotangents). ``COLLECTIVES`` counts the calls
 by name.
 """
@@ -33,7 +34,8 @@ from ..utils.device import DeviceLike, resolve_device
 
 #: seconds a collective may wait for the other ranks before it raises
 TIMEOUT_S = 600
-#: collective calls by name: ``all_gather``, ``reduce_scatter``, ``all_reduce``
+#: collective calls by name: ``all_gather``, ``reduce_scatter`` (an all-gather's
+#: backward), ``reduce_scatter_rows`` (the forward op), ``all_reduce``
 COLLECTIVES: collections.Counter = collections.Counter()
 
 # the names of newer releases, where the older ones warn that they are deprecated
@@ -160,6 +162,18 @@ def gather_rows_of(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def _sum_rows_of(x: torch.Tensor, group, name: str) -> torch.Tensor:
+    """The group's ``x`` summed, this rank's block of rows (rank order),
+    counted under ``name`` (not differentiated)."""
+    n = dist.get_world_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rows do not split over {n} ranks")
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    _reduce_scatter(out, x.contiguous(), op=dist.ReduceOp.SUM, group=group)
+    COLLECTIVES[name] += 1
+    return out
+
+
 class _AllGatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -168,11 +182,18 @@ class _AllGatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
-        out = g.new_empty((g.shape[0] // n,) + tuple(g.shape[1:]))
-        _reduce_scatter(out, g.contiguous(), op=dist.ReduceOp.SUM, group=ctx.group)
-        COLLECTIVES["reduce_scatter"] += 1
-        return out, None
+        return _sum_rows_of(g, ctx.group, "reduce_scatter"), None
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum_rows_of(x, group, "reduce_scatter_rows")
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_rows_of(g, ctx.group), None
 
 
 class _Psum(torch.autograd.Function):
@@ -191,6 +212,15 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     blocks in rank order. Its backward reduce-scatters the cotangent (each
     rank gets the sum over the group of the cotangents of its rows)."""
     return _AllGatherRows.apply(x, group)
+
+
+def reduce_scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """JAX's ``psum_scatter(x, axis, scatter_dimension=0, tiled=True)``:
+    ``x`` (a multiple of the group's size in rows) summed over the group,
+    each rank keeping its block of rows in rank order. Its backward
+    all-gathers the cotangent (each rank's rows took every rank's input
+    rows at that place)."""
+    return _ReduceScatterRows.apply(x, group)
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:

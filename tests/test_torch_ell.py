@@ -409,3 +409,39 @@ def test_ell_schedule_select_keeps_split_rows_whole(tiny_data):
         sch.select(cut)
     with pytest.raises(ValueError, match="multiple of 32"):
         cuda_spmm.ell_schedule(g.blocks, n, "cpu", budget=48)
+
+
+#: sha256 of the square build's arrays on the tiny graph (node ids, slots,
+#: weights per bucket, with their types and shapes; the inverse permutation;
+#: the node and edge counts), taken before ``EllGraph.build`` learned
+#: ``num_src``: the square layout stays as it was, byte for byte
+SQUARE_LAYOUT = {
+    "default": "436dab87e3f1f60558c6a6d3078eaa4b08c1a8c4410d8b7e55070e103db16451",
+    "row_align4": "3f6bfe548dcda691698b726b310c41eea1330fad34edc01f6b6067d5dd6d123d",
+    "buckets4_16": "6b9d584030e316676bee9438c3d982cf0d3f0a6a3c81afc183bc6d45ff052774",
+    "weights": "d1845af89dbf74370ef8061ec9a17f97f200e7323eb913d63f0e76a3e962d51b",
+}
+
+
+@pytest.mark.parametrize("case", sorted(SQUARE_LAYOUT))
+def test_ell_graph_square_layout_is_frozen(tiny_graph, case):
+    import hashlib
+
+    e, n = tiny_graph
+    kw = {"default": {}, "row_align4": dict(row_align=4),
+          "buckets4_16": dict(width_buckets=(4, 16)),
+          "weights": dict(weights=np.random.default_rng(3).uniform(
+              0.1, 1, e.shape[1]).astype(np.float32))}[case]
+    g = tgraph.EllGraph.build(e, n, **kw)
+    h = hashlib.sha256()
+    for b in g.blocks:
+        for a in (b.node_ids, b.nbr, b.w):
+            h.update(str(a.dtype).encode())
+            h.update(str(a.shape).encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+    h.update(g.inv_perm.tobytes())
+    h.update(str((g.num_nodes, g.num_edges)).encode())
+    assert h.hexdigest() == SQUARE_LAYOUT[case]
+    assert g.num_src == n
+    assert tgraph.EllGraph.build(e, n, num_src=n, **kw).blocks[0].nbr.tobytes() == \
+        g.blocks[0].nbr.tobytes()

@@ -196,10 +196,11 @@ def test_sharded_sgd_gradient_matches_jax(steps_out, jax_grads, dp, mp, loss):
 
 def test_make_mesh_refuses_a_shape_that_does_not_fit(steps_out):
     """make_mesh(3, 1) on 4 ranks raises JAX's ValueError (and the
-    collectives' backward passed inside the spawn); the hybrid step is not
-    ported and says where it is queued."""
+    collectives' backward passed inside the spawn); the hybrid step given
+    the segment path's edge shard says what it takes."""
     assert str(steps_out["mismatch_error"]) == "mesh 3x1 != 4 devices"
-    assert "ROADMAP A7b" in str(steps_out["hybrid_error"])
+    assert str(steps_out["hybrid_error"]) == (
+        "the hybrid path takes a HybridShard (shard_hybrid), got list")
 
 
 @pytest.fixture(scope="module")

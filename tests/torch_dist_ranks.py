@@ -22,7 +22,8 @@ import torch.multiprocessing as mp
 
 from movie_recommender_system_with_gnns_tpu_torch.config import (
     Config, ModelConfig, TrainConfig)
-from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import params_from_numpy
+from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import (
+    LightGCNParams, params_from_numpy)
 from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import TripletBatch
 from movie_recommender_system_with_gnns_tpu_torch.parallel import mesh as pmesh
 from movie_recommender_system_with_gnns_tpu_torch.parallel import sharding as sh
@@ -169,8 +170,9 @@ def sharded_steps(rank: int, inputs) -> Dict[str, np.ndarray]:
     except ValueError as err:
         out["mismatch_error"] = str(err)
     try:
-        sh.make_sharded_train_step(cfg_of(inputs), mesh, plan, opt=None, hybrid=True)
-    except NotImplementedError as err:
+        sh.make_sharded_train_step(cfg_of(inputs), mesh, plan, opt=None, hybrid=True)(
+            None, sh.shard_coos(graph, plan, mesh.coords[1], "cpu"), batch, None)
+    except TypeError as err:
         out["hybrid_error"] = str(err)
     return {k: np.asarray(v) for k, v in out.items()}
 
@@ -305,3 +307,155 @@ def compact_supersteps(rank: int, inputs) -> Dict[str, np.ndarray]:
                                               b.params + b.opt_state.mu + b.opt_state.nu)]
     out["solo_equal"] = np.asarray(same + [la == lb, a.step == b.step])
     return {k: np.asarray(v) for k, v in out.items()}
+
+
+#: the meshes of the hybrid spawn; 1×1 last (rank 0 alone)
+HYBRID_SHAPES = ((2, 2), (4, 1), (1, 4), (1, 1))
+#: the meshes that also run a step with bf16 blocks
+BF16_SHAPES = ((2, 2), (1, 1))
+
+
+def _gathered(mesh, plan, pair) -> np.ndarray:
+    """Users then items of this mesh's row-sharded PADDED pair, gathered
+    and unpadded."""
+    full = sh.unpad_params(sh.gather_params(LightGCNParams(*pair), mesh), plan)
+    return torch.cat(list(full)).numpy()
+
+
+#: the collectives a step's calls are counted by, in this order
+CALLS = ("all_gather", "reduce_scatter", "reduce_scatter_rows", "all_reduce")
+
+
+def _hybrid_step(cfg, mesh, plan, graph, inputs, sym: bool, opt_name: str,
+                 transpose: bool = None):
+    """One hybrid step from the inputs' tables: (loss, the clipped gradient
+    (SGD(1.0)) or Adam's first moments, the step's collective calls by
+    :data:`CALLS`). The shard holds the remainder's transpose when the
+    step is not symmetric, unless ``transpose`` says otherwise."""
+    m = mesh.coords[1]
+    shard = sh.shard_hybrid(graph, plan, m, "cpu",
+                            transpose=not sym if transpose is None else transpose)
+    local = sh.shard_params(sh.pad_params(params_from_numpy(inputs["u"], inputs["i"], "cpu"),
+                                          plan), plan, m)
+    opt = make_adam(cfg, lr_of=lambda t: cfg.train.lr) if opt_name == "adam" else sgd(1.0)
+    before = _gathered(mesh, plan, local)
+    step = sh.make_sharded_train_step(cfg, mesh, plan, opt, hybrid=True, symmetric=sym)
+    batch = TripletBatch(*(torch.from_numpy(inputs[k]) for k in ("user", "pos", "mask")))
+    calls0 = dict(pmesh.COLLECTIVES)
+    state, loss = step(TrainState(local, opt.init(local), 0), shard, batch,
+                       torch.from_numpy(inputs["neg"]))
+    calls = np.asarray([pmesh.COLLECTIVES[k] - calls0.get(k, 0) for k in CALLS])
+    if opt_name == "adam":
+        return float(loss), _gathered(mesh, plan, state.opt_state.mu), calls
+    return float(loss), before - _gathered(mesh, plan, state.params), calls
+
+
+def hybrid_ranks(rank: int, inputs) -> Dict[str, np.ndarray]:
+    """The sharded hybrid path on each of :data:`HYBRID_SHAPES`: one step
+    per ghost cap (0, 64), VJP (symmetric or autograd) and update (SGD(1.0),
+    Adam), one SGD step with bf16 blocks (on :data:`BF16_SHAPES`) and one
+    of the remainder in the segment form (``off_format="coo"``); on 1×1 the
+    error of an autograd step over a shard without the transpose; on 2×2
+    the propagated tables, one epoch from injected draws and four epochs
+    from a generator, run twice; ``reduce_scatter_rows`` and its backward
+    against the all-gather."""
+    e, part = inputs["edges"], inputs["node_part"]
+    nu, ni = inputs["u"].shape[0], inputs["i"].shape[0]
+    cfg = cfg_of(inputs)
+    out = {}
+    for dp, mpar in HYBRID_SHAPES:
+        if (dp, mpar) == (1, 1):
+            solo_group()
+            if rank:
+                return {}
+        mesh = pmesh.make_mesh(dp, mpar, device="cpu")
+        plan = sh.ShardPlan.create(nu, ni, mpar)
+        for ghost in (0, 64):
+            graph = sh.shard_hybrid_graph(e, plan, part, int(inputs["parts"]), align=8,
+                                          block_dtype="float32", ghost_cap=ghost)
+            for sym in (True, False):
+                for opt_name in ("sgd", "adam"):
+                    tag = f"{dp}x{mpar}_g{ghost}_s{int(sym)}_{opt_name}"
+                    out[f"{tag}_loss"], out[f"{tag}_g"], out[f"{tag}_calls"] = \
+                        _hybrid_step(cfg, mesh, plan, graph, inputs, sym, opt_name)
+            if ghost and (dp, mpar) == (1, 1):
+                try:
+                    _hybrid_step(cfg, mesh, plan, graph, inputs, False, "sgd", transpose=False)
+                except ValueError as err:
+                    out["no_transpose_error"] = str(err)
+        if (dp, mpar) in BF16_SHAPES:
+            bf16 = sh.shard_hybrid_graph(e, plan, part, int(inputs["parts"]), align=8,
+                                         block_dtype="bfloat16", ghost_cap=64)
+            tag = f"{dp}x{mpar}_g64_s1_sgd_bf16"
+            out[f"{tag}_loss"], out[f"{tag}_g"], _ = _hybrid_step(cfg, mesh, plan, bf16,
+                                                                 inputs, True, "sgd")
+        coo = sh.shard_hybrid_graph(e, plan, part, int(inputs["parts"]), align=8,
+                                    block_dtype="float32", ghost_cap=64, off_format="coo")
+        tag = f"{dp}x{mpar}_g64_s1_sgd_coo"
+        out[f"{tag}_loss"], out[f"{tag}_g"], _ = _hybrid_step(cfg, mesh, plan, coo, inputs,
+                                                             True, "sgd")
+        if (dp, mpar) == (2, 2):
+            out.update(_hybrid_tables_and_epochs(rank, inputs, mesh, plan))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _hybrid_tables_and_epochs(rank, inputs, mesh, plan) -> Dict[str, np.ndarray]:
+    m = mesh.coords[1]
+    graph = sh.shard_hybrid_graph(inputs["edges"], plan, inputs["node_part"],
+                                  int(inputs["parts"]), align=8, block_dtype="float32",
+                                  ghost_cap=64)
+    shard = sh.shard_hybrid(graph, plan, m, "cpu")
+    local = lambda: sh.shard_params(sh.pad_params(
+        params_from_numpy(inputs["u"], inputs["i"], "cpu"), plan), plan, m)
+    out = {"prop": _gathered(mesh, plan, sh.make_sharded_propagate(
+        cfg_of(inputs), mesh, plan, hybrid=True)(local(), shard))}
+    cfg = Config(model=ModelConfig(num_layers=int(inputs["layers"]), dim=int(inputs["dim"])),
+                 train=TrainConfig(lr=5e-2, fullgraph_steps=2))
+    opt = make_adam(cfg, lr_of=lambda t: cfg.train.lr)
+    build = sh.make_sharded_epoch_fn(cfg, mesh, plan, opt, hybrid=True, symmetric=True)
+    user, pos = torch.from_numpy(inputs["fw_user"]), torch.from_numpy(inputs["fw_pos"])
+    p0 = local()
+    epoch = build(TrainState(p0, opt.init(p0), 0))
+    state, loss, plan_ = epoch(TrainState(p0, opt.init(p0), 0), shard, user, pos, None,
+                               perm=inputs["perm"], neg=inputs["negs"])
+    out.update(epoch_loss=float(loss), epoch_tables=_gathered(mesh, plan, state.params),
+               epoch_mu=_gathered(mesh, plan, state.opt_state.mu),
+               epoch_plan=np.asarray([plan_["e_real"], plan_["num_steps"], plan_["batch"]]),
+               epoch_step=state.step)
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator().manual_seed(int(inputs["seed"]))
+        p = local()
+        st = TrainState(p, opt.init(p), 0)
+        losses = []
+        for _ in range(4):
+            st, loss, _ = epoch(st, shard, user, pos, gen)
+            losses.append(float(loss))
+        runs.append((losses, st))
+    (la, a), (lb, b) = runs
+    out["epoch_losses"] = np.asarray(la)
+    out["epoch_runs_equal"] = np.asarray(
+        [la == lb] + [torch.equal(x, y) for x, y in zip(
+            a.params + a.opt_state.mu + a.opt_state.nu,
+            b.params + b.opt_state.mu + b.opt_state.nu)])
+    try:
+        build(TrainState(sh.pad_params(p0, plan), None, 0))
+    except ValueError as err:
+        out["epoch_rows_error"] = str(err)
+    # reduce_scatter_rows: the sum over the model group of each rank's rows,
+    # and its backward the all-gather of the cotangents
+    world = 2
+    x = torch.arange(world * 6, dtype=torch.float32).view(world * 2, 3) * (rank + 1)
+    x.requires_grad_(True)
+    c = torch.full((2, 3), float(rank + 1))
+    y = pmesh.reduce_scatter_rows(x, mesh.model_group)
+    (gx,) = torch.autograd.grad((y * c).sum(), x)
+    d_row = mesh.coords[0] * mesh.mp
+    ranks_sum = sum(r + 1 for r in range(d_row, d_row + world))
+    want = torch.arange(world * 6, dtype=torch.float32).view(world * 2, 3)[2 * m:2 * m + 2]
+    if not torch.equal(y.detach(), want * ranks_sum):
+        raise AssertionError(f"reduce_scatter_rows {y} != {want * ranks_sum}")
+    out["rs_grad"] = gx.numpy()
+    out["rs_want"] = torch.cat([torch.full((2, 3), float(r + 1))
+                                for r in range(d_row, d_row + world)]).numpy()
+    return out

@@ -187,6 +187,9 @@ TRAIN = dict(clusters=100, layers=3, epochs=2)
 #: (runs/ml25m_fg150_k8_d256_pop.log), 2 epochs
 FG = dict(dim=256, layers=3, parts=100, steps=16, negatives=8, lr=3e-3, warmup=32,
           epochs=2)
+#: the microbatched full-graph step: JAX's ml25m_fg150_k8_d512_pop width
+#: (runs/ml25m_fg150_k8_d512_pop.log: --dim 512 --loss-microbatches 16)
+FG_MICRO = dict(chunks=16, dim=512, timed=5)
 #: the CLI phase's synthetic graph (its host work stays a few seconds)
 SMALL = dict(users=20_000, items=8_000, interactions=1_000_000,
              communities=20, power=0.9, clusters=10)
@@ -1354,6 +1357,57 @@ def scatter_case(idx, rows: int, d: int, gen, what: str, bw: float) -> dict:
                 bound_ms=byts / bw * 1e3, max_abs_err=err)
 
 
+def f64_step_reference(params, coo, tb, neg, cfg, chunks: int):
+    """``(loss, (g_user, g_item))`` of ``compute_loss`` on a symmetric graph,
+    in float64 by plain PyTorch: each hop an ``index_add_`` over ``coo``'s
+    edges in 16 slices; the triplet loss in ``chunks`` chunks, each weighted
+    by its real triplets (exact in any precision), its rows gathered by
+    ``index_select``; the propagation's adjoint Σ_l Â^l applied to the
+    finals' cotangent (Â = Âᵀ)."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops.bpr import select_bpr_loss
+
+    src, dst, w = coo.src.long(), coo.dst.long(), coo.w.double()
+    step = -(-src.numel() // 16)
+
+    def hop(x):
+        out = torch.zeros_like(x)
+        for s in range(0, src.numel(), step):
+            out.index_add_(0, dst[s:s + step],
+                           x.index_select(0, src[s:s + step]) * w[s:s + step, None])
+        return out
+
+    layers, k1 = cfg.model.num_layers, cfg.model.num_layers + 1
+    scale = 1.0 / (k1 * k1) if cfg.model.readout == "reference" else 1.0 / k1
+    nu, d = params.user_emb.shape
+    x = torch.cat(list(params)).double()
+    acc, cur = x, x
+    for _ in range(layers):
+        cur = hop(cur)
+        acc = acc + cur
+    final = acc * scale
+    uf, itf = (t.detach().requires_grad_(True) for t in (final[:nu], final[nu:]))
+    ue, ie = (t.double().requires_grad_(True) for t in params)
+    loss_fn = select_bpr_loss(cfg.train.loss)
+    total = tb.mask.sum().double().clamp_min(1.0)
+    bc = tb.user.shape[0] // chunks
+    lsum = 0.0
+    for c in range(chunks):
+        sl = slice(c * bc, (c + 1) * bc)
+        u, p, m, n_ = tb.user[sl], tb.pos_item[sl], tb.mask[sl], neg[sl]
+        rows = lambda t, i: t.index_select(0, i.reshape(-1)).view(*i.shape, d)
+        l = loss_fn(rows(uf, u), rows(ue, u), rows(itf, p), rows(ie, p), rows(itf, n_),
+                    rows(ie, n_), cfg.train.bpr_coeff, mask=m)
+        w_c = m.sum().double()
+        (l * w_c / total).backward()
+        lsum = lsum + l.detach() * w_c
+    g = torch.cat([uf.grad, itf.grad]) * scale
+    gacc, cur = g, g
+    for _ in range(layers):
+        cur = hop(cur)
+        gacc = gacc + cur
+    return (lsum / total).item(), (gacc[:nu] + ue.grad, gacc[nu:] + ie.grad)
+
+
 def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> dict:
     """Phase 5c: ``train-fullgraph-full``, the full-graph trainer on the
     interaction split of the same graph at the JAX flagship's width (L = 3,
@@ -1390,8 +1444,8 @@ def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> dict:
     from movie_recommender_system_with_gnns_tpu_torch.training.pipeline import (
         prepare_training_data)
     from movie_recommender_system_with_gnns_tpu_torch.training.train import (
-        AdamState, TrainState, compute_loss, create_train_state, epoch_generator,
-        loss_and_grads, train_model)
+        AdamState, TrainState, compute_loss, compute_loss_grads_microbatched,
+        create_train_state, epoch_generator, loss_and_grads, train_model)
 
     launches = _build.LAUNCHES
     nu, ni = data.num_users, data.num_items
@@ -1492,7 +1546,46 @@ def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> dict:
     log(f"[fullgraph] compute_loss through spmm_hybrid_sym (f32 blocks) vs autodiff "
         f"through spmm_segment, batch {b} x {FG['negatives']} negatives: loss "
         f"{l_h.item():.7f} vs {l_s.item():.7f}, grad rel err user {ru:.3e}, item {ri:.3e}")
-    del g_h, g_s, h32, coo, ref, x
+    # 3b. the microbatched loss (16 chunks) and the one-batch step, both held
+    # against the same step in float64 (plain PyTorch), with f32 blocks so
+    # that no cotangent is rounded to bf16. Both f32 steps sum each table
+    # row's triplets in sequence (sorted_index_add): the batch here holds the
+    # first positives, grouped by user, so a heavy user's rows form runs of
+    # hundreds of equal terms, whose f32 sum drifts by about n·2^-24 of
+    # itself. The check: the chunks' loss within 1e-5 relative of the
+    # float64 loss, and their gradients no farther from float64 than the
+    # one-batch step's, plus 1e-5 of the largest entry
+    chunks = FG_MICRO["chunks"]
+    l_m, g_m = compute_loss_grads_microbatched(state0.params, h32, tb, neg, cfg,
+                                               spmm_hybrid_sym, chunks)
+    l_64, g_64 = f64_step_reference(state0.params, coo, tb, neg, cfg, chunks)
+    top = [g.abs().max().item() for g in g_64]
+    over = lambda gs: [(g.double() - r).abs().max().item() / t
+                       for g, r, t in zip(gs, g_64, top)]
+    micro = dict(card=smi, chunks=chunks, batch=b, d256_loss_f64=l_64,
+                 d256_loss_rel_err=abs(l_m.item() - l_64) / abs(l_64),
+                 d256_loss_one_batch_rel_err=abs(l_h.item() - l_64) / abs(l_64),
+                 d256_grad_err_over_max=over(g_m), d256_one_batch_grad_err_over_max=over(g_h),
+                 d256_micro_vs_one_batch_over_max=[
+                     (gm - gh).abs().max().item() / t for gm, gh, t in zip(g_m, g_h, top)])
+    log(f"[fullgraph] compute_loss_grads_microbatched, {chunks} chunks of {b // chunks} "
+        f"triplets (f32 blocks, d={d}) vs the float64 step: loss rel err "
+        f"{micro['d256_loss_rel_err']:.3e}, gradient errs over their largest entry user "
+        f"{micro['d256_grad_err_over_max'][0]:.3e}, item "
+        f"{micro['d256_grad_err_over_max'][1]:.3e}; the one-batch f32 step's "
+        f"{micro['d256_one_batch_grad_err_over_max'][0]:.3e}, "
+        f"{micro['d256_one_batch_grad_err_over_max'][1]:.3e} (loss "
+        f"{micro['d256_loss_one_batch_rel_err']:.3e}); microbatched vs one-batch "
+        f"{micro['d256_micro_vs_one_batch_over_max'][0]:.3e}, "
+        f"{micro['d256_micro_vs_one_batch_over_max'][1]:.3e}")
+    check(micro["d256_loss_rel_err"] <= 1e-5 and all(
+        m <= o + 1e-5 for m, o in zip(micro["d256_grad_err_over_max"],
+                                      micro["d256_one_batch_grad_err_over_max"])),
+          f"microbatched loss ({chunks} chunks) at d={d} vs the float64 step: loss rel err "
+          f"{micro['d256_loss_rel_err']:.3e}, gradient errs over their largest entry "
+          f"{micro['d256_grad_err_over_max']} against the one-batch step's "
+          f"{micro['d256_one_batch_grad_err_over_max']} + 1e-5")
+    del g_h, g_s, g_m, g_64, h32, coo, ref, x
 
     # 4. the transposed backward on a small edge-split graph
     small = make_synthetic_movielens(SMALL["users"], SMALL["items"], SMALL["interactions"],
@@ -1546,6 +1639,80 @@ def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> dict:
     log(f"[fullgraph] one step run twice: parameters and Adam moments bit-equal, loss "
         f"{la:.7f}; kernel launches per step {per_step}")
     del runs, a, c
+
+    # 5a. the microbatched step (bf16 blocks, the trainer's) twice from the same
+    # state and draws: bit-equal, one propagation and one backward through B4
+    cfg_m = cfg.replace(train=dataclasses.replace(cfg.train, loss_microbatches=chunks))
+    fn1m = fullgraph.make_fullgraph_epoch_fn(cfg_m, one)
+    before = dict(launches)
+    runs = [fn1m(copy(state0), one, torch.Generator(device="cuda").manual_seed(SEED + 9))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    per_step_m = {k: (launches[k] - before.get(k, 0)) // 2 for k in launches}
+    (a, lm1), (c, lm2) = runs
+    same = [torch.equal(u, v) for u, v in zip(a.params + a.opt_state.mu + a.opt_state.nu,
+                                              c.params + c.opt_state.mu + c.opt_state.nu)]
+    check(all(same) and lm1 == lm2, f"a microbatched full-graph step is not bit-equal over "
+          f"two runs (params and moments equal: {same}, losses {lm1!r} {lm2!r})")
+    check(per_step_m.get("ell_spmm", 0) == 2 * layers,
+          f"a microbatched step launched {per_step_m.get('ell_spmm', 0)} ell_spmm kernels, "
+          f"expected {2 * layers} ({layers} hops forward, {layers} backward)")
+    check(per_step_m.get("sorted_index_add", 0) == 4 * chunks,
+          f"a microbatched step launched {per_step_m.get('sorted_index_add', 0)} "
+          f"sorted_index_add kernels, expected {4 * chunks} (four per chunk)")
+    check(abs(lm1 - la) <= 1e-5 * abs(la), f"the microbatched step's loss {lm1!r} vs the "
+          f"one-batch step's {la!r} from the same draws")
+    micro.update(step_bit_equal=True, launches_per_step=per_step_m,
+                 step_loss=lm1, step_loss_one_batch=la)
+    log(f"[fullgraph] one microbatched step ({chunks} chunks, bf16 blocks) run twice: "
+        f"parameters and Adam moments bit-equal, loss {lm1:.7f} (one batch {la:.7f}); "
+        f"kernel launches per step {per_step_m}")
+    del runs, a, c
+
+    # 5b. the full width of runs/ml25m_fg150_k8_d512_pop.log, one batch and
+    # in 16 chunks: a step's time by CUDA events and its peak memory
+    d5 = FG_MICRO["dim"]
+    cfg5 = cfg.replace(model=dataclasses.replace(cfg.model, dim=d5))
+    st5 = create_train_state(cfg5, nu, ni, generator=torch.Generator().manual_seed(SEED),
+                             device="cuda")
+    for label, m in (("one_batch", 0), ("micro", chunks)):
+        fn5 = fullgraph.make_fullgraph_epoch_fn(
+            cfg5.replace(train=dataclasses.replace(cfg5.train, loss_microbatches=m)), one)
+        gen5 = torch.Generator(device="cuda").manual_seed(SEED + 12)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        before = launches["ell_spmm"]
+        times, losses = [], []
+        for _ in range(1 + FG_MICRO["timed"]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            st5, loss5 = fn5(st5, one, gen5)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(loss5)
+        b4_steps = launches["ell_spmm"] - before
+        steady = sorted(times[1:])
+        micro[f"d512_{label}"] = dict(
+            step_ms=steady[len(steady) // 2], step_ms_all=times,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            peak_over_resident_gb=(torch.cuda.max_memory_allocated() - resident) / 1e9,
+            resident_gb=resident / 1e9, losses=losses,
+            b4_launches_per_step=b4_steps / len(times))
+        check(all(np.isfinite(v) for v in losses), f"d={d5} {label} step: a loss is not finite")
+        check(b4_steps == 2 * layers * len(times), f"d={d5} {label}: {b4_steps} ell_spmm "
+              f"launches in {len(times)} steps, expected {2 * layers} a step")
+        log(f"[fullgraph] d={d5}, {label} ({m or 1} chunk{'s' if m else ''}): "
+            f"{micro[f'd512_{label}']['step_ms']:.3f} ms a step (median of "
+            f"{FG_MICRO['timed']} by CUDA events, all {[round(t, 3) for t in times]}), peak "
+            f"{micro[f'd512_{label}']['peak_gb']:.2f} GB "
+            f"({micro[f'd512_{label}']['peak_over_resident_gb']:.2f} over the resident "
+            f"{resident / 1e9:.2f}); losses {losses}")
+    micro["d512_time_ratio"] = micro["d512_micro"]["step_ms"] / micro["d512_one_batch"]["step_ms"]
+    del st5, fn5
+    torch.cuda.empty_cache()
 
     # 5b. sorted_index_add (gather_rows' backward) at one step's index sets:
     # the users, and the positives with the popularity negatives, d = 256 f32
@@ -1680,6 +1847,16 @@ def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> dict:
     blk_ms = time_ms(lambda: block_matmul(fg.hybrid.adj, blk_in), 20)
     blk_flops = 2.0 * k_parts * p_w * p_w * d
     del csr, out_k, blk_in
+    # B4 at the microbatched step's width (d = 512) over the same remainder
+    torch.cuda.empty_cache()
+    x5 = torch.randn(n, FG_MICRO["dim"], device="cuda", generator=gen)
+    micro["b4_d512_max_abs_err"] = ell_case(
+        off, weighted_coo(np.stack([src[~intra], dst[~intra]]), n, w_off), x5,
+        f"at the full-graph remainder, d={FG_MICRO['dim']} (the microbatched step's width)")
+    micro["b4_d512_hop_ms"] = time_ms(lambda: spmm_ell_cuda(off, x5), 10)
+    del x5
+    torch.cuda.empty_cache()
+    log(f"[fullgraph-micro] {json.dumps(micro)}")
     numbers = dict(
         card=smi, step_ms=1e3 * t_epoch / fg.num_steps, epoch_s=t_epoch,
         profiled_wall_ms_per_step=prof["wall_ms"] / 4, busy_ms_per_step=prof["busy_ms"] / 4,
@@ -1709,9 +1886,392 @@ def fullgraph_phase(data, bw: float, smi: str, b4_row: dict) -> dict:
         launches_per_fullgraph_step=b4_per_step, fullgraph_hop_ms=hop_ms,
         fullgraph_plain_ms=hop_plain, fullgraph_bound_ms=hop_bound,
         fullgraph_bound_by=hop_by, fullgraph_library_ms=hop_lib,
-        fullgraph_max_abs_err=r_err)
+        fullgraph_max_abs_err=r_err,
+        launches_per_microbatched_step=micro["launches_per_step"].get("ell_spmm", 0),
+        fullgraph_d512_max_abs_err=micro["b4_d512_max_abs_err"],
+        fullgraph_d512_hop_ms=micro["b4_d512_hop_ms"])
     del state, state0, bundle, emb
     return dict(cfg=cfg, fg=fg, val=val, test=test, train_e=train_e)
+
+
+#: phase 5g: the clusters whose corrected loss is held against the
+#: full-graph loss, and the steps of its profiled window
+CORR = dict(loss_clusters=10, window=10)
+
+
+def induction_bound(cc_x, c: int, rows: list, corr_c, gamma: float, bf16: bool):
+    """The elementwise bound on |corrected local accumulator − full-graph
+    accumulator| of cluster ``c`` at the tables its correction was built from
+    (``rows[l]``: the full-graph layer l at the cluster's nodes, f32).
+
+    With u = 2^-24, H(v) = ``_one_hop(v)`` for v ≥ 0 (Â_c ≥ 0), and γ =
+    k·u/(1 − k·u) for k one more than the most nonzeros in a row of Â_c (each
+    of the two sums H̃(ŷ), H̃(x̂) lies within γ·H(|x̂|) of its exact value):
+    y_0 = x_0 exactly, and y_{l+1} = fl(H̃(ŷ_l) + fl(x_{l+1} − H̃(x̂_l))),
+    the error of (a − b) + b, so |y_{l+1} − x_{l+1}| ≤ E_{l+1} =
+    f·H(D_l) + 2γ·f·H(|x_l|) + 2u·(|corr_l| + |x_{l+1}|), where D_l bounds
+    |ŷ_l − x̂_l|: E_l on the f32 segment path; on bf16 blocks E_l + 2^-7·(|x_l|
+    + E_l) wherever E_l > 0 (values an f32 ulp apart can round to
+    neighbouring bf16 values); f = 1 + γ, times 1 + 2^-7 on bf16 blocks (H
+    rounds its operand to bf16). Both accumulators add the L + 1 layers in
+    the same order: Σ_{l≥1} E_l + 2u·L·Σ_l |x_l|."""
+    from movie_recommender_system_with_gnns_tpu_torch.training.compact import _one_hop
+
+    u = 2.0 ** -24
+    n_local = cc_x.u_pad + cc_x.i_pad
+    adj, lists = None if cc_x.adj is None else cc_x.adj[c], cc_x.lists(c)
+    f = (1 + gamma) * ((1 + 2.0 ** -7) if bf16 else 1.0)
+    hop = lambda v: _one_hop(v, cc_x.src[c], cc_x.dst[c], cc_x.w[c], adj, n_local,
+                             lists).float()
+    err = torch.zeros_like(rows[0])
+    total = torch.zeros_like(rows[0])
+    for layer in range(len(rows) - 1):
+        x_l = rows[layer].abs()
+        dd = err + 2.0 ** -7 * (x_l + err) * (err > 0) if bf16 else err
+        err = (f * hop(dd) + 2 * gamma * f * hop(x_l)
+               + 2 * u * (corr_c[layer].abs() + rows[layer + 1].abs()))
+        total += err
+    return total + 2 * u * (len(rows) - 1) * sum(r.abs() for r in rows)
+
+
+def induction_check(label: str, cc_x, corr, params, xs: list) -> dict:
+    """Phase 5g (2): every cluster's corrected ``_propagate_local`` at the
+    tables of ``xs`` (the full-graph layers) against the full-graph
+    accumulator on the cluster's nodes, padding rows included, within
+    :func:`induction_bound`; the uncorrected propagation's distance beside
+    it. One host sync at the end."""
+    from movie_recommender_system_with_gnns_tpu_torch.training.compact import (
+        _propagate_local)
+
+    nu = params.user_emb.shape[0]
+    k, n_local = cc_x.num_clusters, cc_x.u_pad + cc_x.i_pad
+    layers = len(xs) - 1
+    acc_full = sum(xs[1:], xs[0])
+    live = cc_x.w > 0
+    key = (torch.arange(k, device=live.device)[:, None] * n_local + cc_x.dst.long())[live]
+    kmax = int(torch.bincount(key).max()) + 1
+    gamma = kmax * 2.0 ** -24 / (1 - kmax * 2.0 ** -24)
+    bf16 = cc_x.adj is not None and cc_x.adj.dtype == torch.bfloat16
+    worst = torch.zeros(4, device=live.device)   # err, err / bound, uncorrected, beyond
+    for c in range(k):
+        ids = torch.cat([cc_x.user_ids[c], cc_x.item_ids[c] + nu])
+        rows = [x.index_select(0, ids) for x in xs]
+        emb = torch.cat([params.user_emb.index_select(0, cc_x.user_ids[c]),
+                         params.item_emb.index_select(0, cc_x.item_ids[c])])
+        hop = (emb, cc_x.src[c], cc_x.dst[c], cc_x.w[c],
+               None if cc_x.adj is None else cc_x.adj[c], layers, n_local)
+        err = (_propagate_local(*hop, corr=corr[c], lists=cc_x.lists(c))
+               - acc_full.index_select(0, ids)).abs()
+        bound = induction_bound(cc_x, c, rows, corr[c], gamma, bf16)
+        plain = (_propagate_local(*hop, lists=cc_x.lists(c))
+                 - acc_full.index_select(0, ids)).abs().max()
+        worst = torch.maximum(worst, torch.stack([
+            err.max(), (err / bound.clamp_min(1e-30)).max(), plain,
+            (err > bound).sum().float()]))
+    err, ratio, plain, beyond = worst.tolist()
+    out = dict(max_abs_err=err, max_err_over_bound=ratio, uncorrected_max_abs_err=plain,
+               entries_beyond_bound=int(beyond), k_row=kmax, bf16_blocks=bf16,
+               acc_max=acc_full.abs().max().item())
+    check(beyond == 0, f"induction on the {label} path: {int(beyond)} entries of a "
+          f"cluster's corrected accumulator beyond the bound (max err {err:.3e}, "
+          f"err / bound {ratio:.3e})")
+    check(plain > 100 * err, f"induction on the {label} path: the uncorrected "
+          f"propagation is only {plain:.3e} from the full graph (corrected {err:.3e})")
+    log(f"[correction] induction on the {label} path ({k} clusters, n_local {n_local}, "
+        f"rows of at most {kmax - 1} nonzeros{', bf16 blocks' if bf16 else ''}): max abs "
+        f"err {err:.3e} of accumulators up to {out['acc_max']:.3e}, at most {ratio:.3e} of "
+        f"the derived bound; uncorrected {plain:.3e}")
+    return out
+
+
+def correction_phase(data, train_e, cfg, cc, cc_seg, state, copy, smi: str, bw: float,
+                     b4_row: dict) -> dict:
+    """Phase 5g: the compact trainer's frozen boundary correction on
+    ``train-compact-full``'s configuration (the clusters of phase 5, dense
+    bf16 blocks, d = 64, ``fused_bpr=True``) and a ``HybridGraph`` over the
+    same train edges (100 hybrid parts), built as ``examples/train_bridge.py``
+    builds it (``build_fullgraph_data``), from phase 5's trained tables. (1)
+    the build:
+    wall time cold and warm (bit-equal), 3 B4 launches, shapes and bytes, B4
+    against its plain version at this remainder; (2) the induction at frozen
+    tables on every cluster, on the dense bf16 path and on the segment path,
+    within :func:`induction_bound`; (3) the corrected cluster loss against
+    the full-graph loss of the same triplets (rtol 2e-4) and closer to it
+    than the uncorrected loss; (4) a corrected epoch under Adam and under
+    ``hybrid_adam`` with ``fused_bpr=True``: JAX's warning once, no B1 launch
+    (counted and in the profiler's trace), bit-equal over two runs, timed
+    beside the uncorrected epoch; (5) one bridge cycle under ``hybrid_adam``:
+    two corrected epochs, a full-graph refresh epoch through
+    ``lazy_state_to_optax`` / ``lazy_state_from_optax``, a rebuilt
+    correction, one more corrected epoch."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from movie_recommender_system_with_gnns_tpu_torch.data.graph import gcn_norm
+    from movie_recommender_system_with_gnns_tpu_torch.data.partition import (
+        forward_half, partition_assignments)
+    from movie_recommender_system_with_gnns_tpu_torch.ops._build import LAUNCHES as launches
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import spmm_ell_cuda
+    from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import (
+        TripletBatch, sample_negative)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import spmm_ell, spmm_hybrid
+    from movie_recommender_system_with_gnns_tpu_torch.training import compact
+    from movie_recommender_system_with_gnns_tpu_torch.training.fullgraph import (
+        build_fullgraph_data, make_fullgraph_epoch_fn)
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import (
+        TrainState, compute_loss)
+
+    t_phase = time.time()
+    nu, ni = data.num_users, data.num_items
+    n, layers, d = nu + ni, cfg.model.num_layers, cfg.model.dim
+    k, width = cc.num_clusters, cc.user_local.shape[1]
+    numbers = dict(card=smi)
+
+    # the full-graph data over the same train edges, as the bridge builds it;
+    # the edge split's train graph is asymmetric, so no symmetric VJP: the
+    # refresh epoch differentiates through B4 over the remainder's transpose
+    cfg_f = cfg.replace(train=dataclasses.replace(
+        cfg.train, trainer="fullgraph", fullgraph_steps=FG["steps"], symmetric_vjp=False))
+    t0 = time.time()
+    fg = build_fullgraph_data(cfg_f, train_e, nu, n, device="cuda")
+    torch.cuda.synchronize()
+    numbers["fullgraph_data_s"] = time.time() - t0
+    check(fg.hybrid.off_ell is not None and fg.hybrid.off_ell_t is not None,
+          "the correction's hybrid graph has no ELL remainder or no transpose")
+
+    # (1) the build, from phase 5's trained tables
+    params = copy(state).params
+    launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corr, neg_rest = compact.build_boundary_correction(params, fg.hybrid, cc, cfg, nu)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    built = dict(launches)
+    t0 = time.perf_counter()
+    corr2, rest2 = compact.build_boundary_correction(params, fg.hybrid, cc, cfg, nu)
+    torch.cuda.synchronize()
+    t_build2 = time.perf_counter() - t0
+    n_local = cc.u_pad + cc.i_pad
+    check(tuple(corr.shape) == (k, layers, n_local, d) and tuple(neg_rest.shape) == (ni, d)
+          and corr.dtype == neg_rest.dtype == torch.float32,
+          f"correction shapes {tuple(corr.shape)}, {tuple(neg_rest.shape)}")
+    check(built.get("ell_spmm", 0) == layers and not built.get("bpr_tile"),
+          f"the correction build launched {built}: expected {layers} ell_spmm (one a hop "
+          f"over the remainder) and no bpr_tile")
+    check(bool(torch.isfinite(corr).all()) and bool(torch.isfinite(neg_rest).all()),
+          "the correction is not finite")
+    check(torch.equal(corr, corr2) and torch.equal(neg_rest, rest2),
+          "two builds of the correction from the same tables differ")
+    del corr2, rest2
+    numbers.update(build_s=t_build, build_warm_s=t_build2, build_launches=built,
+                   corr_shape=list(corr.shape), corr_gb=corr.numel() * 4 / 1e9,
+                   neg_rest_shape=list(neg_rest.shape), corr_max=corr.abs().max().item())
+    log(f"[correction] build_boundary_correction: corr {tuple(corr.shape)} f32 "
+        f"({numbers['corr_gb']:.3f} GB), neg_rest {tuple(neg_rest.shape)}, {t_build:.3f} s "
+        f"({t_build2:.3f} s warm, bit-equal); launches {built}; full-graph data "
+        f"{numbers['fullgraph_data_s']:.1f} s on the host")
+
+    # B4 at this remainder against its plain version, timed
+    off = fg.hybrid.off_ell
+    pu, pi = partition_assignments(train_e, nu, n, cfg.train.num_clusters,
+                                   seed=cfg.data.split_seed,
+                                   balance_tol=cfg.train.partition_balance_tol,
+                                   uv=forward_half(train_e, nu))
+    node_part = np.concatenate([pu, pi])
+    src, dst = train_e[0].astype(np.int64), train_e[1].astype(np.int64)
+    intra = node_part[src] == node_part[dst]
+    w_off = gcn_norm(train_e, n)[~intra]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    emb = torch.cat(list(params))
+    b4_err = ell_case(off, weighted_coo(np.stack([src[~intra], dst[~intra]]), n, w_off),
+                      torch.randn(n, d, device="cuda", generator=gen),
+                      "at the correction's remainder (the edge split's train graph)")
+    hop_ms = time_ms(lambda: spmm_ell_cuda(off, emb), 20)
+    hop_plain = time_ms(lambda: spmm_ell(off, emb), 3, warmup=1)
+    rows_o = np.argsort(dst[~intra], kind="stable")
+    rowptr = np.concatenate([[0], np.cumsum(np.bincount(dst[~intra], minlength=n))])
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(rowptr.astype(np.int32)).to("cuda"),
+        torch.from_numpy(src[~intra][rows_o].astype(np.int32)).to("cuda"),
+        torch.from_numpy(w_off[rows_o]).to("cuda"), size=(n, n))
+    hop_lib = time_ms(lambda: torch.sparse.mm(csr, emb), 20)
+    hop_bound, hop_by, byts, _, slots, edges, _, _ = ell_bound(off, d, 4, bw)
+    check(edges == int((~intra).sum()), f"the remainder ELL holds {edges} edges, the "
+          f"partition leaves {int((~intra).sum())} off its blocks")
+    del csr
+    numbers.update(remainder_edges=edges, remainder_slots=slots, b4_hop_ms=hop_ms,
+                   b4_plain_ms=hop_plain, b4_sparse_mm_ms=hop_lib, b4_bound_ms=hop_bound,
+                   b4_bound_by=hop_by, b4_max_abs_err=b4_err,
+                   intra_retention=float(intra.mean()))
+    log(f"[kernel] ell_spmm at the correction's remainder ({n} nodes, {edges} edges in "
+        f"{slots} slots, d={d}, f32): {hop_ms:.4f} ms a hop by CUDA events, plain "
+        f"{hop_plain:.4f} ms, torch.sparse.mm (CSR) {hop_lib:.4f} ms, bound "
+        f"{hop_bound:.4f} ms ({hop_by}: {byts / 1e6:.1f} MB); max abs err vs plain "
+        f"{b4_err:.3e}")
+
+    # (2) the induction at frozen tables: the full-graph layers as the build
+    # made them (their sum is neg_rest, bit for bit), then every cluster
+    xs = [emb]
+    for _ in range(layers):
+        xs.append(spmm_hybrid(fg.hybrid, xs[-1]))
+    check(torch.equal(sum(xs[2:], xs[1])[nu:], neg_rest), "the full-graph layers "
+          "recomputed here do not sum to build_boundary_correction's neg_rest bit for "
+          "bit")
+    numbers["induction_dense"] = induction_check("dense bf16", cc, corr, params, xs)
+    corr_seg, _ = compact.build_boundary_correction(params, fg.hybrid, cc_seg, cfg, nu)
+    numbers["induction_segment"] = induction_check("segment", cc_seg, corr_seg, params, xs)
+    del corr_seg, xs
+
+    # (3) the corrected cluster loss at frozen tables against the full-graph
+    # loss of the same triplets (the propagation the correction comes from)
+    losses = []
+    with torch.no_grad():
+        for c in range(CORR["loss_clusters"]):
+            tb = TripletBatch(cc.user_ids[c].index_select(0, cc.user_local[c]),
+                              cc.item_ids[c].index_select(0, cc.pos_local[c]), cc.mask[c])
+            neg = sample_negative(gen, width, ni, device="cuda")
+            args = (params, cc.cluster(c), neg, cfg, cc.u_pad, cc.i_pad,
+                    None if cc.adj is None else cc.adj[c], cc.lists(c))
+            losses.append([compute_loss(params, fg.hybrid, tb, neg, cfg, spmm_hybrid).item(),
+                           compact.compact_cluster_loss(*args).item(),
+                           compact.compact_cluster_loss(*args, corr=corr[c],
+                                                        neg_rest=neg_rest).item()])
+    full, plain, corrected = (np.array(v) for v in zip(*losses))
+    rel = np.abs(corrected - full) / np.abs(full)
+    check(bool((np.abs(corrected - full) <= 2e-4 * np.abs(full) + 1e-6).all()),
+          f"corrected cluster losses {corrected.tolist()} vs full-graph {full.tolist()}: "
+          f"beyond rtol 2e-4")
+    check(np.abs(corrected - full).sum() < np.abs(plain - full).sum(),
+          "the corrected losses are not closer to the full-graph losses than the "
+          "uncorrected ones")
+    numbers["loss"] = dict(clusters=CORR["loss_clusters"], full=full.tolist(),
+                           uncorrected=plain.tolist(), corrected=corrected.tolist(),
+                           corrected_max_rel=float(rel.max()),
+                           uncorrected_max_rel=float((np.abs(plain - full) / np.abs(full)).max()))
+    log(f"[correction] cluster losses at frozen tables ({CORR['loss_clusters']} "
+        f"clusters): corrected within {rel.max():.3e} relative of the full-graph loss, "
+        f"uncorrected up to {numbers['loss']['uncorrected_max_rel']:.3e}")
+
+    # (4) corrected epochs with fused_bpr=True: the row route, never B1
+    cc_corr = cc.with_correction(corr, neg_rest)
+    perm = torch.randperm(k, generator=gen, device="cuda")
+    negs = sample_negative(gen, k * width, ni, device="cuda").view(k, width)
+    start = lambda opt: (copy(state) if opt == "adam" else TrainState(
+        *(lambda s: (s.params, compact.lazy_state_from_optax(s.opt_state), s.step))(
+            copy(state))))
+    epochs = {}
+    for opt in ("adam", "hybrid_adam"):
+        fn = compact.make_compact_epoch_fn(
+            cfg.replace(train=dataclasses.replace(cfg.train, optimizer=opt)))
+        st0 = start(opt)
+        launches.clear()
+        runs = []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, loss = fn(copy(st0), cc_corr, None, perm=perm, neg=negs)
+                torch.cuda.synchronize()
+                runs.append((st, loss, time.perf_counter() - t0))
+        got = dict(launches)
+        said = [str(w.message) for w in caught]
+        check(said == [compact.FUSED_CORRECTION_WARNING], f"{opt}: a corrected fused_bpr "
+              f"epoch fn warned {said}, expected JAX's words once")
+        check(not got.get("bpr_tile") and got.get("sorted_index_add", 0) > 0,
+              f"{opt}: the corrected epochs launched {got}: expected no bpr_tile")
+        same = states_equal(runs[0][0], runs[1][0])
+        check(all(same) and runs[0][1] == runs[1][1] and np.isfinite(runs[0][1]),
+              f"{opt}: a corrected epoch is not bit-equal over two runs ({same}, losses "
+              f"{runs[0][1]!r} {runs[1][1]!r})")
+        launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss_u = fn(copy(st0), cc, None, perm=perm, neg=negs)
+        torch.cuda.synchronize()
+        t_u = time.perf_counter() - t0
+        check(launches.get("bpr_tile", 0) == k, f"{opt}: the uncorrected epoch launched "
+              f"{launches.get('bpr_tile', 0)} bpr_tile kernels, expected {k}")
+        box = [copy(st0)]
+        fn(box[0], cc_corr, None, perm=perm[:CORR["window"]], neg=negs[:CORR["window"]])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(box[0], cc_corr, None, perm=perm[:CORR["window"]], neg=negs[:CORR["window"]])
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        b1_traced = sum(e.count for e in dev if "bpr_pass" in e.key)
+        traced = sum(e.count for e in dev)
+        check(b1_traced == 0 and traced > 0, f"{opt}: the profiler traced {b1_traced} B1 "
+              f"kernels among {traced} in {CORR['window']} corrected steps")
+        epochs[opt] = dict(
+            loss=runs[0][1], loss_uncorrected=loss_u, epoch_s=[r[2] for r in runs],
+            step_ms=1e3 * runs[1][2] / k, step_ms_uncorrected=1e3 * t_u / k,
+            launches=got, b1_kernels_traced=b1_traced,
+            kernels_traced_per_step=traced / CORR["window"])
+        log(f"[correction] {opt}, fused_bpr=True, corrected epoch: JAX's warning once, "
+            f"0 bpr_tile launches (0 B1 kernels among {traced} traced in "
+            f"{CORR['window']} steps), bit-equal over two runs, loss {runs[0][1]:.6f} "
+            f"(uncorrected {loss_u:.6f}); {epochs[opt]['step_ms']:.3f} ms a step "
+            f"(uncorrected, through B1: {epochs[opt]['step_ms_uncorrected']:.3f} ms)")
+        del runs, box
+    numbers["epochs"] = epochs
+
+    # (5) one bridge cycle under hybrid_adam: two corrected epochs, a
+    # full-graph refresh through the Adam relabelling, a rebuilt correction,
+    # one more corrected epoch
+    fn_c = compact.make_compact_epoch_fn(
+        cfg.replace(train=dataclasses.replace(cfg.train, optimizer="hybrid_adam")))
+    fn_f = make_fullgraph_epoch_fn(cfg_f, fg)
+    st = start("hybrid_adam")
+    count0 = st.opt_state.count
+    cycle = []
+    launches.clear()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for _ in range(2):
+            st, loss = fn_c(st, cc_corr, gen)
+            cycle.append(("compact", loss))
+        lz = st.opt_state
+        adam = compact.lazy_state_to_optax(lz)
+        check(all(a is b for a, b in zip(adam.mu + adam.nu, lz.mu + lz.nu))
+              and adam.count == lz.count == count0 + 2 * k,
+              "lazy_state_to_optax did not carry the hybrid moments and count")
+        fst, loss = fn_f(TrainState(st.params, adam, st.step), fg, gen)
+        cycle.append(("fullgraph", loss))
+        back = compact.lazy_state_from_optax(fst.opt_state)
+        check(all(a is b for a, b in zip(back.mu + back.nu, lz.mu + lz.nu))
+              and back.count == count0 + 2 * k + fg.num_steps,
+              "lazy_state_from_optax did not carry the refreshed moments and count back")
+        st = TrainState(fst.params, back, fst.step)
+        corr_b, rest_b = compact.build_boundary_correction(st.params, fg.hybrid, cc, cfg, nu)
+        check(not torch.equal(corr_b, corr), "the rebuilt correction equals the first one")
+        st, loss = fn_c(st, cc.with_correction(corr_b, rest_b), gen)
+        cycle.append(("compact", loss))
+    torch.cuda.synchronize()
+    got = dict(launches)
+    check(all(np.isfinite(v) for _, v in cycle), f"a bridge-cycle loss is not finite: {cycle}")
+    check(st.opt_state.count == count0 + 3 * k + fg.num_steps,
+          f"the bridge cycle's count {st.opt_state.count}")
+    check(got.get("ell_spmm", 0) == 2 * layers * fg.num_steps + layers
+          and not got.get("bpr_tile"), f"the bridge cycle launched {got}: expected "
+          f"{2 * layers} ell_spmm a refresh step and {layers} for the rebuild, no bpr_tile")
+    numbers["bridge_cycle"] = dict(losses=cycle, launches=got, refresh_steps=fg.num_steps)
+    log(f"[correction] bridge cycle (hybrid_adam): losses {cycle}; the moments carried "
+        f"through lazy_state_to_optax / lazy_state_from_optax by reference; launches {got}")
+
+    numbers["phase_s"] = time.time() - t_phase
+    log(f"[correction] {json.dumps(numbers)}")
+    b4_row.update(launches=b4_row["launches"] + built.get("ell_spmm", 0),
+                  launches_correction_build=built.get("ell_spmm", 0), correction_hop_ms=hop_ms,
+                  correction_plain_ms=hop_plain, correction_bound_ms=hop_bound,
+                  correction_bound_by=hop_by, correction_library_ms=hop_lib,
+                  correction_max_abs_err=b4_err)
+    del fg, corr, neg_rest, cc_corr, corr_b, rest_b, st, fst, params, emb
+    torch.cuda.empty_cache()
+    return numbers
 
 
 def states_equal(a, b) -> list:
@@ -3718,6 +4278,10 @@ def main() -> int:
 
         # 5d. full-state checkpoints, recovery and feasible negatives
         recovery_phase(data, train_e, cfg, cc, val, test, hist_h, timings, fgp, smi)
+
+        # 5g. the compact trainer's frozen boundary correction
+        correction_phase(data, train_e, cfg, cc, cc_seg, state, copy, smi, bw,
+                         next(r for r in rows if r["name"] == "ell_spmm"))
 
         # 5e. the multi-device slice on a one-rank NCCL group
         mesh_phase(data, train_e, val_e, test_e, cfg, cc, val, test, smi)

@@ -1,9 +1,11 @@
 """Configuration tree of the port: the JAX package's frozen dataclasses, field
 for field, so one JSON config (``Config.to_json``) loads in both packages.
 
-Fields that only parts not ported yet read (the microbatched loss, the
-chunked-ELL remainder's width) are kept so a config written by either
-package round-trips unchanged. Full-state checkpoints
+Fields that no part of the port reads (the chunked-ELL remainder's width)
+are kept so a config written by either package round-trips unchanged.
+``loss_microbatches > 1`` splits the full-graph trainer's triplet loss into
+that many chunks over one propagation
+(``training/train.py::compute_loss_grads_microbatched``). Full-state checkpoints
 (``state_checkpoint_path`` / ``state_checkpoint_every``) are written by
 ``training/train.py::train_model`` and read by ``training/recovery.py``.
 

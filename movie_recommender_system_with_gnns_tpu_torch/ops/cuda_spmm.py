@@ -295,7 +295,7 @@ class _EllSpmm(torch.autograd.Function):
                 "and none was built; pass transpose= (build_hybrid_graph(..., "
                 "transpose=True) builds the remainder's), or train through the "
                 "symmetric-adjacency VJP (spmm_symmetric: the cotangent of Â·E "
-                "is Â·g), ROADMAP queue A 6")
+                "is Â·g)")
         return _hop(ctx.transpose, grad.contiguous()), None, None
 
 

@@ -43,12 +43,21 @@ the step's gathered rows (:func:`row_loss`) and touch fewer rows:
 Adam on the item table, lazy user rows) and ``lazy_item_adam`` (hybrid with
 the item update on the touched rows only). Their repeated rows are summed in
 sorted order too, so their steps are as reproducible as Adam's.
-The frozen boundary correction is not ported yet (ROADMAP A6).
+
+The frozen boundary correction (:func:`build_boundary_correction`,
+:meth:`CompactClusters.with_correction`) restores the inter-cluster messages
+that cluster propagation drops: one propagation over the full graph
+(``ops/spmm.py::spmm_hybrid``) gives, per cluster and layer, what the
+cluster's own operator misses, and every optimizer's step adds it, frozen,
+after each hop; an out-of-cluster negative's final gains the frozen
+neighbour sum. The fused kernel computes those finals analytically, so a
+corrected epoch takes the row-gather route, as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
@@ -147,6 +156,19 @@ class CompactClusters:
     # the train pairs' int64 search keys (ops/sampling.py::member_keys):
     # when present, every epoch fn draws exact-feasible negatives
     member_table: Optional[torch.Tensor] = None
+    # the frozen boundary correction (build_boundary_correction): per cluster
+    # and layer the inter-cluster message term (K, L, n_local, d), and the
+    # frozen neighbour sum Σ_{l≥1} x_l of the item table (num_items, d).
+    # None: uncorrected Cluster-GCN (reference dataset_handler.py:256-288)
+    corr: Optional[torch.Tensor] = None
+    neg_rest: Optional[torch.Tensor] = None
+
+    def with_correction(self, corr: torch.Tensor, neg_rest: torch.Tensor
+                        ) -> "CompactClusters":
+        """This cluster set carrying a (new) frozen boundary correction; every
+        other field is shared, not copied. The shapes are the same at every
+        refresh."""
+        return dataclasses.replace(self, corr=corr, neg_rest=neg_rest)
 
     @property
     def num_clusters(self) -> int:
@@ -301,12 +323,6 @@ def densify_adjacency(cc: CompactClusters, dtype: DTypeLike = torch.bfloat16,
     return dataclasses.replace(cc, adj=adj)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP queue A 6, "
-        "compact cluster trainer)")
-
-
 def attach_member_table(cc: CompactClusters, train_edge_index: np.ndarray,
                         num_users: int) -> CompactClusters:
     """A copy of ``cc`` carrying the train pairs' member table (as its int64
@@ -321,10 +337,54 @@ def attach_member_table(cc: CompactClusters, train_edge_index: np.ndarray,
     return dataclasses.replace(cc, member_table=member_keys(table, cc.src.device))
 
 
-def build_boundary_correction(params, hybrid, cc: CompactClusters, cfg: Config,
-                              num_users: int, corr_dtype: str = "float32"):
-    """The frozen inter-cluster correction needs the full-graph propagation."""
-    _not_ported("build_boundary_correction (the frozen boundary correction)")
+@torch.no_grad()
+def build_boundary_correction(params: LightGCNParams, hybrid, cc: CompactClusters,
+                              cfg: Config, num_users: int,
+                              corr_dtype: DTypeLike = "float32"
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The frozen inter-cluster correction from one full-graph propagation
+    (JAX ``build_boundary_correction``).
+
+    Cluster-GCN drops every inter-cluster message (at 100 parts about 40 % of
+    ML-25M's train edges survive inside clusters). This propagates the
+    CURRENT tables over the full :class:`~..ops.spmm.HybridGraph` (``L``
+    hops of ``spmm_hybrid``, each source cast to ``compute_dtype`` as the
+    full-graph trainer casts it: the remainder runs the ELL SpMM kernel, one
+    launch a hop), then keeps per cluster and layer ``corr[c, l] =
+    x_{l+1}[ids_c] − _one_hop(x_l[ids_c])``: all that the cluster's own
+    operator misses (the inter-cluster messages and the local-vs-global
+    degree normalisation). :func:`_propagate_local` adds it after each hop,
+    so at the tables it was built from the corrected recursion reproduces
+    the full-graph layers on the cluster's nodes (by induction, because both
+    sides run the same :func:`_one_hop` on the same rows); between refreshes
+    it is stale.
+
+    Returns ``(corr, neg_rest)`` for :meth:`CompactClusters.with_correction`:
+    ``corr`` (K, L, n_local, d) and ``neg_rest`` (num_items, d), the frozen
+    Σ_{l≥1} x_l item rows that an out-of-cluster negative's final adds, both
+    in ``corr_dtype``. No autograd graph, no host sync."""
+    from ..ops.spmm import spmm_hybrid
+
+    cdtype, cd = as_dtype(cfg.model.compute_dtype), as_dtype(corr_dtype)
+    layers, n_local = cfg.model.num_layers, cc.u_pad + cc.i_pad
+    x = torch.cat([params.user_emb, params.item_emb]).to(cdtype)
+    # the layers in f32, as JAX stacks them (a bf16 layer 0 promoted)
+    xs = [x.float()]
+    for _ in range(layers):
+        x = spmm_hybrid(hybrid, x.to(cdtype))
+        xs.append(x)
+    neg_rest = sum(xs[2:], xs[1])[num_users:].to(cd)
+    ids = torch.cat([cc.user_ids, cc.item_ids + num_users], dim=1)
+    k, d = ids.shape[0], xs[0].shape[1]
+    rows = [x.index_select(0, ids.reshape(-1)).view(k, n_local, d) for x in xs]
+    corr = torch.empty(k, layers, n_local, d, dtype=cd, device=ids.device)
+    for c in range(k):
+        adj, lists = None if cc.adj is None else cc.adj[c], cc.lists(c)
+        for layer in range(layers):
+            local = _one_hop(rows[layer][c], cc.src[c], cc.dst[c], cc.w[c], adj, n_local,
+                             lists)
+            corr[c, layer] = rows[layer + 1][c] - local
+    return corr, neg_rest
 
 
 def _step_negatives(cfg: Config, generator: torch.Generator, cc: CompactClusters,
@@ -363,13 +423,18 @@ def _propagate_local(emb, src, dst, w, adj, num_layers, n_local, corr=None,
                      lists: Optional[ClusterLists] = None):
     """Compact-space propagation: dense-Â matmuls when ``adj`` is present,
     gather + row sum otherwise. Returns the layer-summed accumulator.
-    ``corr`` (the frozen boundary correction) must be None."""
-    if corr is not None:
-        _not_ported("the frozen boundary correction (corr)")
+
+    ``corr`` (num_layers, n_local, d), the cluster's frozen boundary
+    correction (:func:`build_boundary_correction`), makes layer l
+    ``_one_hop(cur) + corr[l]``, not differentiated: with y_l = x_l[ids],
+    y_{l+1} = Â_c·x_l[ids] + x_{l+1}[ids] − Â_c·x_l[ids] = x_{l+1}[ids], so at
+    the tables it was built from the cluster sees the full-graph layers."""
     acc = emb
     cur = emb
-    for _ in range(num_layers):
+    for layer in range(num_layers):
         cur = _one_hop(cur, src, dst, w, adj, n_local, lists)
+        if corr is not None:
+            cur = cur + corr[layer].detach().to(cur.dtype)
         acc = acc + cur
     return acc
 
@@ -404,12 +469,30 @@ def step_incidence(lists: ClusterLists, neg_lists: Tuple[torch.Tensor, torch.Ten
                         kneg)
 
 
+#: JAX's words when a corrected epoch leaves the fused kernel
+FUSED_CORRECTION_WARNING = (
+    "fused_bpr ignores the boundary correction's frozen negative term (the "
+    "kernel computes out-of-cluster finals analytically); using the XLA loss "
+    "path for corrected epochs")
+
+
+def _fused_route(cfg: Config, corrected: bool) -> bool:
+    """Whether a step's loss runs the fused kernel: ``fused_bpr`` with a loss
+    it computes, and no boundary correction (the kernel's out-of-cluster
+    finals are ``table_row · scale``, without the frozen neighbour sum)."""
+    return (cfg.train.fused_bpr and cfg.train.loss in ("reference", "standard")
+            and not corrected)
+
+
 def _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids, user_local,
                   pos_local, mask, cfg: Config, i_pad: int, scale: float,
                   lists: ClusterLists,
-                  neg_lists: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                  neg_lists: Tuple[torch.Tensor, torch.Tensor],
+                  nrest: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Compact-space BPR dispatch: the fused kernel when
-    ``cfg.train.fused_bpr``, the row-gather route otherwise.
+    ``cfg.train.fused_bpr`` and the step is uncorrected, the row-gather route
+    otherwise. ``nrest`` (the shape of ``ni``) is the negatives' frozen
+    neighbour sum of a corrected step.
 
     ``neg`` is (B,) or (B, K) for K negatives per positive; ``ni`` its
     gathered initial rows. The fused kernel is single-negative: K>1 flattens
@@ -423,7 +506,7 @@ def _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids, user_local,
     starts)`` of the flattened ``neg`` over the catalog.
     """
     d = u_rows.shape[1]
-    if cfg.train.fused_bpr and cfg.train.loss in ("reference", "standard"):
+    if _fused_route(cfg, nrest is not None):
         from ..ops.cuda_bpr import fused_bpr_loss, fused_bpr_supported
 
         if not fused_bpr_supported(fu.shape[0], i_pad, d):
@@ -451,9 +534,11 @@ def _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids, user_local,
     pf, pi = p_cat[:, :d], p_cat[:, d:]
     # negatives over the FULL catalog (reference helpers.py:79-80): in-cluster
     # negatives take the propagated row; out-of-cluster ones are isolated
-    # under cluster propagation, so final = table_row · scale analytically
+    # under cluster propagation, so final = table_row · scale analytically,
+    # or (table_row + frozen neighbour sum) · scale under a correction
     loc, in_cluster = _neg_local_index(item_ids, neg, i_pad)
-    nf = torch.where(in_cluster[..., None], fi[loc], ni * scale)
+    iso = ni if nrest is None else ni + nrest.detach().to(ni.dtype)
+    nf = torch.where(in_cluster[..., None], fi[loc], iso * scale)
     loss_fn = select_bpr_loss(cfg.train.loss)
     return loss_fn(uf, ui, pf, pi, nf, ni, cfg.train.bpr_coeff, mask=mask)
 
@@ -461,13 +546,17 @@ def _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids, user_local,
 def row_loss(u_rows, i_rows, n_rows, cluster: Tuple, neg: torch.Tensor,
              cfg: Config, u_pad: int, i_pad: int, adj: Optional[torch.Tensor],
              lists: ClusterLists,
-             neg_lists: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+             neg_lists: Tuple[torch.Tensor, torch.Tensor],
+             corr: Optional[torch.Tensor] = None,
+             nrest: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The compact BPR loss from the rows a step gathered (JAX ``row_loss``):
     ``u_rows`` (u_pad, d) and ``i_rows`` (i_pad, d) the cluster's table rows,
     ``n_rows`` (B·K, d) the flattened negatives' rows, ``neg_lists`` =
-    ``sort_rows`` of the flattened ``neg`` over the catalog. Autograd reaches
-    the rows through the propagation and the BPR dispatch (B1's
-    ``autograd.Function`` on the fused route)."""
+    ``sort_rows`` of the flattened ``neg`` over the catalog; ``corr`` the
+    cluster's boundary correction and ``nrest`` (B·K, d) the negatives'
+    ``neg_rest`` rows, both or neither. Autograd reaches the rows through the
+    propagation and the BPR dispatch (B1's ``autograd.Function`` on the fused
+    route)."""
     (user_ids, item_ids, src, dst, w, user_local, pos_local, mask) = cluster
     n_local = u_pad + i_pad
     k1 = cfg.model.num_layers + 1
@@ -476,13 +565,15 @@ def row_loss(u_rows, i_rows, n_rows, cluster: Tuple, neg: torch.Tensor,
 
     emb = torch.cat([u_rows, i_rows], dim=0).to(cdtype)
     acc = _propagate_local(emb, src, dst, w, adj, cfg.model.num_layers, n_local,
-                           lists=lists)
+                           corr=corr, lists=lists)
     final = acc.to(torch.float32) * scale
     fu, fi = final[:u_pad], final[u_pad:]
     ni = n_rows.reshape(*neg.shape, n_rows.shape[1])
+    if nrest is not None:
+        nrest = nrest.reshape(ni.shape)
     return _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids,
                          user_local, pos_local, mask, cfg, i_pad, scale, lists,
-                         neg_lists)
+                         neg_lists, nrest)
 
 
 def compact_cluster_loss(
@@ -494,6 +585,8 @@ def compact_cluster_loss(
     i_pad: int,
     adj: Optional[torch.Tensor] = None,
     lists: Optional[ClusterLists] = None,
+    corr: Optional[torch.Tensor] = None,
+    neg_rest: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Reference-equivalent BPR loss for one compact cluster.
 
@@ -502,7 +595,10 @@ def compact_cluster_loss(
     positive. ``cluster`` is :meth:`CompactClusters.cluster`'s 8-tuple and
     ``lists`` its :meth:`CompactClusters.lists` (listed here when None). The
     negatives are sorted once: their gradient rows and the fused kernel's
-    negative lists share the order.
+    negative lists share the order. ``corr`` (the cluster's ``cc.corr[c]``)
+    and ``neg_rest`` (``cc.neg_rest``) add the frozen boundary correction
+    (:func:`build_boundary_correction`); the loss then takes the row-gather
+    route whatever ``fused_bpr`` says.
     """
     user_ids, item_ids = cluster[:2]
     if lists is None:
@@ -513,8 +609,9 @@ def compact_cluster_loss(
     neg_flat = neg.reshape(-1)
     neg_lists = sort_rows(neg_flat, params.item_emb.shape[0])
     n_rows = gather_rows(params.item_emb, neg_flat, *neg_lists)
+    nrest = None if neg_rest is None else neg_rest.index_select(0, neg_flat)
     return row_loss(u_rows, i_rows, n_rows, cluster, neg, cfg, u_pad, i_pad, adj,
-                    lists, neg_lists)
+                    lists, neg_lists, corr, nrest)
 
 
 # ---------------------------------------------------------------------------
@@ -578,7 +675,8 @@ class RowGrads(NamedTuple):
 
 def compact_row_grads(params: LightGCNParams, cc: CompactClusters, c: int,
                       neg: torch.Tensor, cfg: Config) -> RowGrads:
-    """Cluster ``c``'s loss and row gradients for the negatives ``neg``."""
+    """Cluster ``c``'s loss and row gradients for the negatives ``neg``
+    (with ``cc``'s boundary correction when it carries one)."""
     cluster = cc.cluster(c)
     lists = cc.lists(c)
     if lists is None:
@@ -588,9 +686,12 @@ def compact_row_grads(params: LightGCNParams, cc: CompactClusters, c: int,
     rows = [table.index_select(0, idx).requires_grad_(True) for table, idx in (
         (params.user_emb, cluster[0]), (params.item_emb, cluster[1]),
         (params.item_emb, neg_flat))]
+    corr = None if cc.corr is None else cc.corr[c]
+    nrest = None if cc.neg_rest is None else cc.neg_rest.index_select(0, neg_flat)
     with torch.enable_grad():
         loss = row_loss(*rows, cluster, neg, cfg, cc.u_pad, cc.i_pad,
-                        None if cc.adj is None else cc.adj[c], lists, neg_lists)
+                        None if cc.adj is None else cc.adj[c], lists, neg_lists,
+                        corr, nrest)
         gu, gi, gn = torch.autograd.grad(loss, rows)
     return RowGrads(loss.detach(), gu, gi, gn.contiguous(), neg_flat, neg_lists,
                     lists)
@@ -812,13 +913,21 @@ def _epoch_fn(cfg: Config, step: Step):
     ``perm`` (K,) injects the cluster order and ``neg`` (K, B) or (K, B, Kneg)
     the negatives of each STEP (``neg[j]`` belongs to step j, which trains
     cluster ``perm[j]``), so a test can replay what another run drew; left
-    None they come from ``generator``."""
+    None they come from ``generator``.
+
+    A corrected ``cc`` (``cc.neg_rest`` set) under ``fused_bpr`` warns, once
+    per epoch fn, that its steps take the row-gather route (JAX's rule: the
+    kernel drops the frozen negative term)."""
     check_negatives_mode(cfg.train.negatives)
+    warned = []
 
     def epoch_fn(state: TrainState, cc: CompactClusters,
                  generator: Optional[torch.Generator],
                  perm=None, neg: Optional[torch.Tensor] = None
                  ) -> Tuple[TrainState, float]:
+        if not warned and cc.neg_rest is not None and _fused_route(cfg, corrected=False):
+            warnings.warn(FUSED_CORRECTION_WARNING, stacklevel=2)
+            warned.append(True)
         num_items = state.params.item_emb.shape[0]
         k = cc.num_clusters
         device = cc.src.device
@@ -873,8 +982,8 @@ def make_compact_epoch_fn(cfg: Config):
     ``cfg.train.optimizer``: ``"adam"`` (clip + dense Adam from the table
     gradients), or ``lazy_adam`` / ``hybrid_adam`` / ``lazy_item_adam`` (from
     the row gradients; the state's optimizer state a :class:`LazyAdamState`).
-    ``num_negatives > 1``, ``fused_bpr`` and any ``loss``/``readout``
-    combination are supported under each.
+    ``num_negatives > 1``, ``fused_bpr``, any ``loss``/``readout``
+    combination and a boundary-corrected ``cc`` are supported under each.
     """
     if cfg.train.optimizer == "lazy_adam":
         return make_compact_lazy_epoch_fn(cfg)
@@ -889,7 +998,8 @@ def make_compact_epoch_fn(cfg: Config):
     def step(state, cc, c, neg):
         loss, grads = loss_and_grads(
             compact_cluster_loss, state.params, cc.cluster(c), neg, cfg,
-            cc.u_pad, cc.i_pad, None if cc.adj is None else cc.adj[c], cc.lists(c))
+            cc.u_pad, cc.i_pad, None if cc.adj is None else cc.adj[c], cc.lists(c),
+            None if cc.corr is None else cc.corr[c], cc.neg_rest)
         params, opt_state = opt.update(state.params, grads, state.opt_state)
         return TrainState(params, opt_state, state.step + 1), loss
 

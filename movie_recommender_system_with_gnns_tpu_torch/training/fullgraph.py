@@ -16,14 +16,18 @@ trainer keeps them all:
   * the BPR triplets are minibatched: each epoch shuffles all train positives
     and takes ``num_steps`` fixed-size batches, one optimizer step each
     (``TrainConfig.fullgraph_steps``), with the same ``compute_loss``, clip
-    at 1.0 and Adam as the other trainers.
+    at 1.0 and Adam as the other trainers;
+  * with ``loss_microbatches > 1`` a step propagates once and evaluates the
+    triplet loss in that many chunks of its batch
+    (``train.compute_loss_grads_microbatched``): the same loss and gradients
+    up to float reassociation, with one chunk's (B/chunks, K, d) triplet
+    temps alive at a time instead of the whole batch's.
 
 The epoch is a Python loop of steps drawing the permutation and each step's
 negatives (uniform, popularity^power, or exact-feasible against the train
 pairs) from the epoch's generator. The triplet rows are gathered through
-``ops/cuda_scatter.py::gather_rows`` (``train.compute_embeddings``), so a
-step is bit-reproducible on the card. Not ported: the microbatched loss,
-``loss_microbatches > 1`` (ROADMAP queue A 6), which raises.
+``ops/cuda_scatter.py::gather_rows`` (``train.compute_embeddings``, or per
+chunk), so a step is bit-reproducible on the card.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from ..ops.sampling import (TripletBatch, build_alias_table, build_member_table,
 from ..ops.spmm import (HybridGraph, build_hybrid_graph, spmm_hybrid, spmm_hybrid_sym,
                         spmm_symmetric)
 from ..utils.device import DeviceLike, as_dtype, resolve_device
-from .train import TrainState, compute_loss, loss_and_grads, make_optimizer
+from .train import (TrainState, compute_loss, compute_loss_grads_microbatched,
+                    loss_and_grads, make_optimizer)
 
 
 class FullGraphTrainData:
@@ -74,23 +79,13 @@ class FullGraphTrainData:
         self.alias_table = alias_table
 
 
-def check_fullgraph_config(cfg: Config) -> None:
-    """Raise for what the port's full-graph trainer does not run yet."""
-    check_negatives_mode(cfg.train.negatives)
-    if cfg.train.loss_microbatches > 1:
-        raise NotImplementedError(
-            "loss_microbatches > 1 (compute_loss_grads_microbatched) is not "
-            "ported to the PyTorch package yet (ROADMAP queue A 6); leave it "
-            "at 0 or 1")
-
-
 def build_fullgraph_data(cfg: Config, train_edge_index: np.ndarray, num_users: int,
                          num_nodes: int, device: DeviceLike = None) -> FullGraphTrainData:
     """Host-side build: node partition → hybrid adjacency → padded positives,
     then uploaded to ``device``. The batch is ``ceil(E / fullgraph_steps)``
     (or ``batch_size``) rounded up to a multiple of 1,024, and the step count
     is derived again from it, so no step is all padding."""
-    check_fullgraph_config(cfg)
+    check_negatives_mode(cfg.train.negatives)
     dev = resolve_device(device)
     tc = cfg.train
     if tc.partitioner != "greedy":
@@ -173,16 +168,18 @@ def make_fullgraph_epoch_fn(cfg: Config, fg: FullGraphTrainData):
     """``epoch_fn(state, fg, generator, perm=None, neg=None) -> (state,
     mean_loss)``: shuffle the real positives (the padding stays masked at the
     tail), then ``fg.num_steps`` steps of ``compute_loss`` on the hybrid
-    graph, clip and Adam. The mean loss is weighted by each step's real
-    triplets.
+    graph (in ``cfg.train.loss_microbatches`` chunks of the batch when that
+    is above 1), clip and Adam. The mean loss is weighted by each step's
+    real triplets.
 
     ``perm`` (e_real,) injects the shuffle and ``neg`` (num_steps, batch) or
     (num_steps, batch, K) each step's negatives, so a test can replay what
     another run drew; left None they come from ``generator``."""
-    check_fullgraph_config(cfg)
+    check_negatives_mode(cfg.train.negatives)
     opt = make_optimizer(cfg)
     spmm = fullgraph_spmm(cfg, fg)
     k = cfg.train.num_negatives
+    micro = cfg.train.loss_microbatches
 
     def epoch_fn(state: TrainState, fg_: FullGraphTrainData,
                  generator: Optional[torch.Generator], perm=None,
@@ -210,8 +207,12 @@ def make_fullgraph_epoch_fn(cfg: Config, fg: FullGraphTrainData):
             else:
                 neg_s = sample_negative(generator, b, num_items, k, device=dev)
             tb = TripletBatch(user=u[s], pos_item=p[s], mask=m[s])
-            loss, grads = loss_and_grads(compute_loss, state.params, fg_.hybrid, tb,
-                                         neg_s, cfg, spmm)
+            if micro > 1:
+                loss, grads = compute_loss_grads_microbatched(
+                    state.params, fg_.hybrid, tb, neg_s, cfg, spmm, micro)
+            else:
+                loss, grads = loss_and_grads(compute_loss, state.params, fg_.hybrid, tb,
+                                             neg_s, cfg, spmm)
             params, opt_state = opt.update(state.params, grads, state.opt_state)
             state = TrainState(params, opt_state, state.step + 1)
             wloss = wloss + loss * m[s].sum()

@@ -206,10 +206,20 @@ def compute_embeddings(
     (the eval step) they are plain ``index_select`` gathers."""
     users_final, items_final = propagate(
         params, graph, spmm, cfg.model.num_layers, cfg.model.readout)
+    sorted_ = torch.is_grad_enabled() and (params.user_emb.requires_grad
+                                           or params.item_emb.requires_grad)
+    return _triplet_rows(users_final, items_final, params, batch, neg_item, sorted_)
+
+
+def _triplet_rows(users_final: torch.Tensor, items_final: torch.Tensor,
+                  params: LightGCNParams, batch: TripletBatch, neg_item: torch.Tensor,
+                  sorted_: bool):
+    """:func:`compute_embeddings`' 6-tuple from the final and initial tables:
+    gathered through ``gather_rows`` over one ``sort_rows`` of each index set
+    when ``sorted_``, by ``index_select`` otherwise."""
     b, d = batch.user.shape[0], params.user_emb.shape[1]
     items = torch.cat([batch.pos_item.reshape(-1), neg_item.reshape(-1)])
-    if torch.is_grad_enabled() and (params.user_emb.requires_grad
-                                    or params.item_emb.requires_grad):
+    if sorted_:
         u_lists = sort_rows(batch.user, params.user_emb.shape[0])
         i_lists = sort_rows(items, params.item_emb.shape[0])
         gather_u = lambda t: gather_rows(t, batch.user, *u_lists)
@@ -250,6 +260,61 @@ def loss_and_grads(loss_fn: Callable, params: LightGCNParams, *args
         loss = loss_fn(leaves, *args)
         gu, gi = torch.autograd.grad(loss, leaves)
     return loss.detach(), LightGCNParams(gu, gi)
+
+
+def compute_loss_grads_microbatched(
+    params: LightGCNParams,
+    graph,
+    batch: TripletBatch,
+    neg_item: torch.Tensor,
+    cfg: Config,
+    spmm: Callable,
+    num_micro: int,
+) -> Tuple[torch.Tensor, LightGCNParams]:
+    """``(loss, grads)`` of :func:`compute_loss`, with the triplet loss
+    evaluated in ``num_micro`` microbatches over ONE propagation (JAX
+    ``compute_loss_grads_microbatched``).
+
+    Exact up to float reassociation: the loss is a masked mean, and the
+    mask-count-weighted average of the chunks' masked means is the global
+    masked mean, Σ_c w_c·(S_c/w_c) / Σ_c w_c = ΣS/Σw, for the pairwise and
+    the reg term alike. The propagation runs once with autograd; each chunk
+    takes the gradients of ``l·w / total_w`` with respect to the detached
+    finals and the initial tables, summed into four (N, d) accumulators; one
+    backward then carries the finals' cotangents through the propagation.
+    A chunk's rows are gathered through ``gather_rows`` over its own
+    ``sort_rows`` lists, as in :func:`compute_embeddings`, so a step is
+    bit-reproducible on the card. Peak memory: one chunk's (B/num_micro, K,
+    d) triplet temps and the accumulators, not the whole batch's. A
+    ``num_micro`` that does not divide the batch raises ``ValueError``."""
+    b = batch.user.shape[0]
+    if b % num_micro:
+        raise ValueError(f"loss_microbatches={num_micro} must divide the "
+                         f"padded batch {b}")
+    loss_fn = select_bpr_loss(cfg.train.loss)
+    coeff = cfg.train.bpr_coeff
+    leaves = LightGCNParams(params.user_emb.detach().requires_grad_(True),
+                            params.item_emb.detach().requires_grad_(True))
+    bc = b // num_micro
+    with torch.enable_grad():
+        finals = propagate(leaves, graph, spmm, cfg.model.num_layers, cfg.model.readout)
+        uf, itf = (t.detach().requires_grad_(True) for t in finals)
+        total_w = batch.mask.sum().to(torch.float32).clamp_min(1.0)
+        acc = [torch.zeros_like(t) for t in (uf, itf, leaves.user_emb, leaves.item_emb)]
+        lsum = torch.zeros((), dtype=torch.float32, device=total_w.device)
+        for c in range(num_micro):
+            sl = slice(c * bc, (c + 1) * bc)
+            chunk = TripletBatch(batch.user[sl], batch.pos_item[sl], batch.mask[sl])
+            embs = _triplet_rows(uf, itf, leaves, chunk, neg_item[sl], True)
+            l = loss_fn(*embs, coeff, mask=chunk.mask)
+            w = chunk.mask.sum().to(torch.float32)
+            gs = torch.autograd.grad(l * w / total_w, (uf, itf) + tuple(leaves))
+            for a, g in zip(acc, gs):
+                a.add_(g)
+            lsum = lsum + l.detach() * w
+        torch.autograd.backward(finals, (acc[0], acc[1]))
+    grads = LightGCNParams(leaves.user_emb.grad + acc[2], leaves.item_emb.grad + acc[3])
+    return lsum / total_w, grads
 
 
 def make_train_step(cfg: Config, spmm: Callable = spmm_rows):

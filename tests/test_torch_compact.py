@@ -365,22 +365,35 @@ def test_compact_epoch_draws_its_own_order_and_negatives(tiny_data):
 
 
 def test_unported_compact_routes_raise(tiny_data):
-    """The boundary correction still raises and names ROADMAP A6; the member
-    table and the feasible epoch fn run now (their values:
+    """The boundary correction runs now (its values:
+    tests/test_torch_boundary_correction.py): it builds from a hybrid graph,
+    and a zero correction leaves the propagation unchanged; the member table
+    and the feasible epoch fn run too (their values:
     tests/test_torch_feasible.py)."""
+    from movie_recommender_system_with_gnns_tpu_torch.data.partition import (
+        partition_assignments)
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import build_hybrid_graph
+
     _, cfg = _cfgs()
-    cj, ct = both_clusters(greedy_parts(tiny_data, 3), tiny_data.num_users)
-    withm = tcompact.attach_member_table(ct, tiny_data.edge_index, tiny_data.num_users)
-    mj = jcompact.attach_member_table(cj, tiny_data.edge_index, tiny_data.num_users)
+    nu, ni = tiny_data.num_users, tiny_data.num_items
+    cj, ct = both_clusters(greedy_parts(tiny_data, 3), nu)
+    withm = tcompact.attach_member_table(ct, tiny_data.edge_index, nu)
+    mj = jcompact.attach_member_table(cj, tiny_data.edge_index, nu)
     assert torch.equal(withm.member_table, tsampling.member_keys(
         np.asarray(mj.member_table), "cpu")) and ct.member_table is None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A 6"):
-        tcompact.build_boundary_correction(None, None, ct, cfg, tiny_data.num_users)
-    with pytest.raises(NotImplementedError, match="boundary correction"):
-        tcompact._propagate_local(torch.zeros(4, 2), None, None, None, None, 1, 4,
-                                  corr=torch.zeros(1, 4, 2))
+    n, n_local = nu + ni, ct.u_pad + ct.i_pad
+    pu, pi = partition_assignments(tiny_data.edge_index, nu, n, 3)
+    hybrid = build_hybrid_graph(tiny_data.edge_index, n, np.concatenate([pu, pi]), 3,
+                                align=8, device="cpu")
+    _, pt = both_params(nu, ni, 8, seed=1)
+    corr, neg_rest = tcompact.build_boundary_correction(pt, hybrid, ct, cfg, nu)
+    assert corr.shape == (ct.num_clusters, 2, n_local, 8) and neg_rest.shape == (ni, 8)
+    assert ct.corr is None and withm.with_correction(corr, neg_rest).corr is corr
+    emb = torch.randn(n_local, 8, generator=torch.Generator().manual_seed(2))
+    hop = (emb, ct.src[0], ct.dst[0], ct.w[0], None, 2, n_local)
+    assert torch.equal(tcompact._propagate_local(*hop),
+                       tcompact._propagate_local(*hop, corr=torch.zeros(2, n_local, 8)))
     fn = tcompact.make_compact_epoch_fn(_cfgs(negatives="feasible")[1])
-    _, pt = both_params(tiny_data.num_users, tiny_data.num_items, 8, seed=1)
     state, loss = fn(ttrain.TrainState(pt, ttrain.make_optimizer(cfg).init(pt), 0), withm,
                      torch.Generator().manual_seed(0))
     assert state.step == ct.num_clusters and np.isfinite(loss)

@@ -207,7 +207,7 @@ def test_kernel_backward_names_what_is_missing():
     VJP that training needs instead."""
     from types import SimpleNamespace
 
-    with pytest.raises(NotImplementedError, match="transpose(.|\n)*spmm_symmetric(.|\n)*queue A 6"):
+    with pytest.raises(NotImplementedError, match="transpose(.|\n)*spmm_symmetric"):
         cuda_spmm._EllSpmm.backward(SimpleNamespace(transpose=None), torch.zeros(2, 2))
     # the plain version on CPU tensors stays differentiable
     e, n = _hub_graph(12)

@@ -328,14 +328,26 @@ def test_build_fullgraph_data_matches_jax(tiny_data, case):
         assert ft.alias_table is None
 
 
-@pytest.mark.parametrize("bad,match", [(dict(loss_microbatches=2), "queue A 6")])
-def test_fullgraph_unported_raise(tiny_data, bad, match):
-    _, cfg = _cfgs(**bad)
+@pytest.mark.parametrize("micro", [2, 3])
+def test_fullgraph_unported_raise(tiny_data, micro):
+    """``loss_microbatches > 1`` is ported: the data and the epoch fn build as
+    JAX's do, and an epoch trains when the count divides the batch (a
+    multiple of 1,024); a count that does not divide it raises
+    ``ValueError`` at the first step, as in JAX (``training/train.py:151``).
+    Its values: ``tests/test_torch_microbatched.py``."""
+    _, cfg = _cfgs(loss_microbatches=micro)
     e, n, _ = _graph(tiny_data)
-    with pytest.raises(NotImplementedError, match=match):
-        tfg.build_fullgraph_data(cfg, e, tiny_data.num_users, n, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        tfg.make_fullgraph_epoch_fn(cfg, None)
+    fg = tfg.build_fullgraph_data(cfg, e, tiny_data.num_users, n, device="cpu")
+    fn = tfg.make_fullgraph_epoch_fn(cfg, fg)
+    state = ttrain.create_train_state(cfg, tiny_data.num_users, tiny_data.num_items,
+                                      device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    if fg.batch % micro:
+        with pytest.raises(ValueError, match=f"loss_microbatches={micro} must divide"):
+            fn(state, fg, gen)
+    else:
+        state, loss = fn(state, fg, gen)
+        assert state.step == fg.num_steps and np.isfinite(loss)
 
 
 @pytest.mark.parametrize("loss,kneg", [("reference", 1), ("reference", 4),

@@ -136,6 +136,20 @@ Phases:
      ``train --fused-bpr --full-eval --epochs 1``, the three ``recommend``
      modes and ``recommend --propagated``, and ``train --optimizer
      hybrid_adam --fused-bpr`` beside its own checkpoint;
+  6b. the user-facing surface at ML-25M width (``surface_phase``): phase 4's
+     graph written as ML-25M's CSVs (its pairs rated 4.0 to 5.0, about 1.2 M
+     other pairs rated lower, quoted titles with commas, tags);
+     ``MovieLensDataHandler`` over them against ``load_movielens`` and its
+     100 cluster batches on the card; ``cli --dataset ml-25m`` at
+     ``ml25m_config()``'s 4 layers, d = 128 and 100 clusters: ``train
+     --fused-bpr`` (100 B1 launches) with its history plot, B1 held against
+     its plain version on the inputs of the widest cluster that run gave it,
+     the trained tables finite and moved, ``eda`` (its counts against the
+     rows written) and ``recommend --plots``; the
+     analysis' selection on the card against its host copy's; step-numbered
+     parameter checkpoints of the trained tables on the card; the PNGs where
+     matplotlib is installed, else the "skipped" lines naming it; one
+     ``[surface]`` JSON line, the phase within 120 s;
   7. each kernel timed at its main-path shape beside its plain version, one
      library call where one computes the same function, and its bound.
 
@@ -3743,6 +3757,397 @@ def sync_site(fn):
         torch.cuda.synchronize()
 
 
+#: phase 6b: negative ratings written beside the positives, tags, the users
+#: whose analysis is held against the host's
+SURFACE = dict(negatives=1_250_000, tags=20_000, users=(0, 777, 150_000))
+#: the packages the surface reads where they are installed
+SURFACE_PACKAGES = ("pandas", "matplotlib", "sklearn", "networkx", "umap")
+#: ML-25M's genre vocabulary (movies.csv)
+GENRES = ("Action", "Adventure", "Animation", "Children", "Comedy", "Crime",
+          "Documentary", "Drama", "Fantasy", "Film-Noir", "Horror", "IMAX", "Musical",
+          "Mystery", "Romance", "Sci-Fi", "Thriller", "War", "Western")
+
+
+def _decimal_field(a: np.ndarray):
+    """Non-negative ints as decimal text: (n, w) uint8 digits, right-aligned,
+    and the (n, w) mask of the significant ones."""
+    a = np.asarray(a, np.int64)
+    w = len(str(int(a.max()))) if a.size else 1
+    digits = np.empty((a.shape[0], w), np.uint8)
+    x = a.copy()
+    for j in range(w - 1, -1, -1):
+        digits[:, j] = 48 + x % 10
+        x //= 10
+    sig = np.ones(a.shape[0], np.int64)
+    for k in range(1, w):
+        sig += a >= 10 ** k
+    return digits, np.arange(w)[None, :] >= (w - sig)[:, None]
+
+
+def write_ratings_csv(path: Path, users, movies, ratings, stamps) -> int:
+    """``userId,movieId,rating,timestamp`` rows, vectorised: each field's
+    digits by integer division into one byte buffer (ratings are halves in
+    [0, 5]). Returns the bytes written."""
+    n = len(users)
+    half = np.frombuffer(b"".join(f"{h / 2:.1f}".encode() for h in range(11)),
+                         np.uint8).reshape(11, 3)
+    comma, newline = np.full((n, 1), 44, np.uint8), np.full((n, 1), 10, np.uint8)
+    every = np.ones((n, 1), bool)
+    pieces = [_decimal_field(users), (comma, every), _decimal_field(movies), (comma, every),
+              (half[np.rint(np.asarray(ratings) * 2).astype(np.int64)],
+               np.ones((n, 3), bool)), (comma, every), _decimal_field(stamps),
+              (newline, every)]
+    body = np.concatenate([p[0] for p in pieces], axis=1)[
+        np.concatenate([p[1] for p in pieces], axis=1)]
+    with open(path, "wb") as f:
+        f.write(b"userId,movieId,rating,timestamp\n")
+        f.write(body.tobytes())
+    return path.stat().st_size
+
+
+def write_surface_csvs(data, out: Path, seed: int) -> dict:
+    """Phase 4's graph as ML-25M's CSVs: every pair rated 4.0, 4.5 or 5.0,
+    about 1.2 M seeded other pairs rated 0.5 to 3.5, sorted by user and then
+    movie (so the two kinds interleave); ``movies.csv`` with ``|`` genres and
+    titles of which every fifth holds commas (quoted); a small ``tags.csv``."""
+    import csv
+
+    from movie_recommender_system_with_gnns_tpu_torch.data.movielens import sorted_unique
+
+    rng = np.random.default_rng(seed)
+    nu, ni = data.num_users, data.num_items
+    e = data.edge_index
+    fwd = e[0] < nu
+    pos = sorted_unique(e[0][fwd].astype(np.int64) * ni + (e[1][fwd] - nu))
+    cand = sorted_unique(rng.integers(0, nu, SURFACE["negatives"]).astype(np.int64) * ni
+                         + rng.integers(0, ni, SURFACE["negatives"]))
+    hit = pos[np.minimum(np.searchsorted(pos, cand), pos.size - 1)] == cand
+    neg = cand[~hit]
+    keys = np.concatenate([pos, neg])
+    stars = np.concatenate([rng.integers(8, 11, pos.size), rng.integers(1, 8, neg.size)]) / 2
+    order = np.argsort(keys, kind="stable")
+    keys, stars = keys[order], stars[order]
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    nbytes = write_ratings_csv(out / "ratings.csv", data.raw_user_id(keys // ni),
+                               data.raw_movie_id(keys % ni), stars,
+                               rng.integers(789_652_009, 1_574_327_703, keys.size))
+    t_ratings = time.time() - t0
+    years = rng.integers(1915, 2020, ni).tolist()
+    # 1 to 3 distinct genres a movie: the first of a random order of them
+    genre_order = np.argsort(rng.random((ni, len(GENRES))), axis=1).tolist()
+    counts = rng.integers(1, 4, ni).tolist()
+    with open(out / "movies.csv", "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["movieId", "title", "genres"])
+        w.writerows(
+            [m, f"Synthetic Movie {m}{', The' if j % 5 == 0 else ''} ({years[j]})",
+             "|".join(GENRES[g] for g in sorted(genre_order[j][:counts[j]]))]
+            for j, m in enumerate(data.movie_ids.tolist()))
+    words = ("atmospheric", "twist ending", "based on a book, loosely", "funny",
+             "visually appealing", "dark comedy", "sci-fi")
+    t_keys = keys[rng.integers(0, keys.size, SURFACE["tags"])]
+    with open(out / "tags.csv", "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["userId", "movieId", "tag", "timestamp"])
+        w.writerows([u, m, words[k % len(words)], 1_500_000_000 + k] for k, (u, m) in enumerate(
+            zip(data.raw_user_id(t_keys // ni).tolist(), data.raw_movie_id(t_keys % ni).tolist())))
+    return dict(rows=int(keys.size), positives=int(pos.size), negatives=int(neg.size),
+                ratings_bytes=int(nbytes), ratings_write_s=t_ratings,
+                bytes=int(sum((out / f).stat().st_size
+                              for f in ("ratings.csv", "movies.csv", "tags.csv"))))
+
+
+def run_cli(cli, argv, cwd: Path = None):
+    """``cli.main(argv)`` in this process (the launch counters see it), its
+    standard output printed and returned: (rc, text, seconds)."""
+    import contextlib
+    import io
+    import os
+
+    buf, here, t0 = io.StringIO(), os.getcwd(), time.time()
+    try:
+        if cwd is not None:
+            os.chdir(cwd)
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        os.chdir(here)
+        print(buf.getvalue(), end="", flush=True)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.time() - t0
+
+
+class WidestBprCall:
+    """While entered, ``cuda_bpr.bpr_tile`` is wrapped to keep a copy of the
+    inputs of its widest call (the most triplets; the first of equals),
+    taken before the call; the launches stay the wrapped function's own.
+    ``args`` and ``kw`` then hold them, ``calls`` counts the calls."""
+
+    def __init__(self, cuda_bpr):
+        self.mod, self.real = cuda_bpr, cuda_bpr.bpr_tile
+        self.args, self.kw, self.calls = None, None, 0
+
+    def _call(self, *args, **kw):
+        self.calls += 1
+        if self.args is None or args[2].shape[0] > self.args[2].shape[0]:
+            copy = lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t
+            inc = kw.get("incidence")
+            self.args = tuple(copy(a) for a in args)
+            self.kw = dict(kw, incidence=None if inc is None
+                           else type(inc)(*(copy(t) for t in inc)))
+        return self.real(*args, **kw)
+
+    def __enter__(self):
+        self.mod.bpr_tile = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.bpr_tile = self.real
+        return False
+
+
+def surface_phase(data, trained, params0, smi: str) -> dict:
+    """Phase 6b: the user-facing surface at ML-25M width, on phase 4's graph
+    and phase 5's trained tables. (a) the graph written as ML-25M's CSVs;
+    (b) ``MovieLensDataHandler`` over them against ``load_movielens``, its
+    split and its 100 cluster batches on the card; (c) ``cli --dataset
+    ml-25m`` at ``ml25m_config()``'s model and clusters: ``train
+    --fused-bpr`` (B1 100 times an epoch, the history plot's line; B1 held
+    against its plain version on a copy of its widest call's inputs; the
+    saved tables finite and moved from the run's initial ones), ``eda``
+    (its counts against the rows written) and ``recommend --plots``; (d) the
+    analysis' selection on the card against its host copy's; (e) step-numbered
+    parameter checkpoints of the trained tables on the card; (f) the three
+    PNGs where matplotlib is installed, else "skipped" lines naming it."""
+    import importlib.util
+    import re
+
+    from movie_recommender_system_with_gnns_tpu_torch import cli
+    from movie_recommender_system_with_gnns_tpu_torch.config import ml25m_config
+    from movie_recommender_system_with_gnns_tpu_torch.data.handler import MovieLensDataHandler
+    from movie_recommender_system_with_gnns_tpu_torch.data.movielens import load_movielens
+    from movie_recommender_system_with_gnns_tpu_torch.models.lightgcn import LightGCNParams
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_bpr
+    from movie_recommender_system_with_gnns_tpu_torch.ops._build import LAUNCHES as launches
+    from movie_recommender_system_with_gnns_tpu_torch.training.checkpoint import (
+        latest_step, load_params, load_params_orbax, save_params_orbax)
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import create_train_state
+    from movie_recommender_system_with_gnns_tpu_torch.utils.visualizations import (
+        user_neighbourhood)
+
+    t_phase = time.time()
+    found = {p: importlib.util.find_spec(p) is not None for p in SURFACE_PACKAGES}
+    log(f"[surface] packages found: {found}; numpy {np.__version__}")
+    csv_dir, idx = WORK / "ml25m", WORK / "ml25m_indexes"
+    numbers = dict(card=smi, packages=found, numpy=np.__version__)
+
+    # (a) the CSVs
+    t0 = time.time()
+    written = write_surface_csvs(data, csv_dir, SEED)
+    numbers.update(csv=written, csv_s=time.time() - t0)
+    log(f"[surface] (a) CSVs: {written['rows']} ratings ({written['positives']} rated 4.0 "
+        f"to 5.0, {written['negatives']} rated 0.5 to 3.5), ratings.csv "
+        f"{written['ratings_bytes']} bytes in {written['ratings_write_s']:.2f} s; all "
+        f"three {written['bytes']} bytes in {numbers['csv_s']:.2f} s")
+
+    # (b) the data-handler API over them
+    t0 = time.time()
+    ratings, movies = str(csv_dir / "ratings.csv"), str(csv_dir / "movies.csv")
+    handler = MovieLensDataHandler(ratings, movies, indexes_dir=str(idx))
+    t_init = time.time() - t0
+    ref = load_movielens(ratings, movies)
+    check(np.array_equal(handler.edge_index, ref.edge_index)
+          and np.array_equal(handler.data.user_ids, ref.user_ids)
+          and np.array_equal(handler.data.movie_ids, ref.movie_ids),
+          "the handler's edges or id maps differ from load_movielens over the same files")
+    check(handler.get_num_users_items() == (data.num_users, data.num_items),
+          f"the handler counts {handler.get_num_users_items()} users and items")
+    check(handler.edge_index.shape[1] == data.edge_index.shape[1],
+          "the CSVs' positives are not phase 4's graph")
+    t1 = time.time()
+    splits = handler.get_datasets()
+    t_split = time.time() - t1
+    n = data.num_users + data.num_items
+    key = lambda e: torch.as_tensor(e, device="cuda").long()
+    parts = torch.sort(torch.cat([key(e[0]) * n + key(e[1]) for e in splits])).values
+    whole = torch.sort(key(handler.edge_index[0]) * n + key(handler.edge_index[1])).values
+    check(torch.equal(parts, whole), "get_datasets' splits do not partition the edges")
+    del parts, whole
+    t1 = time.time()
+    loader, val_e, test_e = handler.get_data_training(100, device="cuda")
+    torch.cuda.synchronize()
+    t_loader = time.time() - t1
+    on_card = all(t.device.type == "cuda" for b in loader
+                  for t in (b.graph.src, b.graph.dst, b.graph.w, b.batch.user,
+                            b.batch.pos_item, b.batch.mask))
+    check(len(loader) == 100 and on_card,
+          f"get_data_training(100) gave {len(loader)} batches (on the card: {on_card})")
+    check(all(np.array_equal(a, b) for a, b in zip((val_e, test_e), splits[1:])),
+          "get_data_training's eval edges differ from get_datasets'")
+    numbers.update(handler_s=time.time() - t0, handler_init_s=t_init, split_s=t_split,
+                   loader_s=t_loader, loader_edges=int(sum(b.num_edges for b in loader)))
+    log(f"[surface] (b) MovieLensDataHandler: {handler.num_users} users x "
+        f"{handler.num_movies} movies, {handler.edge_index.shape[1]} directed edges, equal to "
+        f"load_movielens'; splits {[e.shape[1] for e in splits]} partition them; "
+        f"get_data_training(100): 100 batches on the card, "
+        f"{numbers['loader_edges']} edges, in {t_loader:.2f} s; the handler's load "
+        f"{t_init:.2f} s, the split {t_split:.2f} s, the whole step "
+        f"{numbers['handler_s']:.2f} s")
+    del handler, ref, splits, loader, val_e, test_e
+
+    # (c) the CLI at ML-25M width
+    ml = ml25m_config()
+    base = ["--device", "cuda", "--dataset", "ml-25m", "--data-dir", str(csv_dir),
+            "--indexes-dir", str(idx), "--checkpoint", str(WORK / "ml25m_model.npz"),
+            "--histories-dir", str(WORK / "ml25m_hist"), "--layers", "4", "--dim", "128",
+            "--clusters", "100", "--epochs", "1"]
+    cfg = cli._build_cfg(cli.build_parser().parse_args(base + ["train"]))
+    check((cfg.data.dataset, cfg.model.num_layers, cfg.model.dim, cfg.train.num_clusters)
+          == (ml.data.dataset, ml.model.num_layers, ml.model.dim, ml.train.num_clusters),
+          "the surface CLI's model and clusters are not ml25m_config()'s")
+    plots = WORK / "ml25m_plots"
+    plots.mkdir()
+    rcs, outs, secs = {}, {}, {}
+    launches.clear()
+    with WidestBprCall(cuda_bpr) as widest:
+        rcs["train"], outs["train"], secs["train"] = run_cli(
+            cli, base + ["train", "--fused-bpr"])
+    b1 = launches.get("bpr_tile", 0)
+    check(rcs["train"] == 0, f"cli --dataset ml-25m train exited {rcs['train']}")
+    check(b1 == 100 and widest.calls == 100,
+          f"cli train at ML-25M width launched bpr_tile {b1} times in {widest.calls} "
+          f"calls, not 100")
+    check("REAL DATASET UNAVAILABLE" not in outs["train"],
+          "cli train did not read the CSVs")
+    check(re.search(r"^history plot( skipped)?: ", outs["train"], re.M) is not None,
+          "cli train printed no history-plot line")
+    # B1 at the widest cluster this path gave it, on the inputs it gave it,
+    # against its plain version (check_bpr's tolerances and bit-equalities)
+    kargs, kw = widest.args, dict(widest.kw)
+    step_lists = kw.pop("incidence")
+    u_pad, i_pad = kargs[0].shape[0], kargs[1].shape[0]
+    nb, kd = kargs[2].shape
+    check(kd == ml.model.dim, f"cli train gave bpr_tile d = {kd}, not {ml.model.dim}")
+    b1_err = check_bpr(kargs, f"bpr_tile at the ML-25M CLI's widest cluster (u_pad {u_pad}, "
+                       f"i_pad {i_pad}, B {nb}, d {kd})", step_lists,
+                       also=[cuda_bpr.bpr_incidence(*kargs[3:], u_pad, i_pad)], **kw)
+    b1_check = dict(u_pad=u_pad, i_pad=i_pad, B=nb, valid=int(kargs[7].sum()), d=kd,
+                    loss=kw["loss"], max_abs_err=b1_err)
+    del kargs, step_lists, widest
+    # the trained tables: finite, and moved from the ones the run started from
+    moved, _ = load_params(str(WORK / "ml25m_model.npz"), device="cuda")
+    start = create_train_state(cfg, data.num_users, data.num_items, device="cuda").params
+    check(all(bool(torch.isfinite(t).all()) for t in moved),
+          "cli train at ML-25M width saved tables that are not finite")
+    rows_moved = [float((a != b).any(dim=1).float().mean()) for a, b in zip(moved, start)]
+    check(all(r > 0 for r in rows_moved),
+          f"cli train at ML-25M width left a table as it started: rows moved {rows_moved}")
+    hist = np.load(WORK / "ml25m_hist" / "hist_train_loss.npy")
+    check(hist.size == 1 and bool(np.isfinite(hist).all()),
+          f"cli train at ML-25M width logged the training loss {hist}")
+    b1_check.update(rows_moved=dict(user=rows_moved[0], item=rows_moved[1]),
+                    train_loss=float(hist[0]))
+    del moved, start
+    log(f"[surface] (c) bpr_tile at the CLI's widest cluster: {json.dumps(b1_check)}; "
+        f"the trained tables finite and moved")
+    rcs["eda"], outs["eda"], secs["eda"] = run_cli(cli, base + ["eda"])
+    check(rcs["eda"] == 0, f"cli eda exited {rcs['eda']}")
+    check(f"\nratings: {written['rows']}\n" in "\n" + outs["eda"],
+          f"cli eda's ratings line is not the {written['rows']} rows written")
+    check(re.search(rf"^ratings >= 4\.0: {written['positives']} \(", outs["eda"], re.M)
+          is not None, f"cli eda's ratings >= 4.0 line is not the {written['positives']} "
+          f"positives")
+    raw_user = int(data.raw_user_id(SURFACE["users"][1]))
+    rcs["recommend"], outs["recommend"], secs["recommend"] = run_cli(
+        cli, base + ["recommend", "--user-id", str(raw_user), "--plots"], cwd=plots)
+    check(rcs["recommend"] == 0, f"cli recommend --plots exited {rcs['recommend']}")
+    numbers.update(cli_rc=rcs, cli_s=secs, b1_launches=b1, b1_check=b1_check)
+    log(f"[surface] (c) cli --dataset ml-25m (4 layers, d 128, 100 clusters): exit codes "
+        f"{rcs}, seconds {json.dumps(secs)}; bpr_tile launches in train {b1}")
+
+    # (d) the analysis' selection on the card against its host copy's
+    t0 = time.time()
+    host = LightGCNParams(*(t.cpu() for t in trained))
+    sel = {}
+    for uidx in SURFACE["users"]:
+        uid = int(data.raw_user_id(uidx))
+        card = user_neighbourhood(trained, uid, data)
+        ref = user_neighbourhood(host, uid, data, num_similar_users=26, num_top_movies=51)
+        check(card.similar.device.type == "cuda", "the selection left the card")
+        swaps = 0
+        for what, ids, scores, rids, rscores in (
+                ("similar users", card.similar, card.similar_scores, ref.similar,
+                 ref.similar_scores),
+                ("dissimilar users", card.dissimilar, card.dissimilar_scores,
+                 ref.dissimilar, ref.dissimilar_scores),
+                ("top movies", card.top_movies, card.movie_scores, ref.top_movies,
+                 ref.movie_scores)):
+            swaps += check_topk(scores.cpu()[None], ids.cpu()[None], rscores[None],
+                                rids[None], torch.float32, FULL["dim"],
+                                f"user {uid}'s {what}, card vs host")
+        check(uidx not in card.similar.tolist() + card.dissimilar.tolist(),
+              f"user {uid} is among its own similar or dissimilar users")
+        check(np.array_equal(card.stack[0], host.user_emb[uidx].numpy()),
+              "the stack's first row is not the user's")
+        sel[uid] = dict(swaps=swaps, ms=time_ms(lambda: user_neighbourhood(trained, uid, data),
+                                                5))
+    numbers.update(selection=sel, selection_s=time.time() - t0)
+    log(f"[surface] (d) user_neighbourhood on the card (162,541 users, 59,047 movies, "
+        f"d {FULL['dim']}): equal to the host's up to near ties, the user in neither list: "
+        f"{json.dumps(sel)}")
+    del host
+
+    # (e) step-numbered parameter checkpoints on the card
+    steps = WORK / "param_steps"
+    t0 = time.time()
+    check(save_params_orbax(str(steps), params0, step=3), "the step-3 save wrote nothing")
+    t1 = time.time()
+    check(save_params_orbax(str(steps), trained, step=5), "the step-5 save wrote nothing")
+    t_save = time.time() - t1
+    check(save_params_orbax(str(steps), trained, step=4) is False,
+          "a save at step 4 after step 5 wrote")
+    (steps / ".6.tmp-stale").mkdir()
+    (steps / ".6.tmp-stale" / "params.npz").write_bytes(b"partial")
+    check(latest_step(str(steps)) == 5, "the latest step is not 5")
+    torch.cuda.synchronize()
+    t1 = time.time()
+    latest = load_params_orbax(str(steps), device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.time() - t1
+    three = load_params_orbax(str(steps), step=3, device="cuda")
+    check(all(t.device.type == "cuda" for t in (*latest, *three))
+          and all(torch.equal(a, b) for a, b in zip(latest, trained))
+          and all(torch.equal(a, b) for a, b in zip(three, params0)),
+          "a step-numbered checkpoint did not round-trip on the card")
+    mb = (steps / "5" / "params.npz").stat().st_size / 1e6
+    numbers.update(ckpt_mb=mb, ckpt_save_s=t_save, ckpt_load_s=t_load,
+                   ckpt_s=time.time() - t0)
+    log(f"[surface] (e) save_params_orbax / load_params_orbax of the trained tables "
+        f"({mb:.1f} MB): steps 3 and 5 saved, step 4 refused, a stale temporary directory "
+        f"ignored, latest and step 3 torch.equal on the card; save {t_save:.3f} s, load "
+        f"{t_load:.3f} s")
+    del latest, three
+
+    # (f) the rendering
+    skipped = [ln for o in outs.values() for ln in o.splitlines() if "skipped" in ln]
+    pngs = [WORK / "ml25m_hist" / "histories_training.png", plots / "recommendations.png",
+            plots / "user_analysis.png"]
+    if found["matplotlib"]:
+        check(not skipped, f"a plot was skipped with matplotlib installed: {skipped}")
+        sizes = {p.name: p.stat().st_size if p.exists() else 0 for p in pngs}
+        check(all(s > 4000 for s in sizes.values()), f"PNG sizes {sizes}")
+        numbers["plots"] = sizes
+    else:
+        check(len(skipped) == 2 and all("matplotlib" in ln for ln in skipped),
+              f"without matplotlib the skipped lines are {skipped}")
+        numbers["plots"] = "not rendered: no matplotlib"
+    numbers["phase_s"] = time.time() - t_phase
+    log(f"[surface] {json.dumps(numbers)}")
+    check(numbers["phase_s"] <= 120, f"phase 6b took {numbers['phase_s']:.1f} s, over 120")
+    return numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4363,6 +4768,14 @@ def main() -> int:
               and (WORK / "small_hybrid_hist" / "hist_train_loss.npy").exists(),
               "cli train --optimizer hybrid_adam did not train through bpr_tile or "
               "wrote no checkpoint or histories")
+        del index, tindex
+
+        # 6b. the user-facing surface at ML-25M width; B1's row gains its
+        # check at the ML-25M CLI's widest cluster
+        surface = surface_phase(data, trained, params0, smi)
+        b1_row = next(r for r in rows if r["name"] == "bpr_tile")
+        b1_row["max_abs_err"] = max(b1_row["max_abs_err"], surface["b1_check"]["max_abs_err"])
+        b1_row["ml25m_cli"] = dict(surface["b1_check"], launches=surface["b1_launches"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -11,8 +11,12 @@ of exact top-k retrieval is a hand-written CUDA kernel
 (``csrc/score_chunkmax.cu``, bound in ``ops/cuda_mips.py``), and training with
 the full-node and compact cluster trainers, whose fused BPR loss and gradients
 are a second one (``csrc/bpr_tile.cu``, bound in ``ops/cuda_bpr.py``), the
-full-graph trainer, and multi-device training over ``torch.distributed``
-(``parallel/``, ``training/distributed.py``, ``training/compact_sharded.py``).
+full-graph trainer, multi-device training over ``torch.distributed``
+(``parallel/``, ``training/distributed.py``, ``training/compact_sharded.py``),
+checkpoints and elastic recovery, and the user-facing surface: the
+reference's data-handler API (``data/handler.py``), the dataset download,
+the milestone configs, ``cli eda`` (``utils/eda.py``) and the plots
+(``utils/visualizations.py``).
 """
 
 from .config import Config

@@ -1,11 +1,12 @@
-"""Command-line entry point of the port: ``train`` and ``recommend`` (one-shot
-or batch).
+"""Command-line entry point of the port: ``train``, ``recommend`` (one-shot
+or batch) and ``eda``.
 
     python -m movie_recommender_system_with_gnns_tpu_torch.cli train --fused-bpr
-    python -m movie_recommender_system_with_gnns_tpu_torch.cli recommend --user-id N
+    python -m movie_recommender_system_with_gnns_tpu_torch.cli recommend --user-id N [--plots]
     python -m movie_recommender_system_with_gnns_tpu_torch.cli recommend --movie-id N
     python -m movie_recommender_system_with_gnns_tpu_torch.cli recommend \\
         --users-file users.txt --out recs.csv
+    python -m movie_recommender_system_with_gnns_tpu_torch.cli --dataset ml-25m eda
 
 The options are the JAX package's, so one command line, one checkpoint and one
 indexes dir serve both. ``--device`` picks the device (default ``cuda``;
@@ -22,15 +23,20 @@ elastic driver (``training/recovery.py``: a transient failure resumes from
 the last full-state checkpoint, bit-equal to an uninterrupted run);
 ``--full-eval`` adds the full-ranking Recall@k / NDCG@k on the test split
 after training. Every ``train`` appends one row per epoch to
-``<histories-dir>/metrics.jsonl``. ``recommend --propagated`` scores with
-the K-layer propagated tables. The history plot and ``eda`` are not ported
-yet.
+``<histories-dir>/metrics.jsonl`` and ends with the history plot
+(``<histories-dir>/histories_training.png``). ``recommend --propagated``
+scores with the K-layer propagated tables; ``recommend --plots`` also writes
+the bar chart (``recommendations.png``) and the user's embedding-space
+analysis (``user_analysis.png``) in the working directory. ``eda`` prints
+the dataset statistics of ``<data-dir>/ratings.csv`` (the synthetic graph's
+when it is absent). The plots need matplotlib; without it they print a
+"skipped" line and the command goes on.
 
 ``train --mesh DPxMP`` trains the row-sharded full-graph trainer
 (``training/distributed.py``) over DP·MP ranks, one card each, and
 ``--full-eval`` then evaluates with the catalog sharded over them:
 
-    torchrun --nproc-per-node=4 -m movie_recommender_system_with_gnns_tpu_torch.cli \
+    torchrun --nproc-per-node=4 -m movie_recommender_system_with_gnns_tpu_torch.cli \\
         train --mesh 2x2 --full-eval
 
 ``--mesh 1x1`` runs in one process without a launcher; any other mesh
@@ -186,7 +192,8 @@ def train_from_args(args, mesh=None):
 def cmd_train(args) -> int:
     """Train (:func:`train_from_args`), then the optional full-ranking eval
     of the layer-0 tables on the test split (catalog sharded over the mesh
-    with ``--mesh``). A process group this command starts, it ends."""
+    with ``--mesh``), then the history plot. A process group this command
+    starts, it ends."""
     import torch.distributed as dist
 
     owned = not dist.is_initialized()
@@ -208,6 +215,13 @@ def cmd_train(args) -> int:
                 MetricsLogger(metrics_path(cfg)).log(
                     cfg.train.epochs, test_full_recall=recall, test_full_ndcg=ndcg,
                     **evaluate_full_ranking.last_timings)
+        if mesh is None or mesh.is_main:
+            from .utils.visualizations import plot_histories
+
+            try:
+                print(f"history plot: {plot_histories(cfg.train.histories_dir)}")
+            except Exception as e:  # a plot must never fail training
+                print(f"history plot skipped: {e}")
     finally:
         if owned and mesh is not None and dist.is_initialized():
             dist.destroy_process_group()
@@ -285,6 +299,61 @@ def cmd_recommend(args) -> int:
     print(f"Top {args.top_k} Recommendations for user {user_id}:")
     for i, rec in enumerate(out["recommendations"], 1):
         print(f"{i}. {rec['title']} (Score: {rec['score']:.4f})")
+
+    if args.plots:
+        from .utils.visualizations import (_render_analysis, plot_recommendations,
+                                           user_neighbourhood)
+
+        # the analysis' device work runs outside the guard: a fault on the
+        # card fails the command, only the rendering may be skipped
+        hood = user_neighbourhood(params, user_id, data)
+        try:
+            print("bar chart:", plot_recommendations(out["recommendations"], user_id))
+            print("analysis:", _render_analysis(hood, user_id))
+        except Exception as e:
+            print(f"plots skipped: {e}")
+    return 0
+
+
+def cmd_eda(args) -> int:
+    """Reference data/eda.py: the dataset statistics report (JAX
+    ``cli.py:240-276``). ``ratings.csv`` is read by the native reader, all
+    rows, and counted again at ``min_rating``; ``movies.csv`` and
+    ``tags.csv`` through pandas where it is installed, else the ``csv``
+    module. Without ``ratings.csv``, the synthetic graph JAX's ``eda``
+    builds for the same command line is reported."""
+    import numpy as np
+
+    from .data import native
+    from .data.movielens import make_synthetic_movielens, pandas_or_none
+    from .utils.eda import eda_report, read_csv_columns
+
+    cfg = _build_cfg(args)
+    ratings_path = os.path.join(cfg.data.data_dir, "ratings.csv")
+    movies = tags = num_ge = None
+    if os.path.exists(ratings_path):
+        users, items = native.load_ratings_csv(ratings_path, -np.inf)
+        num_ge = native.load_ratings_csv(ratings_path, cfg.data.min_rating)[0].shape[0]
+        ratings = {"userId": users, "movieId": items}
+        pd = pandas_or_none()
+        read = pd.read_csv if pd is not None else read_csv_columns
+        movies_path = os.path.join(cfg.data.data_dir, "movies.csv")
+        tags_path = os.path.join(cfg.data.data_dir, "tags.csv")
+        if os.path.exists(movies_path):
+            movies = read(movies_path)
+        if os.path.exists(tags_path):
+            tags = read(tags_path)
+    else:
+        print("(no CSVs found — reporting on the synthetic dataset)")
+        d = make_synthetic_movielens(cfg.data.synthetic_users, cfg.data.synthetic_items,
+                                     cfg.data.synthetic_interactions)
+        e = d.edge_index
+        fwd = e[0] < d.num_users
+        ratings = {"userId": d.raw_user_id(e[0][fwd]),
+                   "movieId": d.raw_movie_id(e[1][fwd] - d.num_users),
+                   "rating": np.full(int(fwd.sum()), 4.0)}
+    eda_report(ratings, movies=movies, tags=tags, min_rating=cfg.data.min_rating,
+               num_ge=num_ge)
     return 0
 
 
@@ -365,13 +434,15 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--user-id", type=int, default=None)
     pr.add_argument("--movie-id", type=int, default=None)
     pr.add_argument("--top-k", type=int, default=10)
+    pr.add_argument("--plots", action="store_true",
+                    help="also write recommendations.png and user_analysis.png")
     pr.add_argument("--propagated", action="store_true",
                     help="score with K-layer propagated embeddings instead of "
                          "the reference's layer-0 tables")
     pr.add_argument("--users-file", default=None,
                     help="batch mode: file with one raw userId per line")
     pr.add_argument("--out", default=None, help="batch mode output CSV path")
-    sub.add_parser("eda", help="not ported yet")
+    sub.add_parser("eda", help="dataset statistics report")
     return ap
 
 
@@ -381,9 +452,7 @@ def main(argv=None) -> int:
         return cmd_train(args)
     if args.cmd == "recommend":
         return cmd_recommend(args)
-    print(f"'{args.cmd}' is not ported to the PyTorch package yet; run it "
-          "with movie_recommender_system_with_gnns_tpu.cli", file=sys.stderr)
-    return 2
+    return cmd_eda(args)
 
 
 if __name__ == "__main__":

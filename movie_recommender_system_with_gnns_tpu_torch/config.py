@@ -158,3 +158,22 @@ class Config:
             mesh=MeshConfig(**raw.get("mesh", {})),
             serve=ServeConfig(**raw.get("serve", {})),
         )
+
+
+def ml100k_config() -> Config:
+    """Milestone config 1 from BASELINE.json: 3-layer d=64 on an ML-100K-scale graph."""
+    return Config(
+        data=DataConfig(dataset="ml-100k", data_dir="data/movielens-100k",
+                        synthetic_users=943, synthetic_items=1682,
+                        synthetic_interactions=100_000),
+        train=TrainConfig(num_clusters=4),
+    )
+
+
+def ml25m_config() -> Config:
+    """Milestone config 3 from BASELINE.json: 4-layer d=128 on ML-25M."""
+    return Config(
+        data=DataConfig(dataset="ml-25m"),
+        model=ModelConfig(num_layers=4, dim=128),
+        train=TrainConfig(num_clusters=100),
+    )

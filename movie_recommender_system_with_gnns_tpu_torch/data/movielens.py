@@ -12,20 +12,74 @@ because the port imports nothing of that package. Everything returns plain
 
 ``ratings.csv`` is read by the host graph runtime's mmap reader
 (``data/native.py``), or through pandas when ``reader="pandas"`` asks for it.
+pandas is imported where it is used, and only the titles need it: without it
+a dataset has no title table. :func:`download_and_extract_dataset` fetches a
+MovieLens zip (JAX ``data/movielens.py:46-72``) with a connection timeout.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import zipfile
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-try:
-    import pandas as pd
-except ImportError:  # pragma: no cover
-    pd = None
+MOVIELENS_URLS = {
+    # dataset_handler.py:16
+    "ml-25m": "https://files.grouplens.org/datasets/movielens/ml-25m.zip",
+    "ml-1m": "https://files.grouplens.org/datasets/movielens/ml-1m.zip",
+    "ml-100k": "https://files.grouplens.org/datasets/movielens/ml-latest-small.zip",
+}
+#: seconds a download waits to connect or for the next bytes
+DOWNLOAD_TIMEOUT_S = 30.0
+
+
+def pandas_or_none():
+    """The pandas module, or None where it is not installed."""
+    try:
+        import pandas
+    except ImportError:
+        return None
+    return pandas
+
+
+def download_and_extract_dataset(data_dir: str, dataset: str = "ml-25m") -> None:
+    """Download a MovieLens zip and extract ``movies.csv`` + ``ratings.csv``.
+
+    JAX's function with its messages: only those two members are extracted,
+    by base name, the zip is removed afterwards, and a failed download
+    raises ``RuntimeError`` naming the missing egress. Unlike JAX's
+    ``urlretrieve``, the connection has a timeout (:data:`DOWNLOAD_TIMEOUT_S`),
+    so a machine without network fails fast instead of waiting.
+    """
+    import urllib.error
+    import urllib.request
+
+    os.makedirs(data_dir, exist_ok=True)
+    url = MOVIELENS_URLS[dataset]
+    zip_path = os.path.join(data_dir, f"{dataset}.zip")
+    print(f"Downloading {dataset} from {url} ...")
+    try:
+        with urllib.request.urlopen(url, timeout=DOWNLOAD_TIMEOUT_S) as src, \
+                open(zip_path, "wb") as dst:
+            shutil.copyfileobj(src, dst)
+    except (urllib.error.URLError, OSError) as e:
+        raise RuntimeError(
+            f"Could not download {dataset} ({e}). This environment may have no "
+            "network egress — use make_synthetic_movielens() or place "
+            "ratings.csv/movies.csv under the data dir manually."
+        ) from e
+    with zipfile.ZipFile(zip_path, "r") as zf:
+        for name in zf.namelist():
+            base = os.path.basename(name)
+            if base in ("movies.csv", "ratings.csv"):
+                with zf.open(name) as src, open(os.path.join(data_dir, base), "wb") as dst:
+                    shutil.copyfileobj(src, dst)
+    os.remove(zip_path)
+    print("Dataset downloaded and extracted successfully.")
 
 
 @dataclass
@@ -42,7 +96,7 @@ class MovieLensData:
     edge_index: np.ndarray                 # int32 (2, E) undirected (doubled+coalesced)
     user_ids: np.ndarray                   # raw userId for dense user index u
     movie_ids: np.ndarray                  # raw movieId for dense item index i
-    movie_titles: Optional["pd.DataFrame"] = None   # columns: movieId, title
+    movie_titles: Optional[object] = None  # a pandas DataFrame: movieId, title
     _user_id_map: Optional[Dict[int, int]] = field(default=None, repr=False)
     _movie_id_map: Optional[Dict[int, int]] = field(default=None, repr=False)
 
@@ -104,12 +158,22 @@ def _lookup(sorted_source_unsorted: np.ndarray, queries: np.ndarray) -> np.ndarr
     return out.astype(np.int64)
 
 
+def sorted_unique(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a)`` of a 1-D array by one sort: the same sorted values.
+    NumPy 2.3's ``np.unique`` hashes first, which on tens of millions of
+    distinct int64 keys is several times slower than sorting them."""
+    a = np.sort(a)
+    keep = np.ones(a.shape[0], bool)
+    np.not_equal(a[1:], a[:-1], out=keep[1:])
+    return a[keep]
+
+
 def to_undirected(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
     """Double and coalesce edges: {(u,v)} -> {(u,v)} ∪ {(v,u)}, sorted, deduped."""
     src = np.concatenate([edge_index[0], edge_index[1]])
     dst = np.concatenate([edge_index[1], edge_index[0]])
     key = src.astype(np.int64) * np.int64(num_nodes) + dst.astype(np.int64)
-    uniq = np.unique(key)
+    uniq = sorted_unique(key)
     return np.stack([uniq // num_nodes, uniq % num_nodes]).astype(np.int32)
 
 
@@ -130,6 +194,7 @@ def load_movielens(
 
         user_raw, movie_raw = native.load_ratings_csv(ratings_path, min_rating)
     elif reader == "pandas":
+        pd = pandas_or_none()
         if pd is None:
             raise RuntimeError("pandas is required for reader='pandas'")
         ratings = pd.read_csv(ratings_path, usecols=["userId", "movieId", "rating"])
@@ -138,6 +203,7 @@ def load_movielens(
         movie_raw = ratings["movieId"].to_numpy()
     else:
         raise ValueError(f"unknown reader {reader!r}")
+    pd = pandas_or_none()
     movies = (pd.read_csv(movies_path, usecols=["movieId", "title"])
               if pd is not None and movies_path else None)
     # first-appearance order, like a dict comprehension over .unique()
@@ -205,6 +271,7 @@ def make_synthetic_movielens(
     edge_index = np.stack([users, items + n_u])
     edge_index = to_undirected(edge_index, n_u + n_i)
     titles = None
+    pd = pandas_or_none()
     if pd is not None:
         titles = pd.DataFrame(
             {"movieId": np.arange(1, n_i + 1),
@@ -276,8 +343,11 @@ def split_edges(
     else:
         val_idx, test_idx = _load_persisted(val_file, test_file, num_edges,
                                             "edge", indexes_dir)
-        train_idx = np.setdiff1d(np.arange(num_edges),
-                                 np.concatenate([val_idx, test_idx]))
+        # setdiff1d(arange, val ∪ test) by a mask (no hash of every index)
+        train = np.ones(num_edges, bool)
+        train[val_idx] = False
+        train[test_idx] = False
+        train_idx = np.flatnonzero(train)
         for arr in (train_idx, val_idx, test_idx):
             if not np.all(np.diff(arr) > 0):
                 raise ValueError(f"split indices in {indexes_dir} repeat an edge")

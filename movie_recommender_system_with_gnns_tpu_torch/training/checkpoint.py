@@ -11,21 +11,25 @@ either package loads in the other unchanged.
     optimizer and schedule, and a ``_meta`` JSON holding ``num_leaves`` (the
     resume point of ``training/recovery.py``).
 
-Both are written atomically (a temporary file, then ``os.replace``). The
-Orbax backend is not ported.
+Both are written atomically (a temporary file, then ``os.replace``).
+:func:`save_params_orbax` / :func:`load_params_orbax` keep the names of JAX's
+Orbax backend (``:72-94``) over the port's own step-numbered directories of
+``params.npz`` files, with Orbax's rules for steps.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import tempfile
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.lightgcn import LightGCNParams, params_from_numpy
-from ..utils.device import DeviceLike
+from ..utils.device import DeviceLike, resolve_device
 
 
 def _meta_array(meta: dict) -> np.ndarray:
@@ -71,6 +75,73 @@ def load_params_if_exists(path: str, params: LightGCNParams) -> LightGCNParams:
         return params
     print(f"resumed parameters from {path}")
     return loaded
+
+
+# ---------------------------------------------------------------------------
+# Step-numbered parameter checkpoints (the names of JAX's Orbax backend)
+# ---------------------------------------------------------------------------
+
+PARAMS_FILE = "params.npz"
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """The largest step saved under ``directory``: the largest name of a
+    subdirectory made only of digits (None when there is none). Temporary
+    directories of an unfinished save are ignored."""
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(n) for n in os.listdir(directory)
+             if n.isdigit() and os.path.isdir(os.path.join(directory, n))]
+    return max(steps, default=None)
+
+
+def save_params_orbax(directory: str, params: LightGCNParams, step: int = 0) -> bool:
+    """Save the two tables (no moments) as step ``step`` of ``directory``:
+    ``<directory>/<step>/params.npz`` in :func:`save_params`' layout, its
+    ``_meta`` holding the step, so either package's ``load_params`` reads it.
+
+    The counterpart of JAX's ``save_params_orbax`` (``training/checkpoint.py:72``),
+    in the port's own format: Orbax imports JAX. Its rules are Orbax's: a
+    save at a step at or below the latest writes nothing and returns False
+    (JAX's wrapper drops that value). The file is written into a temporary
+    sibling directory that is then renamed to the step's name, so a crash
+    never leaves a step directory without its file. A CUDA table is copied
+    to the host once."""
+    step = int(step)
+    if step < 0:
+        raise ValueError(f"step must be >= 0, got {step}")
+    os.makedirs(directory, exist_ok=True)
+    latest = latest_step(directory)
+    if latest is not None and step <= latest:
+        return False
+    tmp = tempfile.mkdtemp(prefix=f".{step}.tmp-", dir=directory)
+    try:
+        save_params(os.path.join(tmp, PARAMS_FILE), params, meta={"step": step})
+        os.rename(tmp, os.path.join(directory, str(step)))
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return True
+
+
+def load_params_orbax(directory: str, step: Optional[int] = None,
+                      device: DeviceLike = None) -> LightGCNParams:
+    """The tables of step ``step`` of ``directory`` (the latest when None), on
+    ``resolve_device(device)``. The counterpart of JAX's ``load_params_orbax``
+    (``training/checkpoint.py:86``) over :func:`save_params_orbax`' format; a
+    directory that JAX's Orbax wrote is not read. An empty or missing
+    directory, or a step that was not saved, raises ``FileNotFoundError``, as
+    Orbax's ``restore`` does."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"No steps found in {directory}.")
+    path = os.path.join(directory, str(int(step)), PARAMS_FILE)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{path} not found: step {step} was not saved by save_params_orbax "
+            "(a directory written by JAX's Orbax backend is not read)")
+    return load_params(path, resolve_device(device))[0]
 
 
 # ---------------------------------------------------------------------------

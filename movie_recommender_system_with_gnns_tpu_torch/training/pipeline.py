@@ -18,8 +18,8 @@ import numpy as np
 
 from ..config import Config
 from ..data.graph import COOGraph
-from ..data.movielens import (MovieLensData, load_movielens,
-                              make_synthetic_movielens, split_edges)
+from ..data.movielens import (MovieLensData, download_and_extract_dataset,
+                              load_movielens, make_synthetic_movielens, split_edges)
 from ..data.partition import partition_bipartite_greedy, partition_edges_random
 from ..ops.sampling import check_negatives_mode, triplets_from_edges
 from ..ops.spmm import DeviceCOO
@@ -88,15 +88,19 @@ def load_and_split(cfg: Config, data: Optional[MovieLensData] = None
     Loads the CSVs (or generates the synthetic graph) and splits 90/5/5 with
     persisted indices. Serving needs no more than this.
 
-    A real dataset whose CSVs are absent falls back to the synthetic
-    generator with a loud notice, as the JAX package does after its download
-    attempt; the port does not download.
+    A real dataset whose CSVs are absent is downloaded first, as the JAX
+    package does (``training/pipeline.py:76-88``); when that fails (no
+    network egress, or a dataset with no URL) it falls back to the synthetic
+    generator with JAX's loud notice.
     """
     if data is None:
         if cfg.data.dataset != "synthetic" and not _csvs_exist(cfg):
-            print(f"[data] REAL DATASET UNAVAILABLE (no CSVs under "
-                  f"{cfg.data.data_dir}); falling back to the SYNTHETIC "
-                  "generator — numbers from this run are on synthetic data")
+            try:
+                download_and_extract_dataset(cfg.data.data_dir, cfg.data.dataset)
+            except (RuntimeError, KeyError) as e:
+                print(f"[data] REAL DATASET UNAVAILABLE ({e}); "
+                      f"falling back to the SYNTHETIC generator — quality/perf "
+                      f"numbers from this run are on synthetic data")
         if cfg.data.dataset == "synthetic" or not _csvs_exist(cfg):
             data = make_synthetic_movielens(
                 cfg.data.synthetic_users,

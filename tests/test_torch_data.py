@@ -120,3 +120,14 @@ def test_group_by_user_identical(tiny_data):
     for e in (edges, dup):
         for a, b in zip(j_group(e, tiny_data.num_users), t_group(e, tiny_data.num_users)):
             np.testing.assert_array_equal(a, b)
+
+
+def test_sorted_unique_and_to_undirected_match_numpy_and_jax():
+    rng = np.random.default_rng(5)
+    for a in (rng.integers(0, 1000, 5000), rng.integers(-5, 5, 7), np.array([3, 3]),
+              np.array([], np.int64)):
+        out = tml.sorted_unique(a)
+        np.testing.assert_array_equal(out, np.unique(a))
+        assert out.dtype == a.dtype
+    e = np.stack([rng.integers(0, 50, 3000), rng.integers(50, 90, 3000)])
+    np.testing.assert_array_equal(tml.to_undirected(e, 90), jml.to_undirected(e, 90))

@@ -150,8 +150,24 @@ Phases:
      parameter checkpoints of the trained tables on the card; the PNGs where
      matplotlib is installed, else the "skipped" lines naming it; one
      ``[surface]`` JSON line, the phase within 120 s;
+  6c. the four example drivers (``examples_phase``), each's ``main`` in this
+     process on the card, phase 4's graph answering their builds of it:
+     ``torch_train_ml25m_scale.py`` at the d = 512 microbatched full-graph
+     flags of its run log (1 epoch), ``torch_train_bridge.py`` at the d = 128
+     hybrid bridge's flags (a compact epoch and a refresh),
+     ``torch_train_sharded.py --mesh 1x1`` and ``torch_profile_epoch.py``;
+     each returns, its launches counted, each kernel it launched held
+     against its plain version at every shape it gave it (B4 and the row
+     scatter at one kept call per shape, B1 at its widest call), the
+     trainers' losses finite and tables moved, their headline lines held,
+     one ``[examples]`` JSON line, the phase within 300 s;
   7. each kernel timed at its main-path shape beside its plain version, one
-     library call where one computes the same function, and its bound.
+     library call where one computes the same function, and its bound;
+  7r. (after 5f) the epochs' row-op roofline (``roofline_phase``): the
+     primitive rates measured at the main path's shapes from captured CUDA
+     graphs, the compact floor under Adam and ``hybrid_adam`` and the
+     sharded hybrid floor, each over its timed epoch of 5a / 5f as
+     ``rowop_util`` in (0, 1]; one ``[roofline]`` JSON line.
 
 Kernel launches are counted per path: the counts are set to 0 just before a
 path is driven and read just after. Prints the card's ``nvidia-smi`` line and
@@ -175,26 +191,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# the published peaks and the BPR kernel's byte count, shared with the
+# epochs' floors (phase 7r)
+from movie_recommender_system_with_gnns_tpu_torch.utils.roofline import (
+    F32_FLOPS, TF32_FLOPS, bpr_tile_bytes, bpr_tile_counts, bpr_tile_flops, peaks_for)
+from movie_recommender_system_with_gnns_tpu_torch.data.movielens import ML25M_SYNTHETIC
+
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / ".smoke_work"
-#: bench.py SCALES["full"]: ML-25M statistics with 200 planted communities
-FULL = dict(users=162_541, items=59_047, interactions=18_000_000,
-            communities=200, power=0.9, dim=64)
+#: bench.py SCALES["full"]: ML-25M statistics with 200 planted communities, d = 64
+FULL = dict(ML25M_SYNTHETIC, dim=64)
 DISPATCH = 32_768
 DISPATCHES = 5
 TOP_K = 10
 SEED = 0
-#: published dense peaks (bytes/s, bf16 FLOP/s), NVIDIA data sheets
-PEAKS = {
-    "H100 SXM": (3.35e12, 989e12),
-    "H100 PCIe": (2.0e12, 756e12),
-    "H100 NVL": (3.9e12, 835e12),
-    "H200": (4.8e12, 989e12),
-}
-#: published f32 rate outside the tensor cores (FLOP/s), NVIDIA data sheet
-F32_FLOPS = 67e12
-#: published dense TF32 tensor-core rate (FLOP/s), NVIDIA data sheet
-TF32_FLOPS = 495e12
 #: the training path: reference defaults (100 clusters, L = 3, d = 64)
 TRAIN = dict(clusters=100, layers=3, epochs=2)
 #: the full-graph phase: the JAX flagship's configuration
@@ -245,13 +255,6 @@ def check(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def peaks_for(name: str):
-    for key in ("H200", "NVL", "PCIe"):
-        if key in name:
-            return PEAKS["H200" if key == "H200" else f"H100 {key}"]
-    return PEAKS["H100 SXM"]
 
 
 def score_tol(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype, d: int):
@@ -508,25 +511,13 @@ def check_bpr(args, what: str, incidence, also=(), **kw) -> float:
 
 def bpr_bound(args, bw: float):
     """Least time (ms) the card could take for one ``bpr_tile`` call on these
-    inputs, with what sets it, the bytes and the operations. Counted from the
-    data: a masked triplet costs its ``m`` entry and its zero ``gni`` row;
-    a valid one its four other indices and its ``ni`` row; of the tables only
-    the rows a valid triplet names are read (an item named only as an
-    in-cluster negative gives its propagated half alone); ``gni``, both
-    gradient tables and the loss are written once in full, the zeros
-    included; about 30 d f32 operations per valid triplet."""
-    u_tab, i_tab, ni, ul, pl, loc, inc, m = args
-    b, d = ni.shape
-    v = m != 0
-    valid = int(v.sum())
-    u_named = torch.unique(ul[v])
-    pos = torch.unique(pl[v])
-    neg = torch.unique(loc[v & (inc != 0)])
-    neg_only = int((~torch.isin(neg, pos)).sum())
-    read = (4 * b + 16 * valid + valid * d * 4 + 8
-            + (u_named.numel() + pos.numel()) * 2 * d * 4 + neg_only * d * 4)
-    write = b * d * 4 + (u_tab.numel() + i_tab.numel()) * 4 + 4
-    byts, flops = read + write, 30.0 * d * valid
+    inputs, with what sets it, the bytes and the operations, counted from the
+    data by the port's ``utils/roofline.py`` (``bpr_tile_counts``,
+    ``bpr_tile_bytes``, ``bpr_tile_flops``), the count the compact epoch's
+    floor charges the kernel."""
+    counts = bpr_tile_counts(*args)
+    byts = bpr_tile_bytes(**counts)
+    flops = bpr_tile_flops(d=counts["d"], valid=counts["valid"])
     t_bytes, t_ops = byts / bw * 1e3, flops / F32_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             byts, flops)
@@ -763,21 +754,24 @@ def ell_test_graph():
 
 def ell_case(ell, coo, x, what: str, zero_rows=()) -> float:
     """One B4 case: ``spmm_ell_cuda`` against the plain ``spmm_ell`` and
-    ``spmm_segment`` (f32 within rtol 1e-3 / atol 1e-4: the JAX suite's bound
-    for its kernel; the three sum the same f32 products in different orders),
-    bf16 within one bf16 ulp of the plain version (both round an f32 sum
-    once), each bit-equal over two calls; the rows of isolated nodes
-    (``zero_rows``) zero. Returns the f32 max abs error."""
+    ``spmm_segment`` over ``coo`` where one is given (f32 within rtol 1e-3 /
+    atol 1e-4: the JAX suite's bound for its kernel; the three sum the same
+    f32 products in different orders), bf16 within one bf16 ulp of the
+    plain version (both round an f32 sum once), each bit-equal over two
+    calls; the rows of isolated nodes (``zero_rows``) zero. Returns the f32
+    max abs error."""
     from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import spmm_ell_cuda
     from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import spmm_ell, spmm_segment
 
     out, again = spmm_ell_cuda(ell, x), spmm_ell_cuda(ell, x)
     ref = spmm_ell(ell, x)
-    seg = spmm_segment(coo, x)
+    seg = None if coo is None else spmm_segment(coo, x)
     torch.cuda.synchronize()
     check(torch.equal(out, again), f"ell_spmm {what} f32: two calls differ")
     check(bool((out[list(zero_rows)] == 0).all()), "an isolated node's row is not zero")
     for name, r in (("plain spmm_ell", ref), ("spmm_segment", seg)):
+        if r is None:
+            continue
         err = (out - r).abs()
         check(bool((err <= 1e-4 + 1e-3 * r.abs()).all()),
               f"ell_spmm {what} f32 vs {name}: max abs err {err.max().item():.3e}")
@@ -791,8 +785,8 @@ def ell_case(ell, coo, x, what: str, zero_rows=()) -> float:
     check(bool((eb <= 1e-4 + 2.0 ** -7 * refb.float().abs()).all()),
           f"ell_spmm {what} bf16: beyond one ulp of the plain version "
           f"(max abs err {eb.max().item():.3e})")
-    log(f"[kernel] ell_spmm {what}: f32 max abs err {e32:.3e} vs plain, "
-        f"{(out - seg).abs().max().item():.3e} vs spmm_segment; bf16 max abs "
+    vs_seg = "" if seg is None else f", {(out - seg).abs().max().item():.3e} vs spmm_segment"
+    log(f"[kernel] ell_spmm {what}: f32 max abs err {e32:.3e} vs plain{vs_seg}; bf16 max abs "
         f"err {eb.max().item():.3e}; both bit-equal over two calls")
     return e32
 
@@ -3197,41 +3191,19 @@ HYB = dict(parts=64, refine_rounds=8, balance_tol=0.0, ghost_cap=4608,
 
 def hybrid_graph(train_e: np.ndarray, num_users: int, num_items: int, pm: int,
                  node_part=None, parts: int = None, block_dtype: str = "bfloat16"):
-    """``bench.py``'s loop: the native partition into ``HYB["parts"]`` parts,
-    then ``shard_hybrid_graph`` at ``pm``; a block wider than
+    """``bench.py``'s loop (``parallel/sharding.py::build_sharded_hybrid``):
+    the native partition into ``HYB["parts"]`` parts, then
+    ``shard_hybrid_graph`` at ``pm``; a block wider than
     ``HYB["max_block_nodes"]`` doubles the parts. Given ``node_part`` and
     ``parts``, only the build. Returns (graph, node_part, parts, partition
     s, build s)."""
-    from movie_recommender_system_with_gnns_tpu_torch.data.partition import (
-        forward_half, partition_assignments)
     from movie_recommender_system_with_gnns_tpu_torch.parallel import sharding as sh
 
-    nu, n = num_users, num_users + num_items
-    plan = sh.ShardPlan.create(num_users, num_items, pm)
-    given = node_part is not None
-    parts = parts or HYB["parts"]
-    t_part = t_build = 0.0
-    uv = None if given else forward_half(train_e, nu)
-    while True:
-        if not given:
-            t0 = time.time()
-            pu, pi = partition_assignments(train_e, nu, n, parts, seed=SEED,
-                                           balance_tol=HYB["balance_tol"], uv=uv,
-                                           refine_rounds=HYB["refine_rounds"])
-            node_part = np.concatenate([pu, pi])
-            t_part += time.time() - t0
-        t0 = time.time()
-        try:
-            g = sh.shard_hybrid_graph(train_e, plan, node_part, parts,
-                                      block_dtype=block_dtype,
-                                      max_block_nodes=HYB["max_block_nodes"],
-                                      ghost_cap=HYB["ghost_cap"])
-            t_build += time.time() - t0
-            return g, node_part, parts, t_part, t_build
-        except ValueError:
-            t_build += time.time() - t0
-            check(not given and parts < 1024, f"no sharded hybrid graph fits at {parts} parts")
-            parts *= 2
+    return sh.build_sharded_hybrid(
+        train_e, sh.ShardPlan.create(num_users, num_items, pm), parts or HYB["parts"],
+        ghost_cap=HYB["ghost_cap"], max_block_nodes=HYB["max_block_nodes"],
+        balance_tol=HYB["balance_tol"], refine_rounds=HYB["refine_rounds"], seed=SEED,
+        block_dtype=block_dtype, node_part=node_part)
 
 
 def rank_remainder(g, m: int):
@@ -3358,6 +3330,7 @@ def sharded_hybrid_phase(data, train_e: np.ndarray, smi: str, bw: float, b4_row:
         compute_serving_tables)
     from movie_recommender_system_with_gnns_tpu_torch.training.train import (
         TrainState, make_adam, make_optimizer, make_train_step)
+    from movie_recommender_system_with_gnns_tpu_torch.utils.roofline import ell_rows_written
 
     t_phase = time.time()
     nu, ni = data.num_users, data.num_items
@@ -3457,6 +3430,11 @@ def sharded_hybrid_phase(data, train_e: np.ndarray, smi: str, bw: float, b4_row:
     # (c) bf16 blocks: bit-equal over two runs; launches, collectives, times
     shard = sh.shard_hybrid(g, plan, 0, "cuda")
     torch.cuda.synchronize()
+    # the epoch's shapes for its floor (phase 7r)
+    floor_inputs = dict(n_pad=plan.n_pad, steps=sp["num_steps"], batch=b,
+                        e_off_directed=int(e_off.shape[1]),
+                        ell_chunks=ell_rows_written(shard.off_ell.schedule),
+                        blk_k=int(np.prod(g.blk_ids.shape[:2])), blk_p=int(p_w))
     # the step's two kernels at its own inputs against their plain versions:
     # B4 over the rank's remainder (the layer's (n_pad, d) table in, l_rows
     # rows out), sorted_index_add at the batch's sorted users and items (the
@@ -3588,7 +3566,7 @@ def sharded_hybrid_phase(data, train_e: np.ndarray, smi: str, bw: float, b4_row:
                    launches_per_step=per_step, collectives_per_step=calls_step,
                    peak_gb=peak / 1e9, launches=path_launches),
         on_path=on_path, tables_rel_err=tab_err, rect_shard=rect,
-        phase_s=time.time() - t_phase)
+        floor_inputs=floor_inputs, phase_s=time.time() - t_phase)
     b4_row.update(
         launches=b4_row["launches"] + path_launches.get("ell_spmm", 0),
         launches_sharded_hybrid=path_launches.get("ell_spmm", 0),
@@ -3602,6 +3580,68 @@ def sharded_hybrid_phase(data, train_e: np.ndarray, smi: str, bw: float, b4_row:
                         transpose_bound_ms=rect["transpose"]["bound_ms"],
                         transpose_max_abs_err=rect["transpose"]["max_abs_err"]))
     log(f"[sharded-hybrid] {json.dumps(numbers)}")
+    return numbers
+
+
+def roofline_phase(shapes: dict, num_users: int, num_items: int, timings: dict,
+                   sharded: dict, smi: str) -> dict:
+    """Phase 7r: the epochs' row-op roofline (the port's ``utils/roofline.py``).
+    The primitive rates measured on the card at the main path's shapes
+    (``num_items`` rows, d = 64, the padded triplet width), each replayed
+    from a captured CUDA graph; the compact floor under Adam and under
+    ``hybrid_adam`` at ``shapes`` (train-compact-full's clusters) and the
+    sharded hybrid floor at phase 5f's ``floor_inputs``; ``rowop_util`` =
+    floor / the timed third epoch of phases 5a and 5f. The sweep rate is one
+    fused Adam pass's; the port's own optimizer's rate is measured beside
+    it and prices nothing. Checks: every rate
+    finite and positive, the sweep at most 1.05 × the HBM peak, every
+    ``rowop_util`` in (0, 1] (a floor above the measured epoch counts work
+    the epoch does not do). The gather rate is not held against the HBM
+    peak: its table sits in L2. One ``[roofline]`` JSON line."""
+    from movie_recommender_system_with_gnns_tpu_torch.utils import roofline
+
+    t0 = time.time()
+    d, layers = FULL["dim"], TRAIN["layers"]
+    rates = roofline.measure_rowop_rates(num_rows=num_items, d=d, batch=shapes["b_pad"])
+    t_rates = time.time() - t0
+    opt_gbps = roofline.optimizer_sweep_gbps(num_rows=num_items, d=d)
+    _, pf, pb = roofline.device_peaks()
+    check(all(np.isfinite(v) and v > 0 for v in rates), f"a row-op rate is not finite "
+          f"and positive: {rates}")
+    row = d * 4
+    rate_bps = dict(gather=row / (rates.gather_ns_row * 1e-9),
+                    segment=row / (rates.segment_ns_row * 1e-9),
+                    sort=4 / (rates.sort_ns_row * 1e-9), sweep=rates.sweep_gbps * 1e9)
+    check(rate_bps["sweep"] <= 1.05 * pb, f"the Adam sweep reads {rate_bps['sweep']:.4e} "
+          f"B/s, above 1.05 x the HBM peak {pb:.4e}")
+    check(np.isfinite(opt_gbps) and 0 < opt_gbps * 1e9 <= 1.05 * pb,
+          f"the port's optimizer sweeps at {opt_gbps:.4e} GB/s")
+    floors, util = {}, {}
+    for opt in ("adam", "hybrid_adam"):
+        floors[opt] = roofline.compact_epoch_floor(
+            num_users=num_users, num_items=num_items, d=d, num_layers=layers,
+            num_clusters=shapes["num_clusters"], u_pad=shapes["u_pad"],
+            i_pad=shapes["i_pad"], b_pad=shapes["b_pad"], rates=rates, peak_flops=pf,
+            peak_hbm_bps=pb, optimizer=opt)
+        util[opt] = floors[opt]["floor_s"] / timings[opt]["epoch_s"]
+    fi = sharded["floor_inputs"]
+    floors["sharded"] = roofline.sharded_epoch_floor(
+        **fi, d=d, num_layers=layers, rates=rates, peak_flops=pf, peak_hbm_gbps=pb / 1e9)
+    util["sharded"] = floors["sharded"]["sharded_floor_s"] / sharded["epoch"]["s"]
+    # JAX's count of the remainder (a row gather per edge) at these rates
+    jax_ell_s = 2 * layers * fi["steps"] * (
+        fi["e_off_directed"] * rates.gather_ns_row
+        + fi["ell_chunks"] * rates.segment_ns_row) * 1e-9
+    numbers = dict(card=smi, rates=rates._asdict(), rate_bytes_per_s=rate_bps,
+                   rates_s=t_rates, optimizer_sweep_gbps=opt_gbps,
+                   sweep_priced_with="one fused Adam pass (torch._fused_adam_)",
+                   shapes=dict(shapes, d=d, layers=layers), floors=floors,
+                   epochs_s=dict(adam=timings["adam"]["epoch_s"],
+                                 hybrid_adam=timings["hybrid_adam"]["epoch_s"],
+                                 sharded=sharded["epoch"]["s"]),
+                   rowop_util=util, sharded_inputs=fi, jax_remainder_count_s=jax_ell_s)
+    log(f"[roofline] {json.dumps(numbers)}")
+    check(all(0 < u <= 1 for u in util.values()), f"a rowop_util outside (0, 1]: {util}")
     return numbers
 
 
@@ -3858,9 +3898,10 @@ def write_surface_csvs(data, out: Path, seed: int) -> dict:
                               for f in ("ratings.csv", "movies.csv", "tags.csv"))))
 
 
-def run_cli(cli, argv, cwd: Path = None):
-    """``cli.main(argv)`` in this process (the launch counters see it), its
-    standard output printed and returned: (rc, text, seconds)."""
+def run_in_process(fn, argv, cwd: Path = None):
+    """``fn(argv)`` in this process (the launch counters see it), its standard
+    output printed and returned: (value, text, seconds). An exception is
+    printed with its traceback and given back as the value."""
     import contextlib
     import io
     import os
@@ -3870,12 +3911,22 @@ def run_cli(cli, argv, cwd: Path = None):
         if cwd is not None:
             os.chdir(cwd)
         with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
+            try:
+                value = fn(argv)
+            except Exception as e:  # noqa: BLE001 - the caller checks it
+                traceback.print_exc()
+                value = e
     finally:
         os.chdir(here)
         print(buf.getvalue(), end="", flush=True)
     torch.cuda.synchronize()
-    return rc, buf.getvalue(), time.time() - t0
+    return value, buf.getvalue(), time.time() - t0
+
+
+def run_cli(cli, argv, cwd: Path = None):
+    """``cli.main(argv)`` in this process: (rc, text, seconds)."""
+    rc, text, secs = run_in_process(cli.main, argv, cwd)
+    return (1 if isinstance(rc, Exception) else rc), text, secs
 
 
 class WidestBprCall:
@@ -3905,6 +3956,315 @@ class WidestBprCall:
     def __exit__(self, *exc):
         self.mod.bpr_tile = self.real
         return False
+
+
+#: phase 6c: the example drivers with their flags (runs/ logs cut to size),
+#: the kernels each must launch, and the phase's budget in seconds
+EXAMPLES = dict(
+    ml25m=("torch_train_ml25m_scale.py", [
+        # runs/ml25m_fg150_k8_d512_pop.log, cut to one epoch
+        "--trainer", "fullgraph", "--dim", "512", "--loss-microbatches", "16",
+        "--num-negatives", "8", "--negatives", "popularity", "--loss", "standard",
+        "--readout", "standard", "--eval-propagated", "--split", "interaction",
+        "--lr", "3e-3", "--lr-schedule", "cosine", "--epochs", "1", "--eval-every", "1"],
+        ("ell_spmm", "sorted_index_add")),
+    bridge=("torch_train_bridge.py", [
+        # runs/bridge_d128_r13_hybrid_short.log, cut to one compact epoch and
+        # one refresh
+        "--correction", "boundary", "--compact-optimizer", "hybrid_adam",
+        "--compact-lr-scale", "1.0", "--lr-schedule", "cosine", "--lr-warmup-epochs", "1",
+        "--dim", "128", "--split", "interaction", "--loss", "standard",
+        "--num-negatives", "8", "--eval-users", "5000", "--final-eval-users", "0",
+        "--epochs", "2", "--refresh-every", "2", "--eval-every", "2"],
+        ("ell_spmm", "sorted_index_add")),
+    sharded=("torch_train_sharded.py", ["--mesh", "1x1", "--epochs", "1"],
+             ("sorted_index_add",)),
+    profile=("torch_profile_epoch.py", ["--epochs", "1"], ("bpr_tile", "sorted_index_add")))
+EXAMPLES_BUDGET_S = 300
+#: a scatter hold's host check covers the leading rows whose entries hold at
+#: most this many elements (the whole call when it is smaller)
+HOST_CHECK_ELEMS = 2 ** 27
+
+
+class ReuseGraph:
+    """While entered, ``make_synthetic_movielens`` (as ``data/movielens.py``
+    and ``training/pipeline.py`` bind it) returns ``data`` to a call with the
+    arguments that built it (``kw``) and builds any other graph: the
+    generator is deterministic, so those arguments give that graph.
+    ``reused`` counts the calls it answered."""
+
+    def __init__(self, data, **kw):
+        import inspect
+
+        from movie_recommender_system_with_gnns_tpu_torch.data import movielens
+        from movie_recommender_system_with_gnns_tpu_torch.training import pipeline
+
+        self.mods, self.real = (movielens, pipeline), movielens.make_synthetic_movielens
+        self.sig, self.data, self.reused = inspect.signature(self.real), data, 0
+        self.key = self._key(**kw)
+
+    def _key(self, *args, **kw):
+        bound = self.sig.bind(*args, **kw)
+        bound.apply_defaults()
+        return tuple(bound.arguments.items())
+
+    def _call(self, *args, **kw):
+        if self._key(*args, **kw) == self.key:
+            self.reused += 1
+            return self.data
+        return self.real(*args, **kw)
+
+    def __enter__(self):
+        for m in self.mods:
+            m.make_synthetic_movielens = self._call
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.make_synthetic_movielens = self.real
+        return False
+
+
+class HeldCalls:
+    """While entered, the wrappers of B4 (``cuda_spmm.ell_spmm_into``, one
+    launch a hop) and of the row scatter (``cuda_scatter.sorted_index_add``,
+    as that module and ``training/compact.py`` bind it) keep a copy of the
+    inputs of one launched call of each shape: B4's first at each (rows,
+    sources, slots, d, dtype), the scatter's widest (most entries) at each
+    (rows, d, dtype). A call made while a CUDA graph is captured is counted
+    and not kept (nothing ran). ``calls`` counts the launched calls the
+    wrappers saw; the launches stay the wrapped functions' own."""
+
+    def __init__(self):
+        from movie_recommender_system_with_gnns_tpu_torch.ops import (
+            _build, cuda_scatter, cuda_spmm)
+        from movie_recommender_system_with_gnns_tpu_torch.training import compact
+
+        self.launches = _build.LAUNCHES
+        self.sites = [(cuda_spmm, "ell_spmm_into", "ell_spmm", self._ell),
+                      (cuda_scatter, "sorted_index_add", "sorted_index_add", self._scatter),
+                      (compact, "sorted_index_add", "sorted_index_add", self._scatter)]
+        self.real = {(m, f): getattr(m, f) for m, f, _, _ in self.sites}
+        self.ell, self.scatter, self.calls = {}, {}, {}
+
+    def _wrap(self, mod, fn, kernel, keep):
+        real = self.real[(mod, fn)]
+
+        def call(*args, **kw):
+            before = self.launches.get(kernel, 0)
+            out = real(*args, **kw)
+            if self.launches.get(kernel, 0) > before:
+                self.calls[kernel] = self.calls.get(kernel, 0) + 1
+                if not torch.cuda.is_current_stream_capturing():
+                    keep(*args, **kw)
+            return out
+        return call
+
+    def _ell(self, ell, emb, out, schedule=None):
+        slots = sum(b.nbr.numel() for b in ell.blocks)
+        key = (ell.num_nodes, ell.num_src, slots, emb.shape[1], str(emb.dtype)[6:])
+        if schedule is None and key not in self.ell:
+            self.ell[key] = (ell, emb.detach().clone())
+
+    def _scatter(self, x, order, starts, rows):
+        key = (rows, x.shape[1], str(x.dtype)[6:])
+        if key not in self.scatter or order.numel() > self.scatter[key][1].numel():
+            self.scatter[key] = (x.detach().clone(), order.clone(), starts.clone())
+
+    def __enter__(self):
+        for mod, fn, kernel, keep in self.sites:
+            setattr(mod, fn, self._wrap(mod, fn, kernel, keep))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, fn), real in self.real.items():
+            setattr(mod, fn, real)
+        return False
+
+
+def hold_scatter(x, order, starts, rows: int, what: str, bw: float) -> dict:
+    """``sorted_index_add`` on one kept call's inputs: bit-equal over two
+    calls; bit-equal to the plain version's sequential sum on the host over
+    the leading rows whose entries hold at most :data:`HOST_CHECK_ELEMS`
+    elements (each row's entries re-listed in their order, so the sums are
+    the same); an f32 call within 1e-5 of the largest entry of the plain
+    version's ``index_add_`` on the card over every row. Timed beside that
+    ``index_add_``, with its bound (bytes)."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_scatter
+
+    d = x.shape[1]
+    sc = lambda: cuda_scatter.sorted_index_add(x, order, starts, rows)
+    plain = lambda: cuda_scatter.sorted_index_add_plain(x, order, starts, rows)
+    out = sc()
+    check(torch.equal(out, sc()), f"{what}: two calls differ")
+    st = starts.cpu().numpy().astype(np.int64)
+    head = int(np.searchsorted(st, st[0] + HOST_CHECK_ELEMS // d, side="right")) - 1
+    head = max(min(head, rows), min(1, rows))
+    sub = order[st[0]:st[head]].long()
+    out_h = cuda_scatter.sorted_index_add_plain(
+        x.index_select(0, sub).cpu(), torch.arange(sub.numel(), dtype=torch.int32),
+        torch.from_numpy((st[:head + 1] - st[0]).astype(np.int32)), head)
+    check(torch.equal(out[:head].cpu(), out_h), f"{what}: rows 0..{head} differ from the "
+          f"plain version's sequential sum on the host")
+    err = top = None
+    if x.dtype == torch.float32:
+        ref = plain()
+        err, top = (out - ref).abs().max().item(), ref.abs().max().item()
+        check(err <= 1e-5 * top, f"{what}: {err:.3e} from index_add_ on the card, largest "
+              f"entry {top:.3e}")
+        del ref
+    entries = int(st[rows] - st[0])
+    k_ms, p_ms = time_ms(sc, 5), time_ms(plain, 5)
+    itemsize = x.element_size()
+    byts = entries * d * itemsize + 4 * entries + 4 * (rows + 1) + rows * d * itemsize
+    res = dict(rows=rows, d=d, dtype=str(x.dtype)[6:], entries=entries,
+               host_rows=head, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+               bound_ms=byts / bw * 1e3)
+    log(f"[examples] sorted_index_add {what}: {json.dumps(res)}")
+    return res
+
+
+def hold_kept(held: HeldCalls, name: str, bw: float) -> dict:
+    """Each call ``held`` kept from driver ``name``'s run against its plain
+    version: B4 by :func:`ell_case` (f32 and bf16 of the kept table, timed,
+    with :func:`ell_bound`'s bound), the scatter by :func:`hold_scatter`.
+    Returns {kernel: [one dict per shape]}."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import spmm_ell_cuda
+
+    out = {"ell_spmm": [], "sorted_index_add": []}
+    for (n, n_src, slots, d, dt), (ell, x) in held.ell.items():
+        what = f"at {name}'s {n}-row graph from {n_src} sources ({slots} slots), d={d}"
+        xf = x.float()
+        err = ell_case(ell, None, xf, what)
+        bound, by, _, _, _, edges, _, _ = ell_bound(ell, d, 4, bw)
+        out["ell_spmm"].append(dict(rows=n, sources=n_src, edges=edges, d=d, kept_dtype=dt,
+                                    max_abs_err=err, ms=time_ms(lambda: spmm_ell_cuda(ell, xf), 5),
+                                    bound_ms=bound, bound_by=by))
+        del xf
+    for (rows, d, dt), (x, order, starts) in held.scatter.items():
+        out["sorted_index_add"].append(hold_scatter(
+            x, order, starts, rows, f"at {name}'s widest call over {rows} rows, d={d}, {dt}",
+            bw))
+    held.ell.clear()
+    held.scatter.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def examples_phase(data, graph: dict, rows: list, smi: str, bw: float) -> dict:
+    """Phase 6c: the four example drivers (``examples/torch_*.py``), each's
+    ``main`` called in this process on the card with :data:`EXAMPLES`' flags
+    and its own ``--out`` (or ``--logdir``) under :data:`WORK`; phase 4's
+    graph ``data`` answers their builds of the same graph (``graph``, its
+    arguments; :class:`ReuseGraph`). For each driver: the launch counts set
+    to 0 just before and read just after, each kernel the driver's path
+    runs launched, and every launch seen by the wrappers that keep its
+    inputs (:class:`HeldCalls`, :class:`WidestBprCall`); each kept call then
+    held against its plain version (:func:`hold_kept`, :func:`check_bpr`).
+    The headline lines and results: the ML-25M driver's TEST line gives a
+    finite Recall@10; the bridge's log shows one compact and one full-graph
+    epoch and two correction builds; both trainers' losses finite and their
+    tables moved from the ones they started from; the sharded driver's
+    checkpoint written; the profile's top ops and a ``rowop_util`` in (0, 1].
+    Their output is echoed under ``[examples:<name>]``; one ``[examples]``
+    JSON line with each driver's seconds, exit code (0: ``main`` returned;
+    a driver that raised failed the phase), launches and holds; each held
+    kernel's row gains the holds and their largest error; the phase within
+    :data:`EXAMPLES_BUDGET_S`."""
+    import importlib.util
+    import re
+
+    from movie_recommender_system_with_gnns_tpu_torch.ops import _build, cuda_bpr
+
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    numbers, outs, results = dict(card=smi), {}, {}
+    reuse = ReuseGraph(data, **graph)
+    for name, (script, argv, expect) in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                      ROOT / "examples" / script)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        start = {}
+        if hasattr(mod, "create_train_state"):
+            make_state = mod.create_train_state
+
+            def recorded(*a, **kw):
+                st = make_state(*a, **kw)
+                start["params"] = [t.clone() for t in st.params]
+                return st
+            mod.create_train_state = recorded
+        where = ["--logdir" if name == "profile" else "--out", str(WORK / f"ex_{name}")]
+        _build.LAUNCHES.clear()
+        with reuse, HeldCalls() as held, WidestBprCall(cuda_bpr) as widest:
+            res, out, secs = run_in_process(mod.main, argv + where)
+        counts = dict(_build.LAUNCHES)
+        for line in out.splitlines():
+            log(f"[examples:{name}] {line}")
+        check(not isinstance(res, Exception), f"examples/{script} raised {res!r}")
+        seen = dict(held.calls, bpr_tile=widest.calls)
+        check(all(counts.get(k, 0) > 0 for k in expect),
+              f"examples/{script} launched {counts}, not each of {expect}")
+        check(all(seen.get(k, 0) == counts.get(k, 0) for k in counts),
+              f"examples/{script}: the wrappers saw {seen} of the launches {counts}: a "
+              f"kernel launched that phase 6c does not hold")
+        holds = hold_kept(held, name, bw)
+        if widest.args is not None:
+            kargs, kw = widest.args, dict(widest.kw)
+            lists = kw.pop("incidence")
+            u_pad, i_pad = kargs[0].shape[0], kargs[1].shape[0]
+            nb, kd = kargs[2].shape
+            err = check_bpr(kargs, f"bpr_tile at {name}'s widest cluster (u_pad {u_pad}, "
+                            f"i_pad {i_pad}, B {nb}, d {kd})", lists,
+                            also=[cuda_bpr.bpr_incidence(*kargs[3:], u_pad, i_pad)], **kw)
+            holds["bpr_tile"] = [dict(u_pad=u_pad, i_pad=i_pad, B=nb, d=kd,
+                                      valid=int(kargs[7].sum()), max_abs_err=err)]
+            del kargs, lists
+        if start:
+            moved = [float((a != b).any(dim=1).float().mean())
+                     for a, b in zip(res["state"].params, start["params"])]
+            finite = all(bool(torch.isfinite(t).all()) for t in res["state"].params)
+            check(finite and all(r > 0 for r in moved),
+                  f"examples/{script}: tables finite {finite}, rows moved {moved}")
+            start.clear()
+        numbers[name] = dict(s=secs, rc=0, launches=counts, holds=holds)
+        outs[name], results[name] = out, res
+        del held, widest, mod
+        torch.cuda.empty_cache()
+    losses = dict(ml25m=results["ml25m"]["history"]["train_loss"],
+                  bridge=results["bridge"]["losses"])
+    check(all(len(v) > 0 and bool(np.isfinite(v).all()) for v in losses.values()),
+          f"the trainers' losses are not all finite: {losses}")
+    test = re.search(r"^TEST full-ranking Recall@10 (\S+) NDCG@10 (\S+)", outs["ml25m"], re.M)
+    check(test is not None and np.isfinite(float(test[1])) and np.isfinite(float(test[2])),
+          f"the ML-25M driver printed no finite TEST line: {test and test[0]}")
+    kinds = re.findall(r"^Epoch \d+ \[(comp|FULL)\]", outs["bridge"], re.M)
+    builds = re.findall(r"^boundary correction (?:built|rebuilt) in", outs["bridge"], re.M)
+    check(kinds == ["comp", "FULL"] == results["bridge"]["kinds"] and len(builds) == 2,
+          f"the bridge ran epochs {kinds} with {len(builds)} correction builds, expected "
+          f"['comp', 'FULL'] and 2")
+    check(Path(results["sharded"]).exists(), "the sharded driver wrote no checkpoint")
+    util = results["profile"]["rowop_util"]
+    check("top ops by self device time" in outs["profile"] and 0 < util <= 1,
+          f"the profile printed no top ops or a rowop_util outside (0, 1]: {util}")
+    numbers.update(ml25m_test_recall10=float(test[1]), train_losses=losses,
+                   bridge_epochs=kinds, bridge_correction_builds=len(builds),
+                   profile_rowop_util=util, graph_reused=reuse.reused,
+                   phase_s=time.time() - t_phase)
+    del results
+    log(f"[examples] {json.dumps(numbers)}")
+    check(numbers["phase_s"] <= EXAMPLES_BUDGET_S,
+          f"phase 6c took {numbers['phase_s']:.1f} s of its {EXAMPLES_BUDGET_S}")
+    for row in rows:
+        got = {n: numbers[n]["holds"][row["name"]] for n in EXAMPLES
+               if numbers[n]["holds"].get(row["name"])}
+        if got:
+            errs = [h["max_abs_err"] for v in got.values() for h in v
+                    if h["max_abs_err"] is not None]
+            row["max_abs_err"] = max([row["max_abs_err"]] + errs)
+            row["examples"] = {n: dict(launches=numbers[n]["launches"][row["name"]],
+                                       held=v) for n, v in got.items()}
+    return numbers
 
 
 def surface_phase(data, trained, params0, smi: str) -> dict:
@@ -4221,9 +4581,10 @@ def main() -> int:
     try:
         # 4. the serving path at ML-25M width
         t0 = time.time()
-        data = make_synthetic_movielens(
-            FULL["users"], FULL["items"], FULL["interactions"], seed=SEED,
-            power=FULL["power"], num_communities=FULL["communities"])
+        full_graph = dict(num_users=FULL["users"], num_items=FULL["items"],
+                          num_interactions=FULL["interactions"], seed=SEED,
+                          power=FULL["power"], num_communities=FULL["communities"])
+        data = make_synthetic_movielens(**full_graph)
         train_e, val_e, test_e = split_edges(data, str(WORK / "indexes"), seed=SEED)
         log(f"[path] graph {data.num_users} users x {data.num_items} items, "
             f"{data.edge_index.shape[1]} directed edges, train {train_e.shape[1]}: "
@@ -4347,6 +4708,8 @@ def main() -> int:
         t_cc = time.time() - t0
         del parts
         n_local, width = cc.u_pad + cc.i_pad, cc.user_local.shape[1]
+        compact_shapes = dict(u_pad=cc.u_pad, i_pad=cc.i_pad, b_pad=width,
+                              num_clusters=cc.num_clusters)
         # as prepare_training_data does: dense blocks while they fit
         # cfg.train.dense_adjacency_max_nodes, else the segment path
         t0 = time.time()
@@ -4523,7 +4886,8 @@ def main() -> int:
             prof = profile_window(f"10 {opt} train steps", 2, 14 if opt == "adam" else 8,
                                   ten_steps)
             timings[opt] = dict(
-                step_ms=1e3 * t_epoch / cc.num_clusters, busy_ms_per_step=prof["busy_ms"] / 10,
+                epoch_s=t_epoch, step_ms=1e3 * t_epoch / cc.num_clusters,
+                busy_ms_per_step=prof["busy_ms"] / 10,
                 profiled_wall_ms_per_step=prof["wall_ms"] / 10,
                 idle_share=prof["idle_share"], launches_per_step=prof["kernels"] / 10,
                 peak_gb=peak / 1e9, epoch_peak_over_resident_gb=(peak - resident) / 1e9)
@@ -4693,9 +5057,12 @@ def main() -> int:
         del cc, val, test
 
         # 5f. the sharded hybrid path at the JAX package's bench configuration
-        sharded_hybrid_phase(data, fgp["train_e"], smi, bw,
-                             next(r for r in rows if r["name"] == "ell_spmm"))
+        shp = sharded_hybrid_phase(data, fgp["train_e"], smi, bw,
+                                   next(r for r in rows if r["name"] == "ell_spmm"))
         del fgp
+
+        # 7r. the epochs' floors at measured row-op rates, against 5a's and 5f's
+        roofline_phase(compact_shapes, data.num_users, data.num_items, timings, shp, smi)
 
         # 6. trained -> served, then the CLI at a small synthetic size
         launches.clear()
@@ -4776,6 +5143,10 @@ def main() -> int:
         b1_row = next(r for r in rows if r["name"] == "bpr_tile")
         b1_row["max_abs_err"] = max(b1_row["max_abs_err"], surface["b1_check"]["max_abs_err"])
         b1_row["ml25m_cli"] = dict(surface["b1_check"], launches=surface["b1_launches"])
+
+        # 6c. the four example drivers in this process, each kernel they
+        # launch held at the shapes they gave it
+        examples_phase(data, full_graph, rows, smi, bw)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -16,7 +16,9 @@ full-graph trainer, multi-device training over ``torch.distributed``
 checkpoints and elastic recovery, and the user-facing surface: the
 reference's data-handler API (``data/handler.py``), the dataset download,
 the milestone configs, ``cli eda`` (``utils/eda.py``) and the plots
-(``utils/visualizations.py``).
+(``utils/visualizations.py``); and the epochs' row-op roofline
+(``utils/roofline.py``), which the example drivers
+(``examples/torch_*.py``) beside the package report against.
 """
 
 from .config import Config

@@ -227,6 +227,13 @@ def load_movielens(
     )
 
 
+#: the ML-25M-statistics synthetic graph (the JAX package's ``bench.py``
+#: ``SCALES["full"]``): ML-25M's users, movies and interactions, 200 planted
+#: taste communities
+ML25M_SYNTHETIC = dict(users=162_541, items=59_047, interactions=18_000_000,
+                       communities=200, power=0.9)
+
+
 def make_synthetic_movielens(
     num_users: int = 1000,
     num_items: int = 1700,

@@ -354,6 +354,50 @@ def shard_hybrid_graph(edge_index: np.ndarray, plan: ShardPlan, node_part: np.nd
         off_format=off_format, stats=stats)
 
 
+def build_sharded_hybrid(edge_index: np.ndarray, plan: ShardPlan, num_parts: int, *,
+                         ghost_cap: int = 0, max_block_nodes: Optional[int] = None,
+                         balance_tol: float = 1.1, refine_rounds: Optional[int] = None,
+                         seed: int = 0, block_dtype="bfloat16", node_part=None,
+                         max_parts: int = 1024):
+    """The JAX package's ``bench.py`` loop around :func:`shard_hybrid_graph`:
+    the native partition of ``edge_index``'s forward half into ``num_parts``
+    parts (``data.partition.partition_assignments``), then the build; a block
+    wider than ``max_block_nodes`` (default ``max(4096, ghost_cap)``) doubles
+    the parts, up to ``max_parts``, past which the ``ValueError`` stands.
+    Given ``node_part``, the build alone at ``num_parts``. Returns ``(graph,
+    node_part, num_parts, partition seconds, build seconds)``, the failed
+    attempts' seconds included."""
+    import time
+
+    from ..data.partition import forward_half, partition_assignments
+
+    nu, n = plan.num_users, plan.num_users + plan.num_items
+    cap = max(4096, ghost_cap) if max_block_nodes is None else max_block_nodes
+    given = node_part is not None
+    uv = None if given else forward_half(edge_index, nu)
+    t_part = t_build = 0.0
+    while True:
+        if not given:
+            t0 = time.perf_counter()
+            pu, pi = partition_assignments(edge_index, nu, n, num_parts, seed=seed,
+                                           balance_tol=balance_tol, uv=uv,
+                                           refine_rounds=refine_rounds)
+            node_part = np.concatenate([pu, pi])
+            t_part += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            g = shard_hybrid_graph(edge_index, plan, node_part, num_parts,
+                                   block_dtype=block_dtype, max_block_nodes=cap,
+                                   ghost_cap=ghost_cap)
+            t_build += time.perf_counter() - t0
+            return g, node_part, num_parts, t_part, t_build
+        except ValueError:
+            t_build += time.perf_counter() - t0
+            if given or num_parts * 2 > max_parts:
+                raise
+            num_parts *= 2
+
+
 def dense_blocks(graph: ShardedHybrid, m: int, device: DeviceLike = None) -> torch.Tensor:
     """Model rank ``m``'s dense blocks (K_loc, P, P), ``Â[k, dst, src]`` in
     the build's ``block_dtype``, scattered on ``device``

@@ -2,6 +2,7 @@
 that run on the GPU unless asked for the CPU."""
 
 import ast
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -30,13 +31,17 @@ def test_port_imports_no_jax():
              + sorted((ROOT / "tools").glob("probe_*.py"))
              + [ROOT / "tools" / "fullgraph_quality.py"]
              # the multi-rank tests' ranks: they start without JAX
-             + [ROOT / "tests" / "torch_dist_ranks.py"])
+             + [ROOT / "tests" / "torch_dist_ranks.py"]
+             + sorted((ROOT / "examples").glob("torch_*.py")))
     assert len(files) > 10
     scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     assert {"utils/observability.py", "training/recovery.py", "parallel/mesh.py",
             "parallel/sharding.py", "training/distributed.py",
             "training/compact_sharded.py", "data/handler.py", "utils/eda.py",
-            "utils/visualizations.py"} <= scanned
+            "utils/visualizations.py", "utils/roofline.py"} <= scanned
+    assert {f.name for f in files if f.parent.name == "examples"} == {
+        "torch_train_ml25m_scale.py", "torch_train_bridge.py", "torch_train_sharded.py",
+        "torch_profile_epoch.py"}
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []
@@ -46,6 +51,14 @@ def test_forbidden_match_is_exact():
     assert _forbidden("jax.numpy") and _forbidden("movie_recommender_system_with_gnns_tpu.ops")
     assert not _forbidden("movie_recommender_system_with_gnns_tpu_torch.ops")
     assert not _forbidden("jaxtyping")
+
+
+def _example(name: str):
+    spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def test_entry_points_default_to_cuda(tmp_path):
@@ -68,6 +81,8 @@ def test_entry_points_default_to_cuda(tmp_path):
     from movie_recommender_system_with_gnns_tpu_torch.training.train import (
         build_eval_batch, create_train_state)
     from movie_recommender_system_with_gnns_tpu_torch.utils.device import resolve_device
+    from movie_recommender_system_with_gnns_tpu_torch.utils.roofline import (
+        measure_rowop_rates, optimizer_sweep_gbps)
 
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU, so the default device is valid")
@@ -99,7 +114,13 @@ def test_entry_points_default_to_cuda(tmp_path):
             # the multi-device slice: a mesh on the card (NCCL) by default
             lambda: make_mesh(1, 1),
             lambda: cli.main(["--indexes-dir", str(tmp_path / "idx"), "--checkpoint",
-                              str(tmp_path / "m.npz"), "train", "--mesh", "1x1"])):
+                              str(tmp_path / "m.npz"), "train", "--mesh", "1x1"]),
+            # the roofline's rates and the example drivers
+            lambda: measure_rowop_rates(num_rows=10, d=4, batch=8),
+            lambda: optimizer_sweep_gbps(num_rows=10, d=4),
+            lambda: _example("torch_train_sharded").main(
+                ["--mesh", "1x1", "--out", str(tmp_path / "sharded")]),
+            lambda: _example("torch_profile_epoch").main(["--scale", "tiny"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert create_train_state(Config(), 4, 5, device="cpu").params.user_emb.device.type == "cpu"

@@ -181,6 +181,29 @@ def test_shard_hybrid_graph_refuses_a_wide_block(graph):
                                off_format="csr")
 
 
+def test_build_sharded_hybrid_doubles_the_parts_as_bench_does(graph):
+    """``build_sharded_hybrid`` is ``bench.py``'s loop: one part of the
+    150-node graph is a 256-wide block, past a 128 cap, so the parts double
+    to 2, partitioned as JAX's partitioner does and built as JAX builds
+    them; given a partition that does not fit, or no room to double, the
+    ``ValueError`` stands."""
+    e, nu, ni, _ = graph
+    pt = tsh.ShardPlan.create(nu, ni, 1)
+    g, part, parts, t_part, t_build = tsh.build_sharded_hybrid(e, pt, 1, max_block_nodes=128)
+    assert parts == 2 and t_part >= 0 and t_build >= 0
+    pu, pi = partition_assignments(e, nu, nu + ni, 2, seed=0, balance_tol=1.1,
+                                   uv=forward_half(e, nu))
+    np.testing.assert_array_equal(part, np.concatenate([pu, pi]))
+    gj = jsh.shard_hybrid_graph(e, jsh.ShardPlan.create(nu, ni, 1), part, 2,
+                                max_block_nodes=128)
+    np.testing.assert_array_equal(g.blk_ids, np.asarray(gj.blk_ids))
+    np.testing.assert_array_equal(g.blk_pos, np.asarray(gj.blk_pos))
+    with pytest.raises(ValueError, match="use more parts"):
+        tsh.build_sharded_hybrid(e, pt, 1, max_block_nodes=128, node_part=np.zeros(nu + ni))
+    with pytest.raises(ValueError, match="use more parts"):
+        tsh.build_sharded_hybrid(e, pt, 1, max_block_nodes=128, max_parts=1)
+
+
 @pytest.mark.parametrize("d", [8, 30])
 def test_rectangular_spmm_ell_matches_jax_chunked_ell(graph, d):
     """A rank's remainder through the port's rectangular ELL (``l_rows``

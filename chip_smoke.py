@@ -131,6 +131,23 @@ Phases:
      against the ELL route; B4 at a 4-rank shard's shape (55,398 rows from
      221,592 sources) and its transpose against the plain version, timed
      beside ``torch.sparse.mm``; one ``[sharded-hybrid]`` JSON line;
+  5h. the full-node trainer's fused epoch (``fullnode_phase``) as
+     ``bench.py``'s ``bench_tpu_epoch(trainer="full")`` builds it: phase 5's
+     100 native clusters as ``build_cluster_batches(..., bucket_floor=4096)``
+     stacked on the card (``StackedClusters``), L = 3, d = 64, Adam. The
+     epoch's step captured once as a CUDA graph and replayed per cluster
+     (``make_epoch_fn``): ``train_model`` for 2 epochs (falling losses; the
+     row scatter counted at the warm-up step and the capture only, so the
+     second epoch replays); the captured epoch ``torch.equal`` to the eager
+     body's from the same state and generator under constant and cosine lr
+     (tables, moments, loss, count, step; the generators and the val evals
+     after them equal); the eager body's steps with host syncs made errors;
+     the row scatter's widest call at each shape of one eager epoch held
+     against its plain version (bit-equal to the host's sequential sum,
+     within 1e-5 of ``index_add_``), its largest error folded into the
+     kernels line's row; each route's epoch timed and profiled (idle share, kernels a step, peak
+     memory); a 3-epoch run recovered from two drops ``torch.equal`` to the
+     uninterrupted one; one ``[fullnode]`` JSON line;
   6. trained -> served: the checkpoint of phase 5 behind the ``ServingIndex``
      for one 32,768-user dispatch; then the CLI at a small synthetic size:
      ``train --fused-bpr --full-eval --epochs 1``, the three ``recommend``
@@ -2628,6 +2645,254 @@ def recovery_phase(data, train_e, cfg, cc, val, test, hist_hybrid: dict,
     log(f"[recovery] {json.dumps(numbers)}")
 
 
+#: phase 5h: the full-node trainer as bench.py's bench_tpu_epoch(trainer="full")
+#: builds it: phase 5's native clusters bucketed from 4,096 edges, L = 3,
+#: d = 64, Adam; the clusters of the cosine check, the profiles and the
+#: recovery, and the cosine check's warm-up steps
+FULLNODE = dict(bucket_floor=4096, layers=3, epochs=2, sub=10, warmup=4)
+
+
+def fullnode_phase(data, parts, val, test, copy, smi: str, bw: float) -> dict:
+    """Phase 5h: ``train-fullnode-full``, the full-node trainer's fused epoch
+    (``make_epoch_fn``: the step captured once as a CUDA graph, replayed per
+    cluster) on ``build_cluster_batches(parts, ..., bucket_floor=4096)`` of
+    phase 5's native clusters, stacked on the card (``StackedClusters``),
+    L = 3, d = 64, Adam. (a) ``train_model`` for 2 epochs through the
+    fused epoch: falling losses, ``sorted_index_add`` counted at the warm-up
+    step and the capture only (the second epoch replays the first's graph);
+    (b) the captured epoch against the eager body's (``_eager_epoch_fn``)
+    from the same state and generator: tables, both moments, loss, count and
+    step ``torch.equal``, the generators left in one state, the val evals
+    after both routes equal; under constant lr on every cluster (both epochs
+    timed) and under cosine lr through its warm-up on the first
+    ``FULLNODE["sub"]`` clusters; (c) the eager body's steps with host syncs
+    made errors, then one eager epoch over the sub-stack with every scatter
+    launch seen and its widest call at each shape kept (:class:`HeldCalls`),
+    each kept call held against its plain version (:func:`hold_kept`); (d)
+    the captured epoch replayed on every cluster, timed,
+    and each route profiled over the sub-stack's steps: idle share, kernels
+    a step; peak memory; (e) a 3-epoch run over the sub-stack's clusters
+    recovered from drops after epochs 0 and 1 ``torch.equal`` to the
+    uninterrupted run; one ``[fullnode]`` JSON line. The sub-stack keeps
+    the phase near a minute: a step at this bucket takes about 79 ms.
+    ``copy`` clones a state's tables and moments; ``bw`` is the card's
+    memory rate for the holds' bounds."""
+    from movie_recommender_system_with_gnns_tpu_torch.config import (
+        Config, ModelConfig, TrainConfig)
+    from movie_recommender_system_with_gnns_tpu_torch.ops._build import LAUNCHES as launches
+    from movie_recommender_system_with_gnns_tpu_torch.training import train
+    from movie_recommender_system_with_gnns_tpu_torch.training.pipeline import (
+        build_cluster_batches)
+
+    t_phase = time.time()
+    nu, ni = data.num_users, data.num_items
+    dev = torch.device("cuda")
+    cfg = Config(model=ModelConfig(num_layers=FULLNODE["layers"], dim=FULL["dim"]),
+                 train=TrainConfig(epochs=FULLNODE["epochs"], num_clusters=len(parts),
+                                   trainer="full", optimizer="adam", fused_bpr=False))
+    numbers = dict(card=smi)
+    t0 = time.time()
+    batches = build_cluster_batches(parts, nu, nu + ni,
+                                    bucket_floor=FULLNODE["bucket_floor"], device="cuda")
+    torch.cuda.synchronize()
+    numbers["cluster_batches_s"] = time.time() - t0
+    t0 = time.time()
+    stacked = train.StackedClusters.from_batches(batches)
+    torch.cuda.synchronize()
+    numbers["stack_s"] = time.time() - t0
+    k = stacked.num_clusters
+    stack_mb = sum(t.numel() * t.element_size() for t in (
+        getattr(stacked, f.name) for f in dataclasses.fields(stacked))
+        if isinstance(t, torch.Tensor)) / 1e6
+    numbers["shapes"] = dict(K=k, E_pad=int(stacked.src.shape[1]),
+                             B=int(stacked.user.shape[1]), N=stacked.num_nodes,
+                             edges=int(stacked.edge_counts.sum().item()),
+                             valid_triplets=int(stacked.mask.sum().item()), stack_mb=stack_mb)
+    log(f"[fullnode] {k} cluster batches of {numbers['shapes']['E_pad']} padded edges and "
+        f"{numbers['shapes']['B']} padded triplets over {stacked.num_nodes} nodes: built in "
+        f"{numbers['cluster_batches_s']:.2f} s, stacked ({stack_mb:.1f} MB) in "
+        f"{numbers['stack_s']:.3f} s")
+    check(k == len(batches) == cfg.train.num_clusters, "a cluster batch came out empty")
+
+    s0 = train.create_train_state(cfg, nu, ni, generator=torch.Generator().manual_seed(SEED),
+                                  device="cuda")
+
+    # (a) train_model, 2 epochs through the fused epoch
+    launches.clear()
+    t0 = time.time()
+    state, hist = train.train_model(cfg, copy(s0), batches, val, test)
+    torch.cuda.synchronize()
+    numbers["train_model_s"] = time.time() - t0
+    tm_launches = dict(launches)
+    check(all(np.isfinite(v) for key in hist for v in hist[key]),
+          f"full-node train_model: a loss or metric is not finite: {hist}")
+    check(hist["train_loss"][1] < hist["train_loss"][0],
+          f"full-node train_model: train loss did not fall: {hist['train_loss']}")
+    epochs = cfg.train.epochs
+    check(state.step == state.opt_state.count == epochs * k,
+          f"full-node train_model: step {state.step}, count {state.opt_state.count}")
+    numbers.update(train_loss=hist["train_loss"], val_recall=hist["val_recall"],
+                   epoch_with_eval_s=hist["epoch_time_s"], train_model_launches=tm_launches)
+    log(f"[fullnode] train_model {epochs} epochs + test eval: {numbers['train_model_s']:.2f} "
+        f"s; train loss {hist['train_loss']}, val recall {hist['val_recall']}; epoch times "
+        f"with the val eval {[round(t, 3) for t in hist['epoch_time_s']]} s; launches "
+        f"{tm_launches}")
+
+    # (b) the captured epoch against the eager body's from the same state and
+    # generator: constant lr on every cluster (each route's epoch timed, the
+    # captured one with its capture), cosine lr through its warm-up on the
+    # first SUB clusters
+    sub = train.StackedClusters.from_batches(batches[:FULLNODE["sub"]])
+    cfg_cos = cfg.replace(train=dataclasses.replace(
+        cfg.train, lr_schedule="cosine", lr_warmup_steps=FULLNODE["warmup"],
+        lr_total_steps=3 * sub.num_clusters))
+    fns = {}
+    for label, cfg_l, start, stk in (("constant", cfg, state, stacked),
+                                     ("cosine", cfg_cos, s0, sub)):
+        fns[label] = dict(captured=train.make_epoch_fn(cfg_l),
+                          eager=train._eager_epoch_fn(cfg_l))
+        out = {}
+        for route, fn in fns[label].items():
+            st, gen = copy(start), train.epoch_generator(cfg_l, epochs, dev)
+            launches.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            st, loss = fn(st, stk, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            n_sc = launches["sorted_index_add"]
+            val_out = tuple(float(v) for v in train.make_eval_step(cfg_l)(
+                st.params, *val, gen))
+            out[route] = dict(state=st, loss=loss, gen=gen.get_state(), eval=val_out,
+                              wall=wall, peak=peak, resident=resident, sorted_index_add=n_sc)
+        a, b = out["captured"], out["eager"]
+        k_l = stk.num_clusters
+        same = states_equal(a["state"], b["state"])
+        check(all(same) and a["loss"] == b["loss"] and np.isfinite(a["loss"]),
+              f"{label} lr: the captured full-node epoch differs from the eager body's "
+              f"(tables, moments, count, step equal: {same}; loss {a['loss']!r} vs "
+              f"{b['loss']!r})")
+        check(torch.equal(a["gen"], b["gen"]) and a["eval"] == b["eval"],
+              f"{label} lr: the generators after the two routes differ, or the val evals "
+              f"after them ({a['eval']} vs {b['eval']})")
+        per_step = b["sorted_index_add"] / k_l
+        check(b["sorted_index_add"] > 0 and b["sorted_index_add"] % k_l == 0
+              and a["sorted_index_add"] == 2 * per_step,
+              f"{label} lr: sorted_index_add counted {a['sorted_index_add']} times in the "
+              f"captured epoch (warm-up and capture: twice a step's {per_step}), "
+              f"{b['sorted_index_add']} in the eager one")
+        numbers[f"{label}_equal"] = dict(clusters=k_l, loss=a["loss"], val=a["eval"],
+                                         capture_epoch_s=a["wall"], eager_epoch_s=b["wall"])
+        log(f"[fullnode] {label} lr, {k_l} clusters: the captured epoch torch.equal to the "
+            f"eager body's in tables, moments, count {a['state'].opt_state.count} and step "
+            f"{a['state'].step}, loss {a['loss']!r}; generators equal after both, val eval "
+            f"{a['eval']} after both; sorted_index_add {per_step:.0f} a step, counted "
+            f"{a['sorted_index_add']} in the captured epoch (warm-up + capture); "
+            f"{a['wall']:.3f} s with the capture, eager {b['wall']:.3f} s")
+        if label == "constant":
+            full_runs = out
+    numbers["sorted_index_add_per_step"] = per_step
+    check(tm_launches.get("sorted_index_add", 0)
+          == 2 * per_step + (epochs + 1) * FULLNODE["layers"],
+          f"full-node train_model counted {tm_launches.get('sorted_index_add', 0)} "
+          f"sorted_index_add launches: not one warm-up step and one capture ({per_step:.0f} "
+          f"each) and {FULLNODE['layers']} per eval, so an epoch was not a replay")
+
+    # (c) the eager body's steps with host syncs made errors
+    steps, st = fns["constant"]["eager"].steps, copy(state)
+    perm, neg = train._epoch_draws(cfg, sub, ni, train.epoch_generator(cfg, epochs + 1, dev))
+    steps.prepare(st, sub, perm, neg)
+    site = sync_site(lambda: [steps.step(st, sub) for _ in range(sub.num_clusters)])
+    check(site is None, f"the full-node epoch's eager body synchronised with the host at "
+          f"{site}")
+    numbers["eager_body_host_syncs"] = 0
+    log(f"[fullnode] the eager body's {sub.num_clusters} steps under "
+        f"set_sync_debug_mode('error'): no host sync")
+    del st, steps
+    launches.clear()
+    with HeldCalls() as held:
+        fns["constant"]["eager"](copy(state), sub, None, perm=perm, neg=neg)
+    torch.cuda.synchronize()
+    counts, seen = dict(launches), dict(held.calls)
+    check(counts == seen and counts.get("sorted_index_add") == per_step * sub.num_clusters,
+          f"the held eager epoch launched {counts}, the wrappers saw {seen}: not "
+          f"{per_step:.0f} sorted_index_add a step, each one seen")
+    holds = hold_kept(held, "fullnode", bw)["sorted_index_add"]
+    check(len(holds) > 0, "the held eager epoch kept no sorted_index_add call")
+    numbers["holds"] = holds
+    log(f"[fullnode] the eager body's {sub.num_clusters} steps held: {len(holds)} "
+        f"sorted_index_add shapes ({[(h['rows'], h['entries']) for h in holds]} rows and "
+        f"entries), largest error against index_add_ "
+        f"{max(h['max_abs_err'] or 0.0 for h in holds):.3e}")
+    del held, perm, neg
+
+    # (d) the captured epoch again on every cluster, its graph replayed (no
+    # capture in it), timed; each route profiled over the SUB clusters
+    st = full_runs["captured"]["state"]
+    launches.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    st, loss = fns["constant"]["captured"](st, stacked, train.epoch_generator(
+        cfg, epochs + 1, dev))
+    torch.cuda.synchronize()
+    t_replay = time.perf_counter() - t0
+    check(np.isfinite(loss) and not launches, f"the replayed epoch's loss {loss} is not "
+          f"finite, or it counted launches {dict(launches)}: captured again, not replayed")
+    timed = dict(
+        captured=dict(epoch_s=t_replay, step_ms=1e3 * t_replay / k,
+                      capture_epoch_s=full_runs["captured"]["wall"],
+                      peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                      peak_over_resident_gb=(torch.cuda.max_memory_allocated() - resident) / 1e9,
+                      capture_peak_over_resident_gb=(full_runs["captured"]["peak"]
+                                                     - full_runs["captured"]["resident"]) / 1e9),
+        eager=dict(epoch_s=full_runs["eager"]["wall"],
+                   step_ms=1e3 * full_runs["eager"]["wall"] / k,
+                   peak_gb=full_runs["eager"]["peak"] / 1e9,
+                   peak_over_resident_gb=(full_runs["eager"]["peak"]
+                                          - full_runs["eager"]["resident"]) / 1e9))
+    del full_runs, st
+    for route in ("captured", "eager"):
+        st = copy(state)
+        fn = train.make_epoch_fn(cfg) if route == "captured" else train._eager_epoch_fn(cfg)
+        gen_p = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        prof = profile_window(f"{route} full-node epoch ({sub.num_clusters} steps)", 1, 8,
+                              lambda: fn(st, sub, gen_p))
+        check(prof["kernels"] >= sub.num_clusters, f"{route}: the profiler saw "
+              f"{prof['kernels']} kernels in a {sub.num_clusters}-step epoch")
+        t = timed[route]
+        t.update(busy_ms_per_step=prof["busy_ms"] / sub.num_clusters,
+                 profiled_wall_ms_per_step=prof["wall_ms"] / sub.num_clusters,
+                 idle_share=prof["idle_share"],
+                 launches_per_step=prof["kernels"] / sub.num_clusters)
+        log(f"[fullnode] {route} epoch ({k} clusters): {t['epoch_s']:.4f} s, "
+            f"{t['step_ms']:.4f} ms a step; over {sub.num_clusters} steps under the "
+            f"profiler: idle share {t['idle_share']:.4f}, {t['launches_per_step']:.1f} "
+            f"kernels a step; peak device memory {t['peak_gb']:.3f} GB "
+            f"({t['peak_over_resident_gb']:.3f} GB over the resident)")
+        del st
+    numbers["epochs"] = timed
+
+    # (e) recovered against uninterrupted, 3 epochs over the SUB clusters,
+    # full-state checkpoints every 2
+    cfg_r = cfg.replace(train=dataclasses.replace(cfg.train, epochs=3,
+                                                  state_checkpoint_every=2))
+    res = recovered_vs_uninterrupted("fullnode", cfg_r, lambda: copy(s0),
+                                     batches[:FULLNODE["sub"]], val, test)
+    numbers.update(recovery=dict(clusters=FULLNODE["sub"],
+                                 uninterrupted_s=res["uninterrupted"]["wall_s"],
+                                 recovered_s=res["recovered"]["wall_s"],
+                                 epochs_run=res["recovered"]["calls"]))
+    del res, state, s0, stacked, sub, batches
+    numbers["phase_s"] = time.time() - t_phase
+    log(f"[fullnode] {json.dumps(numbers)}")
+    return numbers
+
+
 #: the mesh phase: the sharded step's batch (uniform samples of the train
 #: positives) and the steps it is timed over
 MESH = dict(batch=2 ** 20, timed_steps=3)
@@ -4706,7 +4971,6 @@ def main() -> int:
         t0 = time.time()
         cc = compact.build_compact_clusters(parts, data.num_users, device="cuda")
         t_cc = time.time() - t0
-        del parts
         n_local, width = cc.u_pad + cc.i_pad, cc.user_local.shape[1]
         compact_shapes = dict(u_pad=cc.u_pad, i_pad=cc.i_pad, b_pad=width,
                               num_clusters=cc.num_clusters)
@@ -5051,6 +5315,18 @@ def main() -> int:
         # 5g. the compact trainer's frozen boundary correction
         correction_phase(data, train_e, cfg, cc, cc_seg, state, copy, smi, bw,
                          next(r for r in rows if r["name"] == "ell_spmm"))
+
+        # 5h. the full-node trainer's fused epoch, captured as a CUDA graph
+        fnp = fullnode_phase(data, parts, val, test, copy, smi, bw)
+        del parts
+        sc_row = next(r for r in rows if r["name"] == "sorted_index_add")
+        sc_row["max_abs_err"] = max([sc_row["max_abs_err"]] + [
+            h["max_abs_err"] for h in fnp["holds"] if h["max_abs_err"] is not None])
+        sc_row.update(fullnode_epoch=dict(
+            launches_per_step=fnp["sorted_index_add_per_step"],
+            train_model_launches=fnp["train_model_launches"].get("sorted_index_add", 0),
+            captured_step_ms=fnp["epochs"]["captured"]["step_ms"],
+            eager_step_ms=fnp["epochs"]["eager"]["step_ms"], held=fnp["holds"]))
 
         # 5e. the multi-device slice on a one-rank NCCL group
         mesh_phase(data, train_e, val_e, test_e, cfg, cc, val, test, smi)

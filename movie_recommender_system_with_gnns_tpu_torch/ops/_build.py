@@ -65,7 +65,10 @@ BUILD_DIR = choose_build_dir(PACKAGE_DIR / "build")
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 #: kernel launches by kernel name; each wrapper adds one where it launches its
-#: kernel, and nowhere else
+#: kernel, and nowhere else. It counts the wrapper's calls on the host: a
+#: launch recorded into a CUDA graph counts once, at its capture, and the
+#: graph's replays count none (a captured epoch's launches are counted by
+#: the profiler, ``training/train.py::make_epoch_fn``)
 LAUNCHES: Counter = Counter()
 
 

@@ -19,18 +19,23 @@ the clip scales by ``max_norm / norm`` only when ``norm > max_norm`` (no
 ``+1e-6``), and Adam's ``eps`` is added outside the square root of the
 bias-corrected second moment. The update runs IN PLACE on the state's tables
 and moments (no second copy of the tables per step); a caller that wants to
-keep a state clones it first. The JAX package's ``lax.scan`` epoch fusions
-(``StackedClusters``, ``make_epoch_fn``) have no PyTorch counterpart: the
-full-node trainer runs the per-cluster loop, propagating through
-``spmm_rows`` so that its step is bit-reproducible on the card.
+keep a state clones it first. The full-node trainer propagates through
+``spmm_rows``, so that its step is bit-reproducible on the card. Its epoch
+over cluster batches of one padded shape is fused, as JAX's ``lax.scan``
+epoch is (``StackedClusters``, ``make_epoch_fn``): the clusters stacked on
+the device, every draw made up front, and on the card the step captured
+once as a CUDA graph and replayed per cluster; clusters of several shapes
+take the per-cluster loop (``make_train_step`` + ``train_epoch``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import math
 import os
 import time
+from dataclasses import dataclass
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -144,6 +149,28 @@ def make_adam(cfg: Config, lr_of: Optional[Callable[[int], float]] = None) -> Op
     return Optimizer(init, update)
 
 
+def adam_step_table_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                     nu: torch.Tensor, lr: torch.Tensor, bc1: torch.Tensor,
+                     bc2: torch.Tensor, b1: float, b2: float, eps: float) -> None:
+    """:func:`adam_step_` with the learning rate and both bias corrections as
+    device tensors, so that a captured step reads its own from a table, in
+    optax's order: ``p - lr · (mu / bc1) / (sqrt(nu / bc2) + eps)``. It may
+    differ from :func:`adam_step_`'s Python-scalar route in the last bit."""
+    mu.mul_(b1).add_(g, alpha=1.0 - b1)
+    nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+    denom = (nu / bc2).sqrt_().add_(eps)
+    p.sub_((mu / bc1).div_(denom).mul_(lr))
+
+
+def clip_by_global_norm(grads, max_norm: float) -> List[torch.Tensor]:
+    """optax ``clip_by_global_norm``: the gradients untouched when their
+    global norm is below ``max_norm``, else ``(g / norm) * max_norm``; the
+    factor stays on the device (no host sync per step)."""
+    norm = torch.sqrt(sum(g.square().sum() for g in grads))
+    clip = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    return [g * clip for g in grads]
+
+
 def make_optimizer(cfg: Config) -> Optimizer:
     """clip-by-global-norm(1.0) → Adam, matching train_test.py:95,:236, as
     plain functions on tensors that follow ``optax.chain(clip_by_global_norm,
@@ -154,11 +181,7 @@ def make_optimizer(cfg: Config) -> Optimizer:
     @torch.no_grad()
     def update(params: LightGCNParams, grads: LightGCNParams,
                opt_state: AdamState) -> Tuple[LightGCNParams, AdamState]:
-        norm = torch.sqrt(sum(g.square().sum() for g in grads))
-        # optax: untouched when norm < max_norm, else (g / norm) * max_norm;
-        # stays on the device (no host sync per step)
-        clip = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-        return adam.update(params, [g * clip for g in grads], opt_state)
+        return adam.update(params, clip_by_global_norm(grads, max_norm), opt_state)
 
     return Optimizer(adam.init, update)
 
@@ -385,6 +408,229 @@ def train_epoch(
 
 
 # ---------------------------------------------------------------------------
+# Whole-epoch fused trainer over stacked cluster batches
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class StackedClusters:
+    """Every cluster batch stacked on a leading axis of K clusters (all share
+    one padded shape), JAX ``StackedClusters``: the fused epoch picks a
+    step's cluster on the device by index, so no host work sits between two
+    steps.
+
+    Beside JAX's arrays it stacks the graphs' row runs
+    (``DeviceCOO.from_arrays(..., row_runs=True)``) that
+    :func:`~..ops.spmm.spmm_rows` sums over: ``starts`` and ``src_starts``
+    (K, N + 1) and ``src_order`` (K, E_pad). ``order`` is ``arange(E_pad)``
+    in every cluster (the edges are stored sorted by destination) and is
+    kept once. The four are None when the graphs carry no row runs."""
+
+    src: torch.Tensor          # (K, E_pad) int32
+    dst: torch.Tensor          # (K, E_pad) int32
+    w: torch.Tensor            # (K, E_pad) float32
+    user: torch.Tensor         # (K, B) int32
+    pos_item: torch.Tensor     # (K, B) int32
+    mask: torch.Tensor         # (K, B) bool
+    edge_counts: torch.Tensor  # (K,) float32 true edge counts
+    num_nodes: int
+    order: Optional[torch.Tensor] = None       # (E_pad,) int32
+    starts: Optional[torch.Tensor] = None      # (K, N + 1) int32
+    src_order: Optional[torch.Tensor] = None   # (K, E_pad) int32
+    src_starts: Optional[torch.Tensor] = None  # (K, N + 1) int32
+
+    @property
+    def num_clusters(self) -> int:
+        return int(self.src.shape[0])
+
+    @staticmethod
+    def from_batches(clusters: List[ClusterBatch]) -> "StackedClusters":
+        shapes = {(tuple(c.graph.src.shape), tuple(c.batch.user.shape)) for c in clusters}
+        if len(shapes) != 1:
+            raise ValueError(f"clusters must share one padded shape, got {shapes}")
+        stk = lambda f: torch.stack([f(c) for c in clusters])
+        runs = {}
+        if all(c.graph.starts is not None for c in clusters):
+            runs = dict(order=clusters[0].graph.order,
+                        starts=stk(lambda c: c.graph.starts),
+                        src_order=stk(lambda c: c.graph.src_order),
+                        src_starts=stk(lambda c: c.graph.src_starts))
+        src = stk(lambda c: c.graph.src)
+        return StackedClusters(
+            src=src, dst=stk(lambda c: c.graph.dst), w=stk(lambda c: c.graph.w),
+            user=stk(lambda c: c.batch.user), pos_item=stk(lambda c: c.batch.pos_item),
+            mask=stk(lambda c: c.batch.mask),
+            edge_counts=torch.tensor([float(c.num_edges) for c in clusters],
+                                     dtype=torch.float32, device=src.device),
+            num_nodes=clusters[0].graph.num_nodes, **runs)
+
+    def cluster(self, c: torch.Tensor) -> Tuple[DeviceCOO, TripletBatch]:
+        """The graph and triplets of cluster ``c``, a (1,) index tensor on the
+        stack's device, picked by ``index_select`` (no host sync)."""
+        pick = lambda t: None if t is None else t.index_select(0, c)[0]
+        graph = DeviceCOO(pick(self.src), pick(self.dst), pick(self.w), self.num_nodes,
+                          order=self.order, starts=pick(self.starts),
+                          src_order=pick(self.src_order),
+                          src_starts=pick(self.src_starts))
+        return graph, TripletBatch(pick(self.user), pick(self.pos_item), pick(self.mask))
+
+
+class _EpochSteps:
+    """The fused epoch's step over static buffers: a device step counter
+    ``j``, the epoch's cluster order and negatives, the learning rate and
+    bias corrections of each step (a table filled on the host by
+    :func:`make_lr_schedule` and :func:`bias_corrections`, since a captured
+    step cannot take them as Python floats), and the edge-weighted loss sum.
+
+    :meth:`prepare` fills the buffers for one epoch; :meth:`step` runs step
+    ``j`` and advances ``j``, with no host sync; :meth:`finish` reads the
+    mean loss (the epoch's one host sync) and advances the optimizer count
+    and the step by K. The captured epoch replays :meth:`step`; the eager
+    epoch calls it K times: the same code, so the same bits."""
+
+    def __init__(self, cfg: Config, spmm: Callable):
+        self.cfg, self.spmm = cfg, spmm
+        self.lr_of = make_lr_schedule(cfg)
+        self.bufs: Optional[dict] = None
+
+    def prepare(self, state: TrainState, stacked: StackedClusters,
+                perm: torch.Tensor, neg: torch.Tensor) -> None:
+        k, dev = stacked.num_clusters, stacked.src.device
+        tc = self.cfg.train
+        b = self.bufs
+        if (b is None or b["neg"].shape != neg.shape or b["perm"].shape[0] != k
+                or b["j"].device != dev):
+            b = self.bufs = dict(
+                j=torch.zeros(1, dtype=torch.int64, device=dev),
+                perm=torch.zeros(k, dtype=torch.int64, device=dev),
+                neg=torch.zeros(neg.shape, dtype=torch.int32, device=dev),
+                sched=torch.zeros((3, k), dtype=torch.float32, device=dev),
+                wloss=torch.zeros(1, dtype=torch.float32, device=dev))
+        count0 = state.opt_state.count
+        sched = [[self.lr_of(count0 + j) for j in range(k)]]
+        sched += [list(c) for c in zip(*(bias_corrections(count0 + j + 1, tc.adam_b1,
+                                                          tc.adam_b2) for j in range(k)))]
+        b["sched"].copy_(torch.tensor(sched, dtype=torch.float32))
+        b["perm"].copy_(perm)
+        b["neg"].copy_(neg)
+        b["j"].zero_()
+        b["wloss"].zero_()
+
+    def tensors(self, state: TrainState, stacked: StackedClusters) -> tuple:
+        """Every tensor :meth:`step` reads or writes (a capture's key)."""
+        ost = state.opt_state
+        fields = (getattr(stacked, f.name) for f in dataclasses.fields(stacked))
+        return (*state.params, *ost.mu, *ost.nu, *self.bufs.values(),
+                *(t for t in fields if isinstance(t, torch.Tensor)))
+
+    def step(self, state: TrainState, stacked: StackedClusters) -> None:
+        tc, b = self.cfg.train, self.bufs
+        j = b["j"]
+        c = b["perm"].index_select(0, j)
+        graph, batch = stacked.cluster(c)
+        loss, grads = loss_and_grads(compute_loss, state.params, graph, batch,
+                                     b["neg"].index_select(0, j)[0], self.cfg, self.spmm)
+        with torch.no_grad():
+            b["wloss"].add_(loss * stacked.edge_counts.index_select(0, c))
+            lr, bc1, bc2 = b["sched"].index_select(1, j)
+            grads = clip_by_global_norm(grads, tc.grad_clip_norm)
+            ost = state.opt_state
+            for p, g, mu, nu in zip(state.params, grads, ost.mu, ost.nu):
+                adam_step_table_(p, g, mu, nu, lr, bc1, bc2, tc.adam_b1, tc.adam_b2,
+                                 tc.adam_eps)
+            j.add_(1)
+
+    def finish(self, state: TrainState, stacked: StackedClusters
+               ) -> Tuple[TrainState, float]:
+        k = stacked.num_clusters
+        mean_loss = float(self.bufs["wloss"][0] / stacked.edge_counts.sum().clamp_min(1.0))
+        ost = state.opt_state
+        return (TrainState(state.params, AdamState(ost.count + k, ost.mu, ost.nu),
+                           state.step + k), mean_loss)
+
+
+def _epoch_draws(cfg: Config, stacked: StackedClusters, num_items: int,
+                 generator: Optional[torch.Generator], perm=None,
+                 neg: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The epoch's cluster order (K,) and every step's negatives, (K, B) or
+    (K, B, num_negatives), drawn from ``generator`` in that order before the
+    first step (JAX splits every step's key up front); ``perm`` / ``neg``
+    given are taken as they are."""
+    k, b, n = stacked.num_clusters, stacked.user.shape[1], cfg.train.num_negatives
+    if perm is None:
+        perm = torch.randperm(k, generator=generator, device=generator.device)
+    if neg is None:
+        neg = sample_negative(generator, k * b, num_items, n).view(
+            (k, b) if n <= 1 else (k, b, n))
+    return torch.as_tensor(perm), torch.as_tensor(neg)
+
+
+def _eager_epoch_fn(cfg: Config, spmm: Callable = spmm_rows):
+    """:func:`make_epoch_fn`'s epoch with its K steps run one by one, on any
+    device: what the CPU runs, and what the card's captured epoch is held
+    against. Returns ``epoch_fn`` with the :class:`_EpochSteps` it runs as
+    its ``steps`` attribute."""
+    check_negatives_mode(cfg.train.negatives)
+    steps = _EpochSteps(cfg, spmm)
+
+    def epoch_fn(state: TrainState, stacked: StackedClusters,
+                 generator: Optional[torch.Generator], perm=None,
+                 neg: Optional[torch.Tensor] = None) -> Tuple[TrainState, float]:
+        perm, neg = _epoch_draws(cfg, stacked, state.params.item_emb.shape[0],
+                                 generator, perm, neg)
+        steps.prepare(state, stacked, perm, neg)
+        for _ in range(stacked.num_clusters):
+            steps.step(state, stacked)
+        return steps.finish(state, stacked)
+
+    epoch_fn.steps = steps
+    return epoch_fn
+
+
+def make_epoch_fn(cfg: Config, spmm: Callable = spmm_rows):
+    """Build ``epoch_fn(state, stacked, generator, perm=None, neg=None) ->
+    (state, mean_loss)`` (JAX ``make_epoch_fn``): a shuffled pass over every
+    cluster of a :class:`StackedClusters`, one clip + Adam step per cluster
+    in place on the state, the mean loss weighted by the clusters' true edge
+    counts.
+
+    The cluster order and all K steps' negatives are drawn from
+    ``generator`` at the epoch's start (:func:`_epoch_draws`); ``perm`` (K,)
+    and ``neg`` (K, B) or (K, B, Kneg) inject them instead, ``neg[j]``
+    belonging to step j, which trains cluster ``perm[j]``. No generator is
+    read after that, so either route leaves it in the same state.
+
+    On the card the step is captured once as a CUDA graph and replayed K
+    times (``utils/capture.py::StepGraph``), recaptured when the state's or
+    the stack's tensors change; a capture that fails raises. On the CPU the
+    same step runs K times eagerly (:func:`_eager_epoch_fn`). Kernel
+    launches inside a capture count once in ``ops/_build.py::LAUNCHES``."""
+    from ..utils.capture import StepGraph, tensor_key
+
+    eager = _eager_epoch_fn(cfg, spmm)
+    steps, graph = eager.steps, StepGraph()
+
+    def epoch_fn(state: TrainState, stacked: StackedClusters,
+                 generator: Optional[torch.Generator], perm=None,
+                 neg: Optional[torch.Tensor] = None) -> Tuple[TrainState, float]:
+        dev = stacked.src.device
+        if dev.type == "cpu":
+            return eager(state, stacked, generator, perm, neg)
+        if dev.type != "cuda":
+            raise ValueError(f"the fused epoch runs on cuda or cpu tensors, got {dev}")
+        perm, neg = _epoch_draws(cfg, stacked, state.params.item_emb.shape[0],
+                                 generator, perm, neg)
+        steps.prepare(state, stacked, perm, neg)
+        with torch.cuda.device(dev):
+            graph.run(lambda: steps.step(state, stacked),
+                      tensor_key(*steps.tensors(state, stacked)), stacked.num_clusters)
+        return steps.finish(state, stacked)
+
+    return epoch_fn
+
+
+# ---------------------------------------------------------------------------
 # Evaluation (reference evaluate(), train_test.py:136-163)
 # ---------------------------------------------------------------------------
 
@@ -475,7 +721,9 @@ def train_model(
     the best-val checkpoint through ``save_checkpoint``, finish with a test
     eval. ``clusters`` is a :class:`~.compact.CompactClusters` (compact
     trainer), a :class:`~.fullgraph.FullGraphTrainData` (full-graph trainer)
-    or a list of :class:`ClusterBatch` (full-node trainer). ``spmm`` is the
+    or a list of :class:`ClusterBatch` (full-node trainer: the fused epoch,
+    :func:`make_epoch_fn`, when they share one padded shape, else the
+    per-cluster loop, as JAX's ``train_model`` chooses). ``spmm`` is the
     full-node trainer's propagation (:func:`~..ops.spmm.spmm_rows` over the
     clusters' row runs by default); the evaluations sum through
     :func:`~..ops.spmm.spmm_rows` over ``val``/``test`` from
@@ -505,8 +753,14 @@ def train_model(
                 and not isinstance(state.opt_state, LazyAdamState)):
             state = TrainState(state.params, init_lazy_adam(state.params), state.step)
     else:
-        train_step = make_train_step(cfg, spmm)
-        epoch_fn = lambda st, cl, gen: train_epoch(st, cl, train_step, gen)
+        # cluster batches of one padded shape: the fused epoch (captured on
+        # the card); otherwise the per-cluster loop
+        try:
+            clusters = StackedClusters.from_batches(clusters)
+            epoch_fn = make_epoch_fn(cfg, spmm)
+        except ValueError:
+            train_step = make_train_step(cfg, spmm)
+            epoch_fn = lambda st, cl, gen: train_epoch(st, cl, train_step, gen)
 
     hist: Dict[str, List[float]] = {"train_loss": [], "val_loss": [], "val_recall": [],
                                     "epoch_time_s": []}

@@ -32,6 +32,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from .capture import StepGraph
 from .device import DeviceLike, resolve_device
 
 #: published dense peaks (bytes/s, bf16 FLOP/s), NVIDIA data sheets
@@ -78,20 +79,14 @@ def _best_seconds(f: Callable, args, device: torch.device, clock: Callable) -> f
     by CUDA events; a capture that fails raises. On the CPU a plain call
     timed by ``clock``."""
     if device.type == "cuda":
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):      # warm up off the capture's stream
-            f(*args)
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            f(*args)
-        graph.replay()
+        step = StepGraph()
+        with torch.cuda.device(device):    # warm-up, capture, one replay
+            step.run(lambda: f(*args), None, 2)
         best = float("inf")
         for _ in range(3):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            graph.replay()
+            step.graph.replay()
             end.record()
             end.synchronize()
             best = min(best, start.elapsed_time(end) * 1e-3)

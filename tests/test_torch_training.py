@@ -254,17 +254,20 @@ def test_train_model_end_to_end(tmp_path, trainer):
     assert meta == meta_t == {"val_recall": saved[-1]}
 
 
-def test_train_model_resumes_with_the_same_draws(tmp_path):
+@pytest.mark.parametrize("trainer", ["compact", "full"])
+def test_train_model_resumes_with_the_same_draws(tmp_path, trainer):
     """An epoch's generator depends on (seed, epoch) alone: a run continued at
-    ``start_epoch`` from a copy of the state reproduces the uninterrupted one."""
-    _, cfg = _pipeline_cfgs(tmp_path, "compact", epochs=3)
+    ``start_epoch`` from a copy of the state reproduces the uninterrupted one
+    (the full-node trainer through its fused epoch)."""
+    _, cfg = _pipeline_cfgs(tmp_path, trainer, epochs=3)
     data, clusters, val, test = tpipe.prepare_training_data(cfg, device="cpu")
     clone = lambda st: jax.tree_util.tree_map(
         lambda x: x.clone() if isinstance(x, torch.Tensor) else x, st)
     s0 = ttrain.create_train_state(cfg, data.num_users, data.num_items, device="cpu")
     full, hist = ttrain.train_model(cfg, clone(s0), clusters, val, test)
     part, _ = ttrain.train_model(cfg.replace(train=TTrain(**dict(
-        epochs=2, num_clusters=3, lr=1e-2))), clone(s0), clusters, val, test)
+        epochs=2, num_clusters=3, lr=1e-2, trainer=trainer))), clone(s0), clusters, val,
+        test)
     rest, hist2 = ttrain.train_model(cfg, part, clusters, val, test, start_epoch=2,
                                      best_recall=1.0)
     # same draws, so the same run up to the last bits of f32 sums

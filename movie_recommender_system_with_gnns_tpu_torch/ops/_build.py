@@ -67,8 +67,10 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: kernel launches by kernel name; each wrapper adds one where it launches its
 #: kernel, and nowhere else. It counts the wrapper's calls on the host: a
 #: launch recorded into a CUDA graph counts once, at its capture, and the
-#: graph's replays count none (a captured epoch's launches are counted by
-#: the profiler, ``training/train.py::make_epoch_fn``)
+#: graph's replays count none. The ``graph.replay`` counter
+#: (``utils/capture.py::StepGraph``, while tracing is on) counts the
+#: replays: the launches counted at the capture, times ``graph.replay``,
+#: are the launches the replays made
 LAUNCHES: Counter = Counter()
 
 

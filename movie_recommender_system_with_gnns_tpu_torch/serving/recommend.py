@@ -25,6 +25,7 @@ import torch
 from ..data.movielens import MovieLensData
 from ..models.lightgcn import LightGCNParams
 from ..ops.topk import DTypeLike, mips_topk
+from ..utils.observability import count, trace_span
 
 #: tile width of the packed serving mask (ops/topk.py::pack_mask_tiles); the
 #: fused lane pads the catalog to a multiple of it
@@ -235,17 +236,29 @@ class ServingIndex:
         from ..ops.cuda_mips import mips_topk_fused
 
         dev = self.mask.device
-        idx = torch.as_tensor(np.asarray(user_indices), dtype=torch.int64)
-        local = idx - self.user_lo
-        if local.numel() and (local.min() < 0 or local.max() >= self.mask.shape[0]):
-            raise ValueError(
-                f"user index outside this replica's shard "
-                f"[{self.user_lo}, {self.user_lo + self.mask.shape[0]})")
-        q = self.params.user_emb[idx.to(dev)]
-        rows = self.mask[local.to(dev)]       # (B, W) uint8 row gather
-        return mips_topk_fused(q, self.params.item_emb, k=top_k,
-                               normalize=normalize, n_tile=_MASK_TILE,
-                               exclude_mask_packed=rows)
+        with trace_span("serving.batch_recommend"):
+            with trace_span("serving.ids"):
+                idx = torch.as_tensor(np.asarray(user_indices), dtype=torch.int64)
+                local = idx - self.user_lo
+                if local.numel() and (local.min() < 0 or local.max() >= self.mask.shape[0]):
+                    raise ValueError(
+                        f"user index outside this replica's shard "
+                        f"[{self.user_lo}, {self.user_lo + self.mask.shape[0]})")
+                idx, local = _to_device(idx, dev), _to_device(local, dev)
+            q = self.params.user_emb[idx]
+            rows = self.mask[local]               # (B, W) uint8 row gather
+            return mips_topk_fused(q, self.params.item_emb, k=top_k,
+                                   normalize=normalize, n_tile=_MASK_TILE,
+                                   exclude_mask_packed=rows)
+
+
+def _to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev``; onto the card a copy from pageable memory, which
+    blocks until the card has run what was queued (a ``host_sync``)."""
+    t = t.to(dev)
+    if dev.type == "cuda":
+        count("host_sync")
+    return t
 
 
 def train_seen_items(train_edge_index: np.ndarray, num_users: int, user_index: int

@@ -48,6 +48,7 @@ from ..ops.sampling import (TripletBatch, build_alias_table, build_member_table,
 from ..ops.spmm import (HybridGraph, build_hybrid_graph, spmm_hybrid, spmm_hybrid_sym,
                         spmm_symmetric)
 from ..utils.device import DeviceLike, as_dtype, resolve_device
+from ..utils.observability import count, trace_span
 from .train import (TrainState, compute_loss, compute_loss_grads_microbatched,
                     loss_and_grads, make_optimizer)
 
@@ -184,39 +185,46 @@ def make_fullgraph_epoch_fn(cfg: Config, fg: FullGraphTrainData):
     def epoch_fn(state: TrainState, fg_: FullGraphTrainData,
                  generator: Optional[torch.Generator], perm=None,
                  neg: Optional[torch.Tensor] = None) -> Tuple[TrainState, float]:
-        dev = fg_.user.device
-        steps, b = fg_.num_steps, fg_.batch
-        num_items = state.params.item_emb.shape[0]
-        if perm is None:
-            perm = torch.randperm(fg_.e_real, generator=generator, device=generator.device)
-        idx = torch.cat([torch.as_tensor(perm).to(dev, torch.int64),
-                         torch.arange(fg_.e_real, steps * b, device=dev)])
-        u = fg_.user[idx].view(steps, b)
-        p = fg_.pos_item[idx].view(steps, b)
-        m = (idx < fg_.e_real).view(steps, b)
-        wloss = torch.zeros((), dtype=torch.float32, device=dev)
-        for s in range(steps):
-            if neg is not None:
-                neg_s = torch.as_tensor(neg[s]).to(dev)
-            elif fg_.member_table is not None:
-                neg_s = sample_negative_feasible(generator, u[s], num_items,
-                                                 fg_.member_table, num=k)
-            elif fg_.alias_table is not None:
-                neg_s = sample_negative_alias(generator, b, num_items, *fg_.alias_table,
-                                              num=k)
-            else:
-                neg_s = sample_negative(generator, b, num_items, k, device=dev)
-            tb = TripletBatch(user=u[s], pos_item=p[s], mask=m[s])
-            if micro > 1:
-                loss, grads = compute_loss_grads_microbatched(
-                    state.params, fg_.hybrid, tb, neg_s, cfg, spmm, micro)
-            else:
-                loss, grads = loss_and_grads(compute_loss, state.params, fg_.hybrid, tb,
-                                             neg_s, cfg, spmm)
-            params, opt_state = opt.update(state.params, grads, state.opt_state)
-            state = TrainState(params, opt_state, state.step + 1)
-            wloss = wloss + loss * m[s].sum()
-        # the epoch's one host sync
-        return state, float(wloss / fg_.e_real)
+        with trace_span("fullgraph.epoch"):
+            dev = fg_.user.device
+            steps, b = fg_.num_steps, fg_.batch
+            num_items = state.params.item_emb.shape[0]
+            if perm is None:
+                perm = torch.randperm(fg_.e_real, generator=generator, device=generator.device)
+            idx = torch.cat([torch.as_tensor(perm).to(dev, torch.int64),
+                             torch.arange(fg_.e_real, steps * b, device=dev)])
+            u = fg_.user[idx].view(steps, b)
+            p = fg_.pos_item[idx].view(steps, b)
+            m = (idx < fg_.e_real).view(steps, b)
+            wloss = torch.zeros((), dtype=torch.float32, device=dev)
+            for s in range(steps):
+                with trace_span("fullgraph.step"):
+                    if neg is not None:
+                        neg_s = torch.as_tensor(neg[s]).to(dev)
+                    elif fg_.member_table is not None:
+                        neg_s = sample_negative_feasible(generator, u[s], num_items,
+                                                         fg_.member_table, num=k)
+                    elif fg_.alias_table is not None:
+                        neg_s = sample_negative_alias(generator, b, num_items, *fg_.alias_table,
+                                                      num=k)
+                    else:
+                        neg_s = sample_negative(generator, b, num_items, k, device=dev)
+                    tb = TripletBatch(user=u[s], pos_item=p[s], mask=m[s])
+                    if micro > 1:
+                        loss, grads = compute_loss_grads_microbatched(
+                            state.params, fg_.hybrid, tb, neg_s, cfg, spmm, micro)
+                    else:
+                        loss, grads = loss_and_grads(compute_loss, state.params, fg_.hybrid, tb,
+                                                     neg_s, cfg, spmm)
+                    with trace_span("fullgraph.optimizer"):
+                        params, opt_state = opt.update(state.params, grads, state.opt_state)
+                    state = TrainState(params, opt_state, state.step + 1)
+                    wloss = wloss + loss * m[s].sum()
+            # the epoch's one host sync
+            with trace_span("fullgraph.wait", wait=True):
+                mean = float(wloss / fg_.e_real)
+                if dev.type == "cuda":
+                    count("host_sync")
+        return state, mean
 
     return epoch_fn

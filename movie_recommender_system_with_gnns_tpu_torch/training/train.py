@@ -51,6 +51,7 @@ from ..ops.sampling import (TripletBatch, check_negatives_mode, sample_negative,
                             triplets_from_edges)
 from ..ops.spmm import DeviceCOO, spmm_rows, spmm_segment
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.observability import count, trace_span
 
 
 class AdamState(NamedTuple):
@@ -510,9 +511,11 @@ class _EpochSteps:
         sched = [[self.lr_of(count0 + j) for j in range(k)]]
         sched += [list(c) for c in zip(*(bias_corrections(count0 + j + 1, tc.adam_b1,
                                                           tc.adam_b2) for j in range(k)))]
-        b["sched"].copy_(torch.tensor(sched, dtype=torch.float32))
-        b["perm"].copy_(perm)
-        b["neg"].copy_(neg)
+        for dst, src in ((b["sched"], torch.tensor(sched, dtype=torch.float32)),
+                         (b["perm"], perm), (b["neg"], neg)):
+            dst.copy_(src)
+            if dst.is_cuda and not src.is_cuda:
+                count("host_sync")      # a blocking copy from the host
         b["j"].zero_()
         b["wloss"].zero_()
 
@@ -605,7 +608,8 @@ def make_epoch_fn(cfg: Config, spmm: Callable = spmm_rows):
     times (``utils/capture.py::StepGraph``), recaptured when the state's or
     the stack's tensors change; a capture that fails raises. On the CPU the
     same step runs K times eagerly (:func:`_eager_epoch_fn`). Kernel
-    launches inside a capture count once in ``ops/_build.py::LAUNCHES``."""
+    launches inside a capture count once in ``ops/_build.py::LAUNCHES``; the
+    ``graph.replay`` counter counts the replays."""
     from ..utils.capture import StepGraph, tensor_key
 
     eager = _eager_epoch_fn(cfg, spmm)
@@ -619,13 +623,19 @@ def make_epoch_fn(cfg: Config, spmm: Callable = spmm_rows):
             return eager(state, stacked, generator, perm, neg)
         if dev.type != "cuda":
             raise ValueError(f"the fused epoch runs on cuda or cpu tensors, got {dev}")
-        perm, neg = _epoch_draws(cfg, stacked, state.params.item_emb.shape[0],
-                                 generator, perm, neg)
-        steps.prepare(state, stacked, perm, neg)
-        with torch.cuda.device(dev):
-            graph.run(lambda: steps.step(state, stacked),
-                      tensor_key(*steps.tensors(state, stacked)), stacked.num_clusters)
-        return steps.finish(state, stacked)
+        with trace_span("train.epoch"):
+            with trace_span("train.draws"):
+                perm, neg = _epoch_draws(cfg, stacked, state.params.item_emb.shape[0],
+                                         generator, perm, neg)
+            with trace_span("train.prepare"):
+                steps.prepare(state, stacked, perm, neg)
+            with torch.cuda.device(dev):
+                graph.run(lambda: steps.step(state, stacked),
+                          tensor_key(*steps.tensors(state, stacked)), stacked.num_clusters)
+            with trace_span("train.wait", wait=True):
+                out = steps.finish(state, stacked)
+                count("host_sync")
+        return out
 
     return epoch_fn
 

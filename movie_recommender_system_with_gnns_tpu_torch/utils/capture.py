@@ -15,6 +15,8 @@ from typing import Callable, Hashable, Optional
 
 import torch
 
+from .observability import count, trace_span
+
 
 def tensor_key(*tensors: torch.Tensor) -> tuple:
     """The addresses, shapes and dtypes of ``tensors``: what a captured graph
@@ -33,7 +35,12 @@ class StepGraph:
     ``n - 1`` times. With the key of the last capture, the graph is replayed
     ``n`` times. ``key`` names what the body's graph binds
     (:func:`tensor_key` of the tensors it reads and writes); a new key drops
-    the old graph before the capture."""
+    the old graph before the capture.
+
+    While tracing is on (``utils/observability.py``) a run is a
+    ``graph.run`` span, and the ``graph.capture`` and ``graph.replay``
+    counters count its captures and replays: a replay calls no Python, so
+    ``ops/_build.py::LAUNCHES`` counts a captured launch once, at capture."""
 
     def __init__(self):
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -42,20 +49,24 @@ class StepGraph:
     def run(self, body: Callable[[], None], key: Hashable, n: int) -> None:
         if n <= 0:
             return
-        if self.graph is not None and key == self.key:
-            for _ in range(n):
-                self.graph.replay()
-            return
-        self.graph = self.key = None
-        cur = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            body()
-        cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            body()
-        self.graph, self.key = graph, key
-        for _ in range(n - 1):
-            graph.replay()
+        with trace_span("graph.run"):
+            if self.graph is not None and key == self.key:
+                for _ in range(n):
+                    self.graph.replay()
+                count("graph.replay", n)
+                return
+            self.graph = self.key = None
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                body()
+            cur.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                body()
+            count("graph.capture")
+            self.graph, self.key = graph, key
+            for _ in range(n - 1):
+                graph.replay()
+            count("graph.replay", n - 1)

@@ -350,6 +350,39 @@ def test_fullgraph_unported_raise(tiny_data, micro):
         assert state.step == fg.num_steps and np.isfinite(loss)
 
 
+def test_fullgraph_epoch_records_its_spans(tiny_data):
+    """A traced full-graph epoch records ``fullgraph.epoch`` around one
+    ``fullgraph.step`` per step, each around ``fullgraph.optimizer``, and the
+    closing ``fullgraph.wait`` marked as a wait; the epoch function's closure
+    still holds the optimizer ``opt`` (whose ``update`` the benchmark wraps)."""
+    from movie_recommender_system_with_gnns_tpu_torch.utils import observability as obs
+
+    _, cfg = _cfgs()
+    e, n, _ = _graph(tiny_data)
+    fg = tfg.build_fullgraph_data(cfg, e, tiny_data.num_users, n, device="cpu")
+    fn = tfg.make_fullgraph_epoch_fn(cfg, fg)
+    cells = dict(zip(fn.__code__.co_freevars, fn.__closure__))
+    assert hasattr(cells["opt"].cell_contents, "update")
+    state = ttrain.create_train_state(cfg, tiny_data.num_users, tiny_data.num_items,
+                                      device="cpu")
+    obs.clear()
+    try:
+        with obs.tracing():
+            state, loss = fn(state, fg, torch.Generator().manual_seed(0))
+        recs = obs.span_records()
+    finally:
+        obs.clear()
+    assert np.isfinite(loss) and state.step == fg.num_steps
+    names = [r.name for r in recs]
+    assert names == ["fullgraph.optimizer", "fullgraph.step"] * fg.num_steps + [
+        "fullgraph.wait", "fullgraph.epoch"]
+    epoch = recs[-1]
+    assert all(epoch.t0_ns <= r.t0_ns <= r.t1_ns <= epoch.t1_ns for r in recs)
+    assert [r.name for r in recs if r.wait] == ["fullgraph.wait"]
+    for opt_rec, step_rec in zip(recs[0::2], recs[1::2]):
+        assert step_rec.t0_ns <= opt_rec.t0_ns <= opt_rec.t1_ns <= step_rec.t1_ns
+
+
 @pytest.mark.parametrize("loss,kneg", [("reference", 1), ("reference", 4),
                                        ("standard", 1), ("standard", 4)])
 def test_compute_loss_on_hybrid_matches_jax(tiny_data, loss, kneg):

@@ -82,6 +82,33 @@ def test_serving_index_user_range(port_data):
         shard.batch_recommend(np.array([3]))
 
 
+def test_batch_recommend_records_its_spans(port_data):
+    """A traced ``batch_recommend`` records ``serving.batch_recommend``
+    around ``serving.ids``; on the CPU the id copies are no host sync. Traced or not, the answers
+    are the same."""
+    from movie_recommender_system_with_gnns_tpu_torch.utils import observability as obs
+
+    nu, ni = port_data.num_users, port_data.num_items
+    _, tp = _both(*_tables(nu, ni))
+    index = T.ServingIndex.build(tp, port_data.edge_index, nu)
+    users = np.arange(0, nu, 2)
+    plain = index.batch_recommend(users, top_k=5)
+    obs.clear()
+    try:
+        with obs.tracing():
+            traced = index.batch_recommend(users, top_k=5)
+        recs, counts = obs.span_records(), obs.counts()
+    finally:
+        obs.clear()
+    assert [r.name for r in recs] == ["serving.ids", "serving.batch_recommend"]
+    inner, outer = recs
+    assert outer.t0_ns <= inner.t0_ns <= inner.t1_ns <= outer.t1_ns
+    assert not inner.wait and not outer.wait
+    assert counts == {}
+    for a, b in zip(plain, traced):
+        assert torch.equal(a, b)
+
+
 def test_serving_index_build_in_row_blocks(port_data, monkeypatch):
     """The packed mask built in several row blocks equals the one-block build."""
     nu, ni = port_data.num_users, port_data.num_items

@@ -27,7 +27,10 @@ Phases:
      then timed at its reference shape, pass by pass. ``sorted_index_add``:
      repeated ids, a row with hundreds of entries, rows with none, d in
      {16, 64, 100} f32 and d = 64 bf16, bit-equal to the plain version's
-     sequential sum on the host and over two calls.
+     sequential sum on the host and over two calls; then its long lane
+     (:func:`scatter_long_cases`: runs of 60,000, 20,000, T and T + 1
+     entries, every row long, long rows side by side, each copy width),
+     bit-equal too, with the long lane's tally counted.
      ``ell_spmm``: d in {16, 64, 100, 256}, f32 and bf16 tables, a graph with
      an isolated node and a hub whose bucket is grown to the max degree (its
      row split into many segments), aligned and unaligned row counts, and a
@@ -730,7 +733,80 @@ def scatter_kernel_phase() -> float:
           "scatter_rows: value or gradient differs from the host's index_add")
     log("[kernel] gather_rows / scatter_rows: values and gradients bit-equal to the "
         "host's index_select / index_add")
+    scatter_long_cases(gen)
     return worst
+
+
+def scatter_long_cases(gen) -> None:
+    """Phase 3, ``sorted_index_add``'s long lane (rows of more than
+    ``long_run(d)`` entries): a 60,000-entry row at d 64 f32; rows of T and
+    T + 1 entries at d 64 and 256; a 20,000-entry row at d 256 f32 and at d
+    64 bf16; calls in which every row is long (d 100 and 30 f32: a last
+    column group of 4 and 30 columns, 16- and 8-byte copies); two long rows
+    side by side, then short rows with empty rows between them; 4-byte
+    copies (d 33 f32), a bf16 width whose rows are copied 2 bytes at a time
+    (d 33) and d 512 f32. Each bit-equal to the plain version's sequential
+    sum on the host and over two calls, and the long lane's tally up by the
+    long rows and entries of both calls."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_scatter as cs
+
+    rng = np.random.default_rng(SEED + 23)
+    rand = lambda rows, n: rng.integers(0, rows, n)
+    cases = []   # (what, rows, d, dtype, {row: entries}, ids of further entries)
+    t64, t256 = cs.long_run(64), cs.long_run(256)
+    cases.append(("a 60,000-entry row", 1000, 64, torch.float32, {5: 60_000},
+                  rand(1000, 12_000)))
+    cases.append((f"rows of T and T + 1 entries (T = {t64})", 500, 64, torch.float32,
+                  {3: t64, 4: t64 + 1, 9: t64 - 1}, rand(500, 4000)))
+    cases.append((f"rows of T and T + 1 entries (T = {t256})", 500, 256, torch.float32,
+                  {3: t256, 4: t256 + 1, 9: t256 - 1}, rand(500, 2000)))
+    cases.append(("a 20,000-entry row", 2000, 256, torch.float32, {1999: 20_000},
+                  rand(2000, 6000)))
+    cases.append(("a 20,000-entry row", 2000, 64, torch.bfloat16, {0: 20_000},
+                  rand(2000, 6000)))
+    for d in (100, 30):
+        t = cs.long_run(d)
+        cases.append(("every row long", 300, d, torch.float32,
+                      {r: t + 1 + int(rng.integers(0, 3 * t)) for r in range(300)},
+                      rand(300, 0)))
+    cases.append(("two long rows side by side, then short rows with empty rows between",
+                  64, 64, torch.float32, {10: 5000, 11: 3 * t64},
+                  np.repeat(np.arange(12, 64, 2), 3)))
+    cases.append(("4-byte copies", 800, 33, torch.float32, {7: 9000, 8: 200},
+                  rand(800, 3000)))
+    cases.append(("2-byte copies", 800, 33, torch.bfloat16, {7: 9000, 8: 200},
+                  rand(800, 3000)))
+    cases.append(("16 column groups", 400, 512, torch.float32, {0: 3000, 399: 500},
+                  rand(400, 2000)))
+    for what, rows, d, dtype, long_rows, extra in cases:
+        what = f"sorted_index_add long lane, {what}, d={d} {str(dtype)[6:]}"
+        extra = extra[~np.isin(extra, list(long_rows))]   # the listed runs stay exact
+        parts = [np.full(n, r, np.int64) for r, n in long_rows.items()] + [extra]
+        idx_np = np.concatenate(parts)
+        rng.shuffle(idx_np)
+        idx = torch.from_numpy(idx_np.astype(np.int32)).cuda()
+        x = torch.randn(idx.numel(), d, device="cuda", generator=gen).to(dtype)
+        order, starts = cs.sort_rows(idx, rows)
+        runs = np.bincount(idx_np, minlength=rows)
+        t = cs.long_run(d)
+        want = (2 * int((runs > t).sum()), 2 * int(runs[runs > t].sum()))
+        before = cs.scatter_long_stats()
+        out = cs.sorted_index_add(x, order, starts, rows)
+        again = cs.sorted_index_add(x, order, starts, rows)
+        after = cs.scatter_long_stats()
+        host = cs.sorted_index_add_plain(x.cpu(), order.cpu(), starts.cpu(), rows)
+        got = (after[0] - before[0], after[1] - before[1])
+        check(torch.equal(out, again), f"{what}: two calls differ")
+        check(torch.equal(out.cpu(), host),
+              f"{what}: differs from the plain version's sequential sum on the host "
+              f"(max abs {(out.cpu().float() - host.float()).abs().max().item():.3e})")
+        check(not bool(out[torch.from_numpy(runs == 0).cuda()].any()),
+              f"{what}: a row with no entry is not zero")
+        check(got == want, f"{what}: the long lane's tally rose by {got} (rows, entries) "
+              f"over two calls, expected {want}")
+        log(f"[kernel] {what}: {idx.numel()} entries over {rows} rows, longest run "
+            f"{int(runs.max())}, T {t}: bit-equal to the plain version on the host and "
+            f"over two calls; long lane tally +{got[0]} rows, +{got[1]} entries")
 
 
 def profiled_ms(fn, iters: int, kernel: str):
@@ -1353,7 +1429,10 @@ def scatter_case(idx, rows: int, d: int, gen, what: str, bw: float) -> dict:
     g_rows = torch.randn(idx.numel(), d, device="cuda", generator=gen)
     sc = lambda: cuda_scatter.sorted_index_add(g_rows, order, starts, rows)
     lib = lambda: torch.zeros(rows, d, device="cuda").index_add_(0, idx, g_rows)
-    out_k, out_l = sc(), lib()
+    tally = cuda_scatter.scatter_long_stats()
+    out_k = sc()
+    long_rows, long_entries = (a - b for a, b in zip(cuda_scatter.scatter_long_stats(), tally))
+    out_l = lib()
     table = torch.randn(rows, d, device="cuda", generator=gen).requires_grad_(True)
     (g_tab,) = torch.autograd.grad(cuda_scatter.gather_rows(table, idx, order, starts),
                                    table, g_rows)
@@ -1377,9 +1456,11 @@ def scatter_case(idx, rows: int, d: int, gen, what: str, bw: float) -> dict:
         f"d={d}, f32): bit-equal to the plain version on the host, over two calls and "
         f"as gather_rows' gradient; max abs err vs index_add_ on the card {err:.3e} "
         f"(largest entry {top:.3e}); {k_ms:.4f} ms by CUDA events, zeros + index_add_ "
-        f"{l_ms:.4f} ms, bound {byts / bw * 1e3:.4f} ms (bytes: {byts / 1e6:.1f} MB)")
+        f"{l_ms:.4f} ms, bound {byts / bw * 1e3:.4f} ms (bytes: {byts / 1e6:.1f} MB); "
+        f"long lane {long_rows} rows, {long_entries / idx.numel():.4f} of the entries")
     return dict(entries=idx.numel(), rows=rows, longest_run=run, ms=k_ms, index_add_ms=l_ms,
-                bound_ms=byts / bw * 1e3, max_abs_err=err)
+                bound_ms=byts / bw * 1e3, max_abs_err=err, long_rows=long_rows,
+                long_share=long_entries / idx.numel())
 
 
 def f64_step_reference(params, coo, tb, neg, cfg, chunks: int):
@@ -4360,7 +4441,9 @@ def hold_scatter(x, order, starts, rows: int, what: str, bw: float) -> dict:
     d = x.shape[1]
     sc = lambda: cuda_scatter.sorted_index_add(x, order, starts, rows)
     plain = lambda: cuda_scatter.sorted_index_add_plain(x, order, starts, rows)
+    tally = cuda_scatter.scatter_long_stats()
     out = sc()
+    long_rows, long_entries = (a - b for a, b in zip(cuda_scatter.scatter_long_stats(), tally))
     check(torch.equal(out, sc()), f"{what}: two calls differ")
     st = starts.cpu().numpy().astype(np.int64)
     head = int(np.searchsorted(st, st[0] + HOST_CHECK_ELEMS // d, side="right")) - 1
@@ -4384,7 +4467,8 @@ def hold_scatter(x, order, starts, rows: int, what: str, bw: float) -> dict:
     byts = entries * d * itemsize + 4 * entries + 4 * (rows + 1) + rows * d * itemsize
     res = dict(rows=rows, d=d, dtype=str(x.dtype)[6:], entries=entries,
                host_rows=head, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-               bound_ms=byts / bw * 1e3)
+               bound_ms=byts / bw * 1e3, long_rows=long_rows,
+               long_share=long_entries / max(entries, 1))
     log(f"[examples] sorted_index_add {what}: {json.dumps(res)}")
     return res
 

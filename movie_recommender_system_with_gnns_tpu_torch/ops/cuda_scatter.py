@@ -10,7 +10,10 @@ the index and its row starts, :func:`sort_rows`), and the kernel,
   * :func:`sorted_index_add` is the kernel's wrapper. It takes the plain
     version, :func:`sorted_index_add_plain` (``index_add_``, sequential on the
     CPU), only for tensors on the CPU; for CUDA tensors it launches the kernel
-    or raises. ``LAUNCHES["sorted_index_add"]`` counts launches.
+    or raises. ``LAUNCHES["sorted_index_add"]`` counts launches. Rows of more
+    than :func:`long_run` entries are summed by the kernel's long lane, a
+    second launch of the same kernel template, in the same order and bits;
+    :func:`scatter_long_stats` reads how many rows and entries it summed.
   * :func:`gather_rows` is ``table.index_select(0, idx)`` whose backward is
     :func:`sorted_index_add`; :func:`scatter_rows` is the adjoint pair, a
     :func:`sorted_index_add` whose backward is the gather.
@@ -77,11 +80,42 @@ def _library() -> ctypes.CDLL:
     fn = lib.sorted_index_add
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p] * 4 + [ctypes.c_int] * 3 + [p]
+        fn.argtypes = [p] * 5 + [ctypes.c_int] * 4 + [p]
         fn.restype = ctypes.c_int
+        lib.sorted_index_add_long_run.argtypes = [ctypes.c_int]
+        lib.sorted_index_add_long_run.restype = ctypes.c_int
+        lib.sorted_index_add_long_stats.argtypes = [p]
+        lib.sorted_index_add_long_stats.restype = ctypes.c_int
         lib.sorted_index_add_error_string.argtypes = [ctypes.c_int]
         lib.sorted_index_add_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def long_run(d: int) -> int:
+    """T: at width ``d``, the kernel's long lane sums each row of more than T
+    entries (builds the library on first use)."""
+    return _library().sorted_index_add_long_run(d)
+
+
+def scatter_long_stats(device=None) -> Tuple[int, int]:
+    """(rows, entries) that the kernel's long lane has summed on ``device``
+    (default: the current CUDA device) since the library loaded: a tally on
+    the device, added to once per long row. Waits for the device; (0, 0)
+    where the library was never loaded, as on the CPU."""
+    from . import _build
+
+    if "sorted_index_add" not in _build._LIBS:
+        return 0, 0
+    lib = _library()
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    out = (ctypes.c_ulonglong * 2)()
+    with torch.cuda.device(dev):
+        torch.cuda.synchronize()
+        err = lib.sorted_index_add_long_stats(out)
+    if err != 0:
+        raise RuntimeError(f"sorted_index_add_long_stats failed: cudaError {err} "
+                           f"({lib.sorted_index_add_error_string(err).decode()})")
+    return int(out[0]), int(out[1])
 
 
 def sorted_index_add(x: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
@@ -113,10 +147,15 @@ def sorted_index_add(x: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
     if rows == 0:
         return out
     lib = _library()
+    # the long lane's work list: a count, then one 16-byte entry a long row
+    cap = order.shape[0] // (long_run(d) + 1)
+    scratch = (torch.empty(4 * (cap + 1), dtype=torch.int32, device=x.device)
+               if cap else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.sorted_index_add(x.data_ptr(), order.data_ptr(), starts.data_ptr(),
-                                   out.data_ptr(), rows, d,
+                                   out.data_ptr(), None if scratch is None else
+                                   scratch.data_ptr(), rows, d, cap,
                                    int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"sorted_index_add launch failed: cudaError {err} "

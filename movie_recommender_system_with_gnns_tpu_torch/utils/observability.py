@@ -14,7 +14,10 @@ profiler hooks (JAX package ``utils/observability.py``).
     context;
   * :func:`profile_to`: a ``torch.profiler`` trace written to a directory.
     On a CUDA device it records the card's activity or raises; it never
-    quietly records the host alone.
+    quietly records the host alone;
+  * :func:`scatter_long_stats`: (rows, entries) that ``sorted_index_add``'s
+    long lane has summed on a device, read from its tally on request (it
+    waits for the device: never inside a dispatch or an epoch).
 
 Span and counter names are a contract: the benchmark's per-layer metrics
 read them (``PERF.md`` lists which metric reads which).
@@ -32,6 +35,7 @@ from typing import Any, Deque, Dict, Iterator, List, NamedTuple, Optional
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
+from ..ops.cuda_scatter import scatter_long_stats  # noqa: F401  (re-exported)
 from .device import DeviceLike
 
 #: records the ring keeps; the oldest fall out first

@@ -8,6 +8,9 @@ stable argsort, and ``ops/spmm.py::spmm_rows`` against the JAX package's
 """
 
 import dataclasses
+import json
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -77,6 +80,37 @@ def test_gather_and_scatter_rows_gradients_equal_autograd():
     (ga,) = torch.autograd.grad((out * cr).sum(), xa)
     (gb,) = torch.autograd.grad((ref * cr).sum(), xb)
     assert torch.equal(ga, gb)
+
+
+def test_every_kernel_of_the_scatter_is_named_as_the_benchmark_counts_it():
+    """Both lanes of ``csrc/sorted_index_add.cu`` are instantiations of one
+    ``__global__`` template, ``sorted_index_add_kernel``, the name that the
+    benchmark's kernel map for the row sums counts: a kernel of another name
+    would drop out of ``train.scatter_roofline``'s time."""
+    src = (Path(cuda_scatter.__file__).resolve().parents[1] / "csrc"
+           / "sorted_index_add.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    names = re.findall(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\s*\([^)]*\)\s*)?"
+                       r"(?:void\s+)?(\w+)\s*\(", code)
+    assert len(names) == code.count("__global__") >= 1
+    assert set(names) == {"sorted_index_add_kernel"}
+    kmap = Path(__file__).resolve().parents[1] / "benchmark" / "kernels" / "row_sums.json"
+    assert json.loads(kmap.read_text())["kernels"] == ["sorted_index_add_kernel"]
+
+
+def test_scatter_long_stats_reads_zero_without_the_kernel():
+    """The long lane's tally reads (0, 0) where no kernel ran, as on the CPU,
+    through the op and through ``utils/observability.py``; the plain
+    version's calls leave it so."""
+    from movie_recommender_system_with_gnns_tpu_torch.utils import observability
+
+    x = torch.ones(400, 8)
+    idx = torch.zeros(400, dtype=torch.int32)          # one run of 400 entries
+    order, starts = cuda_scatter.sort_rows(idx, 3)
+    assert torch.equal(cuda_scatter.sorted_index_add(x, order, starts, 3)[0],
+                       torch.full((8,), 400.0))
+    assert cuda_scatter.scatter_long_stats() == (0, 0)
+    assert observability.scatter_long_stats() == (0, 0)
 
 
 def test_sorted_index_add_refuses_other_devices():

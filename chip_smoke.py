@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only | --mesh-only]
+    python3 chip_smoke.py [--kernels-only | --mesh-only | --infonce-only]
 
 ``--kernels-only`` stops after phase 3 (a new kernel's first, short run).
+``--infonce-only`` builds the fused InfoNCE alone and runs its phase
+(``infonce_phase``) alone.
 ``--mesh-only`` (two or more cards) runs after the build only the meshes of
 several cards against the 1×1 mesh (``mesh_cards_only``): the segment step
 and the hybrid step.
@@ -259,7 +261,17 @@ KERNEL_ROWS = {
         route="cuda",
         source="movie_recommender_system_with_gnns_tpu_torch/csrc/sorted_index_add.cu",
         replaces="movie_recommender_system_with_gnns_tpu/training/compact.py:538"),
+    # no Pallas kernel: the JAX package has no XSimGCL
+    "infonce": dict(
+        route="cuda",
+        source="movie_recommender_system_with_gnns_tpu_torch/csrc/infonce.cu",
+        replaces="none (XSimGCL's in-batch InfoNCE, models/xsimgcl.py)"),
 }
+#: the XSimGCL cell's InfoNCE shapes: a step's distinct users and items (the
+#: benchmark's graph and split, 349,184 pairs a step) in buffers of every
+#: user and every item, d 64
+INFONCE = dict(users=113_000, items=55_000, user_cap=162_541, item_cap=59_047, dim=64,
+               tau=0.15, timed=5)
 #: the eval / propagated-serving path: sampled eval users, users of the
 #: per-block serving call, users re-evaluated on the host
 EVAL = dict(max_users=10_000, block_users=256, host_users=1_000)
@@ -735,6 +747,126 @@ def scatter_kernel_phase() -> float:
         "host's index_select / index_add")
     scatter_long_cases(gen)
     return worst
+
+
+def infonce_case(n: int, cap: int, d: int, gen, what: str, tau: float = 0.15) -> dict:
+    """The three InfoNCE kernels against the plain version on the card, over
+    ``n`` real rows in buffers of ``cap``: a view and a noisy copy of it,
+    rows over their norms, rounded to bfloat16. The log-sum-exp within 1e-4
+    plus 2e-6 of its size (``ex2.approx`` against ``exp``, sums reordered);
+    each product with P within 2^-8 × the largest operand entry + 1e-5: P
+    rounded to bfloat16 on both sides may round the other way where the
+    two f32 values straddle a boundary, by one unit of 2^-8 of P, and P's
+    row sums to 1. Bit-equal over two calls; whole blocks past ``n`` zero.
+    Returns the largest errors."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_infonce as ci
+
+    x = torch.randn(cap, d, device="cuda", generator=gen)
+    y = x + 0.5 * torch.randn(cap, d, device="cuda", generator=gen)
+    qa = torch.nn.functional.normalize(x, dim=-1).to(torch.bfloat16).contiguous()
+    qb = torch.nn.functional.normalize(y, dim=-1).to(torch.bfloat16).contiguous()
+    count = torch.tensor([n], dtype=torch.int32, device="cuda")
+    lse = ci.lse_cuda(qa, qb, count, tau)
+    pa = ci.pmul_cuda(qa, qb, lse, count, tau, column_bias=False)
+    pb = ci.pmul_cuda(qb, qa, lse, count, tau, column_bias=True)
+    again = (ci.lse_cuda(qa, qb, count, tau), ci.pmul_cuda(qa, qb, lse, count, tau, False),
+             ci.pmul_cuda(qb, qa, lse, count, tau, True))
+    ref_lse = ci.lse_plain(qa, qb, count, tau)
+    ref_pa, ref_pb = ci.grads_plain(qa, qb, ref_lse, count, tau)
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip((lse, pa, pb), again)),
+          f"{what}: two calls differ")
+    live = slice(0, n)
+    lse_err = (lse[live] - ref_lse[live]).abs().max().item()
+    check(lse_err <= 1e-4 + 2e-6 * ref_lse[live].abs().max().item(),
+          f"{what}: log-sum-exp {lse_err:.3e} from the plain version")
+    bound = 2.0 ** -8 * qa.float().abs().max().item() + 1e-5
+    pa_err = (pa[live] - ref_pa[live]).abs().max().item()
+    pb_err = (pb[live] - ref_pb[live]).abs().max().item()
+    check(pa_err <= bound and pb_err <= bound,
+          f"{what}: P products {pa_err:.3e} / {pb_err:.3e} from the plain version "
+          f"(bound {bound:.3e})")
+    tail = slice((n + 127) // 128 * 128, cap)      # whole blocks past the count
+    check(not bool(lse[tail].any()) and not bool(pa[tail].any()) and not bool(pb[tail].any()),
+          f"{what}: a block past the count wrote something other than zeros")
+    log(f"[kernel] {what}: n {n} in {cap}, d {d}: bit-equal over two calls; "
+        f"lse err {lse_err:.3e}, P·B err {pa_err:.3e}, Pt·A err {pb_err:.3e}")
+    return {"lse": lse_err, "pa": pa_err, "pb": pb_err}
+
+
+def infonce_phase(smi: str, bf16_flops: float) -> dict:
+    """The fused InfoNCE (``csrc/infonce.cu``): small cases (n of 1, under a
+    tile, ragged, a multiple of the 128-row block; d 32 / 64), the
+    whole op (loss and both views' gradients through autograd) against the
+    plain version on the host, then the XSimGCL cell's shapes (``INFONCE``:
+    113,000 users in 162,541 rows, 55,000 items in 59,047, d 64) against the
+    plain version on the card, forward and backward; each timed by CUDA
+    events (median of ``timed``) beside its bound (6·n²·d at the dense bf16
+    peak) and beside the plain chunked PyTorch version. One ``[infonce]``
+    JSON line."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_infonce as ci
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    worst = {"lse": 0.0, "pa": 0.0, "pb": 0.0}
+    for n, cap, d in ((1, 64, 64), (37, 64, 64), (200, 333, 32), (1000, 1000, 64),
+                      (1024, 1300, 64), (4133, 5000, 64)):
+        errs = infonce_case(n, cap, d, gen, f"infonce n={n} cap={cap} d={d}")
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+    # the op, through autograd, against the plain version on the host
+    cap, n, d = 3000, 2777, 64
+    za = torch.randn(cap, d, device="cuda", generator=gen)
+    zb = za + 0.3 * torch.randn(cap, d, device="cuda", generator=gen)
+    count = torch.tensor([n], dtype=torch.int32, device="cuda")
+    a, b = za.clone().requires_grad_(True), zb.clone().requires_grad_(True)
+    loss = ci.infonce(a, b, count, 0.15, "bfloat16")
+    loss.backward()
+    ha, hb = za.cpu().requires_grad_(True), zb.cpu().requires_grad_(True)
+    hloss = ci.infonce(ha, hb, count.cpu(), 0.15, "bfloat16")
+    hloss.backward()
+    loss_err = abs(float(loss.detach()) - float(hloss.detach())) / abs(float(hloss.detach()))
+    grad_err = max(rel_max(a.grad.cpu(), ha.grad), rel_max(b.grad.cpu(), hb.grad))
+    check(loss_err < 1e-5 and grad_err < 2e-2,
+          f"infonce op: loss {loss_err:.3e}, gradients {grad_err:.3e} from the host's")
+    check(not bool(a.grad[n:].any()) and not bool(b.grad[n:].any()),
+          "infonce op: rows past the count got a gradient")
+    log(f"[kernel] infonce op (autograd, n {n} in {cap}): loss {loss_err:.3e}, "
+        f"gradients {grad_err:.3e} of the largest from the host's plain version")
+
+    out = {"card": smi, "small_cases_max_err": worst, "op_loss_err": loss_err,
+           "op_grad_err": grad_err}
+    for side, n, cap in (("users", INFONCE["users"], INFONCE["user_cap"]),
+                         ("items", INFONCE["items"], INFONCE["item_cap"])):
+        d, tau = INFONCE["dim"], INFONCE["tau"]
+        out[side] = infonce_case(n, cap, d, gen, f"infonce {side} at the cell's shape", tau)
+        x = torch.randn(cap, d, device="cuda", generator=gen)
+        qa = torch.nn.functional.normalize(x, dim=-1).to(torch.bfloat16).contiguous()
+        qb = torch.nn.functional.normalize(
+            x + 0.5 * torch.randn(cap, d, device="cuda", generator=gen),
+            dim=-1).to(torch.bfloat16).contiguous()
+        count = torch.tensor([n], dtype=torch.int32, device="cuda")
+        lse = ci.lse_cuda(qa, qb, count, tau)
+        fwd = [time_ms(lambda: ci.lse_cuda(qa, qb, count, tau), 1, 1)
+               for _ in range(INFONCE["timed"])]
+        bwd = [time_ms(lambda: (ci.pmul_cuda(qa, qb, lse, count, tau, False),
+                                ci.pmul_cuda(qb, qa, lse, count, tau, True)), 1, 1)
+               for _ in range(INFONCE["timed"])]
+        plain = [time_ms(lambda: ci.grads_plain(qa, qb, ci.lse_plain(qa, qb, count, tau),
+                                                count, tau), 1, 0) for _ in range(2)]
+        bound_ms = 6.0 * n * n * d / bf16_flops * 1e3
+        fwd_ms, bwd_ms = float(np.median(fwd)), float(np.median(bwd))
+        out[side].update(fwd_ms=fwd_ms, bwd_ms=bwd_ms, bound_ms=bound_ms,
+                         roofline=bound_ms / (fwd_ms + bwd_ms),
+                         plain_chunked_ms=float(np.median(plain)))
+        log(f"[infonce] {side}: n {n}, d {d}: forward {fwd_ms:.3f} ms, backward "
+            f"{bwd_ms:.3f} ms (both views), bound {bound_ms:.3f} ms "
+            f"({100 * out[side]['roofline']:.1f} %); plain chunked "
+            f"{out[side]['plain_chunked_ms']:.1f} ms")
+    step_ms = sum(out[s]["fwd_ms"] + out[s]["bwd_ms"] for s in ("users", "items"))
+    out.update(step_ms=step_ms, epoch_s_16_steps=16 * step_ms / 1e3,
+               seconds=time.time() - t0)
+    log(f"[infonce] {json.dumps(out)}")
+    return out
 
 
 def scatter_long_cases(gen) -> None:
@@ -4903,7 +5035,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    built = _build.build(*KERNEL_ROWS, "graphcore")
+    only_infonce = "--infonce-only" in sys.argv[1:]
+    built = _build.build(*(["infonce"] if only_infonce else [*KERNEL_ROWS, "graphcore"]))
     for kname, path in built.items():
         log(f"[build] {kname}: {path.name} in {time.time() - t0:.1f} s")
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -4914,6 +5047,10 @@ def main() -> int:
 
     if "--mesh-only" in sys.argv[1:]:
         return mesh_cards_only(t_start, smi)
+    if only_infonce:
+        infonce_phase(smi, bf16_flops)
+        log(f"[done] infonce only: {time.time() - t_start:.1f} s")
+        return 0
 
     # 3. kernels against their plain versions
     kernel_err = kernel_phase()
@@ -4921,6 +5058,7 @@ def main() -> int:
     scatter_err = scatter_kernel_phase()
     ell_err = ell_kernel_phase()
     block_err = mips_block_phase()
+    infonce_phase(smi, bf16_flops)
     if "--kernels-only" in sys.argv[1:]:
         log(f"[done] kernels only: {time.time() - t_start:.1f} s")
         return 0

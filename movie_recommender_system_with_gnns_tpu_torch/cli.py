@@ -22,7 +22,10 @@ among the items a user has no train pair with; ``--max-retries N`` runs the
 elastic driver (``training/recovery.py``: a transient failure resumes from
 the last full-state checkpoint, bit-equal to an uninterrupted run);
 ``--full-eval`` adds the full-ranking Recall@k / NDCG@k on the test split
-after training. Every ``train`` appends one row per epoch to
+after training. ``--model xsimgcl`` (with ``train --trainer fullgraph``)
+trains XSimGCL at its published constants (``ModelConfig`` /
+``TrainConfig``'s defaults), whose ``recommend --propagated`` serves its
+unperturbed readout; the other trainers refuse it. Every ``train`` appends one row per epoch to
 ``<histories-dir>/metrics.jsonl`` and ends with the history plot
 (``<histories-dir>/histories_training.png``). ``recommend --propagated``
 scores with the K-layer propagated tables; ``recommend --plots`` also writes
@@ -50,7 +53,7 @@ import dataclasses
 import os
 import sys
 
-from .config import Config, DataConfig, ModelConfig, TrainConfig
+from .config import MODELS, Config, DataConfig, ModelConfig, TrainConfig, check_model
 
 
 def _build_cfg(args) -> Config:
@@ -65,7 +68,8 @@ def _build_cfg(args) -> Config:
         synthetic_power=args.synthetic_power,
         split_level=getattr(args, "split_level", "edge"),
     )
-    model = ModelConfig(num_layers=args.layers, dim=args.dim, readout=args.readout)
+    model = ModelConfig(num_layers=args.layers, dim=args.dim, readout=args.readout,
+                        model=args.model)
     train = TrainConfig(epochs=args.epochs, lr=args.lr, num_clusters=args.clusters,
                         checkpoint_path=args.checkpoint,
                         histories_dir=args.histories_dir,
@@ -128,6 +132,7 @@ def train_from_args(args, mesh=None):
     say = print if main else (lambda *a, **k: None)
     device = resolve_device(args.device) if mesh is None else mesh.device
     cfg = _build_cfg(args)
+    check_model(cfg, "sharded" if mesh is not None else cfg.train.trainer)
     say(f"device: {device}")
     if mesh is None:
         bundle = prepare_training_data(cfg, device=device)
@@ -375,6 +380,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--layers", type=int, default=3)          # train_test.py:274
     ap.add_argument("--clusters", type=int, default=100)      # dataset_handler.py:256
     ap.add_argument("--readout", default="reference", choices=["reference", "standard"])
+    ap.add_argument("--model", default="lightgcn", choices=list(MODELS),
+                    help="xsimgcl: noise-perturbed hops and an in-batch InfoNCE at "
+                         "the published constants (train --trainer fullgraph only); "
+                         "served by its unperturbed readout")
     ap.add_argument("--synthetic-users", type=int, default=943)
     ap.add_argument("--synthetic-items", type=int, default=1682)
     ap.add_argument("--synthetic-interactions", type=int, default=100_000)

@@ -3,6 +3,11 @@ for field, so one JSON config (``Config.to_json``) loads in both packages.
 
 Fields that no part of the port reads (the chunked-ELL remainder's width)
 are kept so a config written by either package round-trips unchanged.
+The port's own model fields (``ModelConfig.model``, ``cl_layer``,
+``cl_eps``; ``TrainConfig.cl_weight``, ``cl_temperature``, ``cl_dtype``:
+XSimGCL, ``models/xsimgcl.py``) have no JAX counterpart: ``to_json`` writes
+them only where they differ from their defaults, so a LightGCN config reads
+the same from both packages.
 ``loss_microbatches > 1`` splits the full-graph trainer's triplet loss into
 that many chunks over one propagation
 (``training/train.py::compute_loss_grads_microbatched``). Full-state checkpoints
@@ -49,16 +54,21 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """LightGCN hyperparameters."""
+    """Model hyperparameters: LightGCN's, and XSimGCL's on top of them."""
 
     num_layers: int = 3
     dim: int = 64
     init_std: float = 0.01
     # "reference" keeps the reference's double 1/(K+1) readout factor;
-    # "standard" is the LightGCN-paper mean over layers
+    # "standard" is the LightGCN-paper mean over layers (LightGCN only)
     readout: str = "reference"
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    model: str = "lightgcn"           # lightgcn | xsimgcl
+    # XSimGCL: the contrastive view is hop ``cl_layer`` (1-based) of the
+    # perturbed propagation; each hop adds cl_eps · sign(E) ⊙ rownorm(U(0,1))
+    cl_layer: int = 1
+    cl_eps: float = 0.2
 
 
 @dataclass(frozen=True)
@@ -107,6 +117,12 @@ class TrainConfig:
     resume: bool = True
     state_checkpoint_path: Optional[str] = None
     state_checkpoint_every: int = 0
+    # XSimGCL's loss: BPR + cl_weight · (InfoNCE of the users + of the
+    # items) at temperature cl_temperature, the products' operands in
+    # cl_dtype (bfloat16 | float32; float32 only off the card)
+    cl_weight: float = 0.2
+    cl_temperature: float = 0.15
+    cl_dtype: str = "bfloat16"
 
 
 @dataclass(frozen=True)
@@ -146,7 +162,13 @@ class Config:
         return dataclasses.replace(self, **kwargs)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        raw = dataclasses.asdict(self)
+        for group, names in PORT_ONLY_FIELDS.items():
+            default = _DEFAULTS[group]
+            for name in names:
+                if raw[group][name] == getattr(default, name):
+                    del raw[group][name]
+        return json.dumps(raw, indent=2, sort_keys=True)
 
     @staticmethod
     def from_json(text: str) -> "Config":
@@ -158,6 +180,29 @@ class Config:
             mesh=MeshConfig(**raw.get("mesh", {})),
             serve=ServeConfig(**raw.get("serve", {})),
         )
+
+
+#: fields the JAX package's config does not have, by group: written by
+#: ``Config.to_json`` only where they differ from their defaults
+PORT_ONLY_FIELDS = {"model": ("model", "cl_layer", "cl_eps"),
+                    "train": ("cl_weight", "cl_temperature", "cl_dtype")}
+_DEFAULTS = {"model": ModelConfig(), "train": TrainConfig()}
+MODELS = ("lightgcn", "xsimgcl")
+
+
+def check_model(cfg: Config, trainer: Optional[str] = None) -> str:
+    """``cfg.model.model``, after checking that it is known and, with
+    ``trainer``, that that trainer runs it: XSimGCL trains on the full-graph
+    trainer alone (one propagation over the whole graph a step, which its
+    in-batch InfoNCE over every distinct row of the step needs)."""
+    kind = cfg.model.model
+    if kind not in MODELS:
+        raise ValueError(f"unknown model {kind!r}; choose one of {MODELS}")
+    if kind != "lightgcn" and trainer is not None and trainer != "fullgraph":
+        raise ValueError(
+            f"the {trainer} trainer runs LightGCN only; model={kind!r} trains with "
+            "trainer='fullgraph' (cli: train --trainer fullgraph)")
+    return kind
 
 
 def ml100k_config() -> Config:

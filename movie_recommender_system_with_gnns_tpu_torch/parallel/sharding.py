@@ -43,7 +43,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, check_model
 from ..data.graph import EllGraph, gcn_norm
 from ..models.lightgcn import LightGCNParams
 from ..ops.bpr import select_bpr_loss
@@ -711,6 +711,7 @@ def make_sharded_epoch_fn(cfg: Config, mesh: Mesh, plan: ShardPlan, opt,
     real triplets, a device scalar; ``plan`` the epoch's static plan.
     ``perm`` (e_real,) and ``neg`` (num_steps, batch[, K]) inject the
     shuffle and the negatives, so a test can replay another run's draws."""
+    check_model(cfg, "sharded")
     step = make_sharded_train_step(cfg, mesh, plan, opt, hybrid=hybrid, symmetric=symmetric)
     k = cfg.train.num_negatives
 

@@ -47,7 +47,9 @@ def compute_serving_tables(
     ``mode='layer0'`` (default) is the reference contract: the raw trained
     tables. ``mode='propagated'`` runs the K-layer propagation over the train
     graph first (the LightGCN-paper serving protocol), with
-    ``cfg.model.num_layers`` and ``cfg.model.readout``.
+    ``cfg.model.num_layers`` and ``cfg.model.readout``; an XSimGCL config
+    (``cfg.model.model``) takes its own unperturbed readout, the mean of
+    hops 1..L (``models/xsimgcl.py``).
 
     Tables on a CUDA device propagate through the degree-bucketed ELL layout
     and the hand-written SpMM kernel (``ops/cuda_spmm.py``), which gathers rows
@@ -70,7 +72,7 @@ def compute_serving_tables(
         raise ValueError("propagated serving needs train_edges + cfg")
     if mesh is not None:
         return _sharded_tables(params, train_edges, cfg, mesh)
-    from ..models.lightgcn import propagate
+    from ..models.xsimgcl import final_tables
 
     dev = params.user_emb.device
     n = params.user_emb.shape[0] + params.item_emb.shape[0]
@@ -97,18 +99,19 @@ def compute_serving_tables(
         else:
             graph = DeviceCOO.from_host(COOGraph.build(train_edges, n), dev)
             spmm = spmm_segment
-    fu, fi = propagate(params, graph, spmm, cfg.model.num_layers,
-                       cfg.model.readout)
+    fu, fi = final_tables(params, graph, spmm, cfg)
     return LightGCNParams(fu, fi)
 
 
 def _sharded_tables(params: LightGCNParams, train_edges: np.ndarray, cfg, mesh
                     ) -> LightGCNParams:
+    from ..config import check_model
     from ..parallel.mesh import Mesh
     from ..parallel.sharding import (ShardPlan, gather_params, make_sharded_propagate,
                                      pad_params, shard_coos, shard_graph, shard_params,
                                      unpad_params)
 
+    check_model(cfg, "sharded")
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
     plan = ShardPlan.create(params.user_emb.shape[0], params.item_emb.shape[0], mesh.mp)

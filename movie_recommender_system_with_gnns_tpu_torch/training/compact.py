@@ -64,7 +64,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, check_model
 from ..data.graph import gcn_norm
 from ..models.lightgcn import LightGCNParams
 from ..ops.bpr import select_bpr_loss
@@ -984,7 +984,9 @@ def make_compact_epoch_fn(cfg: Config):
     the row gradients; the state's optimizer state a :class:`LazyAdamState`).
     ``num_negatives > 1``, ``fused_bpr``, any ``loss``/``readout``
     combination and a boundary-corrected ``cc`` are supported under each.
+    LightGCN only: another model raises ``ValueError``.
     """
+    check_model(cfg, "compact")
     if cfg.train.optimizer == "lazy_adam":
         return make_compact_lazy_epoch_fn(cfg)
     if cfg.train.optimizer == "hybrid_adam":

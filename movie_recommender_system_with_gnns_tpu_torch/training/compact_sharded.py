@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..config import Config
+from ..config import Config, check_model
 from ..parallel.mesh import Mesh, all_reduce_
 from .compact import CompactClusters, _step_negatives, compact_cluster_loss
 from .train import TrainState, loss_and_grads, make_optimizer
@@ -41,6 +41,7 @@ def make_compact_sharded_epoch_fn(cfg: Config, mesh: Mesh):
     != 0`` (build the partitioner with a multiple). The optimizer is
     ``adam`` (clip + Adam, ``train.make_optimizer``); ``mean_loss`` is the
     edge-weighted mean over the epoch's clusters."""
+    check_model(cfg, "data-parallel compact")
     if cfg.train.optimizer != "adam":
         raise ValueError(f"the data-parallel compact trainer runs optimizer='adam', "
                          f"not {cfg.train.optimizer!r}")

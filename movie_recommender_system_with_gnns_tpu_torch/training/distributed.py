@@ -23,7 +23,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, check_model
 from ..models.lightgcn import LightGCNParams, init_params
 from ..ops.sampling import TripletBatch, sample_negative, triplets_from_edges
 from ..parallel.mesh import Mesh, make_mesh
@@ -52,7 +52,9 @@ def train_model_sharded(
     cfg.mesh.model_parallel)`` on the card. ``val`` / ``test`` are
     ``train.build_eval_batch`` tuples on the mesh's device; ``params`` the
     initial tables, the same on every rank (default: drawn from
-    ``cfg.train.seed`` as ``train.create_train_state`` draws them)."""
+    ``cfg.train.seed`` as ``train.create_train_state`` draws them). LightGCN
+    only: another model raises ``ValueError``."""
+    check_model(cfg, "sharded")
     if mesh is None:
         mesh = make_mesh(cfg.mesh.data_parallel, cfg.mesh.model_parallel)
     dev, pd, pm = mesh.device, mesh.dp, mesh.mp

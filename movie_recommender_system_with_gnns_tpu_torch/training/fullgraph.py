@@ -17,6 +17,10 @@ trainer keeps them all:
     and takes ``num_steps`` fixed-size batches, one optimizer step each
     (``TrainConfig.fullgraph_steps``), with the same ``compute_loss``, clip
     at 1.0 and Adam as the other trainers;
+  * with ``model="xsimgcl"`` (``models/xsimgcl.py``) a step propagates
+    with each hop's noise and adds the in-batch InfoNCE of the readout
+    against the contrastive view (``train.compute_loss_xsimgcl``); the noise
+    is drawn from the epoch's generator, or injected (``noise=``);
   * with ``loss_microbatches > 1`` a step propagates once and evaluates the
     triplet loss in that many chunks of its batch
     (``train.compute_loss_grads_microbatched``): the same loss and gradients
@@ -38,7 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, check_model
 from ..data.graph import adjacency_is_symmetric
 from ..data.partition import forward_half, partition_assignments
 from ..ops.sampling import (TripletBatch, build_alias_table, build_member_table,
@@ -50,7 +54,7 @@ from ..ops.spmm import (HybridGraph, build_hybrid_graph, spmm_hybrid, spmm_hybri
 from ..utils.device import DeviceLike, as_dtype, resolve_device
 from ..utils.observability import count, trace_span
 from .train import (TrainState, compute_loss, compute_loss_grads_microbatched,
-                    loss_and_grads, make_optimizer)
+                    compute_loss_xsimgcl, loss_and_grads, make_optimizer)
 
 
 class FullGraphTrainData:
@@ -166,8 +170,8 @@ def fullgraph_spmm(cfg: Config, fg: FullGraphTrainData):
 
 
 def make_fullgraph_epoch_fn(cfg: Config, fg: FullGraphTrainData):
-    """``epoch_fn(state, fg, generator, perm=None, neg=None) -> (state,
-    mean_loss)``: shuffle the real positives (the padding stays masked at the
+    """``epoch_fn(state, fg, generator, perm=None, neg=None, noise=None) ->
+    (state, mean_loss)``: shuffle the real positives (the padding stays masked at the
     tail), then ``fg.num_steps`` steps of ``compute_loss`` on the hybrid
     graph (in ``cfg.train.loss_microbatches`` chunks of the batch when that
     is above 1), clip and Adam. The mean loss is weighted by each step's
@@ -175,16 +179,24 @@ def make_fullgraph_epoch_fn(cfg: Config, fg: FullGraphTrainData):
 
     ``perm`` (e_real,) injects the shuffle and ``neg`` (num_steps, batch) or
     (num_steps, batch, K) each step's negatives, so a test can replay what
-    another run drew; left None they come from ``generator``."""
+    another run drew; left None they come from ``generator``. XSimGCL's
+    step draws its hops' noise after its negatives, or takes ``noise[s]``
+    of ``noise`` (num_steps, L, n, d) raw U(0,1); a LightGCN epoch ignores
+    it."""
     check_negatives_mode(cfg.train.negatives)
+    xsim = check_model(cfg, "fullgraph") == "xsimgcl"
+    micro = cfg.train.loss_microbatches
+    if xsim and micro > 1:
+        raise ValueError("XSimGCL's loss is not microbatched: set loss_microbatches to 0 or 1")
     opt = make_optimizer(cfg)
     spmm = fullgraph_spmm(cfg, fg)
     k = cfg.train.num_negatives
-    micro = cfg.train.loss_microbatches
+    hops = cfg.model.num_layers
 
     def epoch_fn(state: TrainState, fg_: FullGraphTrainData,
                  generator: Optional[torch.Generator], perm=None,
-                 neg: Optional[torch.Tensor] = None) -> Tuple[TrainState, float]:
+                 neg: Optional[torch.Tensor] = None,
+                 noise: Optional[torch.Tensor] = None) -> Tuple[TrainState, float]:
         with trace_span("fullgraph.epoch"):
             dev = fg_.user.device
             steps, b = fg_.num_steps, fg_.batch
@@ -210,7 +222,17 @@ def make_fullgraph_epoch_fn(cfg: Config, fg: FullGraphTrainData):
                     else:
                         neg_s = sample_negative(generator, b, num_items, k, device=dev)
                     tb = TripletBatch(user=u[s], pos_item=p[s], mask=m[s])
-                    if micro > 1:
+                    if xsim:
+                        if noise is not None:
+                            noise_s = torch.as_tensor(noise[s]).to(dev)
+                        else:
+                            n_rows = fg_.hybrid.num_nodes
+                            noise_s = torch.rand((hops, n_rows, state.params.user_emb.shape[1]),
+                                                 generator=generator,
+                                                 device=generator.device).to(dev)
+                        loss, grads = loss_and_grads(compute_loss_xsimgcl, state.params,
+                                                     fg_.hybrid, tb, neg_s, cfg, spmm, noise_s)
+                    elif micro > 1:
                         loss, grads = compute_loss_grads_microbatched(
                             state.params, fg_.hybrid, tb, neg_s, cfg, spmm, micro)
                     else:

@@ -41,9 +41,10 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, check_model
 from ..data.graph import COOGraph
 from ..models.lightgcn import LightGCNParams, init_params, propagate
+from ..models.xsimgcl import final_tables
 from ..ops.bpr import select_bpr_loss
 from ..ops.cuda_scatter import gather_rows, sort_rows
 from ..ops.metrics import sampled_recall_at_k
@@ -220,7 +221,9 @@ def compute_embeddings(
 ):
     """(final_user, initial_user, final_pos, initial_pos, final_neg,
     initial_neg): the reference's ``compute_embeddings`` 6-tuple contract
-    (train_test.py:105-134). ``neg_item`` is (B,) or (B, K).
+    (train_test.py:105-134). ``neg_item`` is (B,) or (B, K). The final rows
+    are the configured model's unperturbed readout
+    (``models/xsimgcl.py::final_tables``).
 
     When a gradient will be taken, the rows are gathered by
     ``ops/cuda_scatter.py::gather_rows`` over one stable sort of each index
@@ -228,8 +231,7 @@ def compute_embeddings(
     gradients are summed per row in an order fixed by the data, not by float
     atomics: a step is bit-reproducible on the card. Without a gradient
     (the eval step) they are plain ``index_select`` gathers."""
-    users_final, items_final = propagate(
-        params, graph, spmm, cfg.model.num_layers, cfg.model.readout)
+    users_final, items_final = final_tables(params, graph, spmm, cfg)
     sorted_ = torch.is_grad_enabled() and (params.user_emb.requires_grad
                                            or params.item_emb.requires_grad)
     return _triplet_rows(users_final, items_final, params, batch, neg_item, sorted_)
@@ -274,6 +276,46 @@ def compute_loss(
     return loss_fn(*embs, cfg.train.bpr_coeff, mask=batch.mask)
 
 
+def compute_loss_xsimgcl(
+    params: LightGCNParams,
+    graph,
+    batch: TripletBatch,
+    neg_item: torch.Tensor,
+    cfg: Config,
+    spmm: Callable,
+    noise: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """XSimGCL's training loss: the perturbed propagation
+    (``models/xsimgcl.py::propagate_perturbed``, ``noise`` (L, n, d) raw
+    U(0,1)), BPR with its regulariser on the readout's triplet rows as
+    :func:`compute_loss` takes them, plus ``cl_weight`` × the InfoNCE of the
+    readout against the contrastive view over the batch's distinct users and
+    over its distinct positive items (``ops/cuda_infonce.py::infonce``). The
+    distinct rows are chosen on the device (``ops/distinct.py``), so the
+    step waits for nothing."""
+    from ..models.xsimgcl import propagate_perturbed
+    from ..ops.cuda_infonce import infonce
+    from ..ops.distinct import distinct_rows
+
+    mc, tc = cfg.model, cfg.train
+    zu, zi, cu, ci = propagate_perturbed(params, graph, spmm, mc.num_layers, mc.cl_layer,
+                                         mc.cl_eps, noise)
+    # a training loss: the rows' gradients summed in sorted order, bit-reproducible
+    embs = _triplet_rows(zu, zi, params, batch, neg_item, True)
+    loss = select_bpr_loss(tc.loss)(*embs, tc.bpr_coeff, mask=batch.mask)
+    if tc.cl_weight == 0:
+        return loss
+    b = batch.user.shape[0]
+    with trace_span("xsimgcl.distinct"):
+        users, n_users = distinct_rows(batch.user, zu.shape[0], batch.mask, cap=b)
+        items, n_items = distinct_rows(batch.pos_item, zi.shape[0], batch.mask, cap=b)
+    cl = (infonce(zu.index_select(0, users), cu.index_select(0, users), n_users,
+                  tc.cl_temperature, tc.cl_dtype)
+          + infonce(zi.index_select(0, items), ci.index_select(0, items), n_items,
+                    tc.cl_temperature, tc.cl_dtype))
+    return loss + tc.cl_weight * cl
+
+
 def loss_and_grads(loss_fn: Callable, params: LightGCNParams, *args
                    ) -> Tuple[torch.Tensor, LightGCNParams]:
     """``(loss, d loss / d params)`` of ``loss_fn(params, *args)`` by autograd
@@ -310,7 +352,10 @@ def compute_loss_grads_microbatched(
     ``sort_rows`` lists, as in :func:`compute_embeddings`, so a step is
     bit-reproducible on the card. Peak memory: one chunk's (B/num_micro, K,
     d) triplet temps and the accumulators, not the whole batch's. A
-    ``num_micro`` that does not divide the batch raises ``ValueError``."""
+    ``num_micro`` that does not divide the batch raises ``ValueError``, and so
+    does a model other than LightGCN."""
+    if check_model(cfg) != "lightgcn":
+        raise ValueError(f"the microbatched loss runs LightGCN only, not {cfg.model.model!r}")
     b = batch.user.shape[0]
     if b % num_micro:
         raise ValueError(f"loss_microbatches={num_micro} must divide the "
@@ -349,6 +394,7 @@ def make_train_step(cfg: Config, spmm: Callable = spmm_rows):
     forward and backward, runs in an order fixed by the data, so a step is
     bit-equal from run to run on the card. :func:`~..ops.spmm.spmm_segment`
     (``index_add``) stays the plain oracle."""
+    check_model(cfg, "full")
     check_negatives_mode(cfg.train.negatives)
     opt = make_optimizer(cfg)
 
@@ -574,6 +620,7 @@ def _eager_epoch_fn(cfg: Config, spmm: Callable = spmm_rows):
     device: what the CPU runs, and what the card's captured epoch is held
     against. Returns ``epoch_fn`` with the :class:`_EpochSteps` it runs as
     its ``steps`` attribute."""
+    check_model(cfg, "full")
     check_negatives_mode(cfg.train.negatives)
     steps = _EpochSteps(cfg, spmm)
 
@@ -755,6 +802,8 @@ def train_model(
     eval_step = make_eval_step(cfg)
     device = state.params.user_emb.device
 
+    if not isinstance(clusters, FullGraphTrainData):
+        check_model(cfg, "compact" if isinstance(clusters, CompactClusters) else "full")
     if isinstance(clusters, FullGraphTrainData):
         epoch_fn = make_fullgraph_epoch_fn(cfg, clusters)
     elif isinstance(clusters, CompactClusters):

@@ -47,6 +47,27 @@ def test_port_imports_no_jax():
     assert bad == []
 
 
+#: XSimGCL's plain references and the benchmark files that bring its cell
+XSIMGCL_FILES = ("tests/xsimgcl_reference.py", "benchmark/reference/xsimgcl.py",
+                 "benchmark/traffic/train_epochs_cl.py", "benchmark/faults_cl.py",
+                 "benchmark/work_cl.py", "benchmark/metrics/train.infonce_roofline.py",
+                 "benchmark/metrics/train_cl_mfu.py", "benchmark/metrics/train.cl_host_ms.py",
+                 "benchmark/metrics/train.cl_host_syncs.py")
+
+
+@pytest.mark.parametrize("name", XSIMGCL_FILES)
+def test_xsimgcl_files_import_no_jax(name):
+    """No JAX and nothing of the JAX package; the two plain references
+    import nothing of the port either (only ``torch``, ``numpy`` and the
+    standard library)."""
+    path = ROOT / name
+    mods = list(_imported_modules(path))
+    assert mods and not [m for m in mods if _forbidden(m)]
+    if name.endswith(("xsimgcl_reference.py", "reference/xsimgcl.py")):
+        assert {m.split(".")[0] for m in mods} <= {"__future__", "warnings", "typing",
+                                                   "numpy", "torch"}
+
+
 def test_forbidden_match_is_exact():
     assert _forbidden("jax.numpy") and _forbidden("movie_recommender_system_with_gnns_tpu.ops")
     assert not _forbidden("movie_recommender_system_with_gnns_tpu_torch.ops")

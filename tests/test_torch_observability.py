@@ -179,3 +179,68 @@ def test_records_lie_inside_their_trace_events(ring, tmp_path):
         e = events[r.name]
         start, end = e["ts"] + base_us, e["ts"] + e["dur"] + base_us
         assert start - 5 <= r.t0_ns / 1e3 <= r.t1_ns / 1e3 <= end + 5, (r, e)
+
+
+#: the kernels' plain versions, which only the CPU runs: they read their
+#: row counts on the host, where that waits for nothing
+_PLAIN_ONLY = {"sorted_index_add_plain", "lse_plain", "grads_plain"}
+
+
+def test_xsimgcl_spans_open_inside_the_step_and_add_no_host_sync(ring, monkeypatch):
+    """An XSimGCL full-graph epoch on the CPU under ``tracing()``: each step
+    holds two ``xsimgcl.perturb`` spans (one a hop), one
+    ``xsimgcl.distinct``, two ``xsimgcl.infonce`` (users, items) and two
+    ``xsimgcl.infonce_bwd`` (inside the autograd backward), all inside its
+    ``fullgraph.step``. Every conversion of a tensor to a host value outside
+    the kernels' plain versions is counted: the epoch's closing ``float`` is
+    the only one, as in a LightGCN epoch, so on the card the step adds no
+    sync to the epoch's one (``host_sync``, which counts only there)."""
+    import traceback
+
+    from movie_recommender_system_with_gnns_tpu_torch.config import (
+        Config, ModelConfig, TrainConfig)
+    from movie_recommender_system_with_gnns_tpu_torch.data.movielens import (
+        make_synthetic_movielens)
+    from movie_recommender_system_with_gnns_tpu_torch.training import fullgraph, train
+
+    data = make_synthetic_movielens(num_users=120, num_items=180, num_interactions=12000,
+                                    seed=0)
+    nu, ni = data.num_users, data.num_items
+    conversions = []
+    for name in ("item", "__float__", "__int__", "__bool__", "__index__", "tolist", "numpy"):
+        real = getattr(torch.Tensor, name)
+
+        def spy(self, *a, _real=real, _name=name, **kw):
+            caller = traceback.extract_stack(limit=3)[-2]
+            if caller.name not in _PLAIN_ONLY:
+                conversions.append((_name, caller.name))
+            return _real(self, *a, **kw)
+
+        monkeypatch.setattr(torch.Tensor, name, spy)
+    per_epoch = {}
+    for model in ("lightgcn", "xsimgcl"):
+        cfg = Config(model=ModelConfig(num_layers=2, dim=16, model=model, readout="standard"),
+                     train=TrainConfig(trainer="fullgraph", fullgraph_steps=4, num_clusters=4,
+                                       hybrid_block_dtype="float32", loss="standard",
+                                       cl_dtype="float32"))
+        fg = fullgraph.build_fullgraph_data(cfg, data.edge_index, nu, nu + ni, device="cpu")
+        fn = fullgraph.make_fullgraph_epoch_fn(cfg, fg)
+        state = train.create_train_state(cfg, nu, ni, device="cpu")
+        conversions.clear()
+        tobs.clear()
+        with tobs.tracing():
+            fn(state, fg, torch.Generator().manual_seed(0))
+        per_epoch[model] = list(conversions)
+    monkeypatch.undo()
+    assert per_epoch["xsimgcl"] == per_epoch["lightgcn"] == [("__float__", "epoch_fn")]
+    recs = tobs.span_records()
+    steps = [r for r in recs if r.name == "fullgraph.step"]
+    assert len(steps) == fg.num_steps == 4
+    want = {"xsimgcl.perturb": 2, "xsimgcl.distinct": 1, "xsimgcl.infonce": 2,
+            "xsimgcl.infonce_bwd": 2}
+    for step in steps:
+        inside = [r.name for r in recs if r.name.startswith("xsimgcl.")
+                  and step.t0_ns <= r.t0_ns <= r.t1_ns <= step.t1_ns]
+        assert {k: inside.count(k) for k in want} == want
+    assert sum(r.name.startswith("xsimgcl.") for r in recs) == 7 * len(steps)
+    assert tobs.counts().get("host_sync", 0) == 0     # counted on the card only

@@ -802,11 +802,17 @@ def infonce_phase(smi: str, bf16_flops: float) -> dict:
     113,000 users in 162,541 rows, 55,000 items in 59,047, d 64) against the
     plain version on the card, forward and backward; each timed by CUDA
     events (median of ``timed``) beside its bound (6·n²·d at the dense bf16
-    peak) and beside the plain chunked PyTorch version. One ``[infonce]``
-    JSON line."""
+    peak), beside the exponentials' bound (3·n² ``ex2`` at 16 a clock an
+    SM, at the card's SM count and its highest SM clock) and beside the
+    plain chunked PyTorch version. One ``[infonce]`` JSON line."""
     from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_infonce as ci
 
     t0 = time.time()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    ex2_per_s = 16.0 * sms * sm_hz
     gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
     worst = {"lse": 0.0, "pa": 0.0, "pb": 0.0}
     for n, cap, d in ((1, 64, 64), (37, 64, 64), (200, 333, 32), (1000, 1000, 64),
@@ -854,14 +860,17 @@ def infonce_phase(smi: str, bf16_flops: float) -> dict:
         plain = [time_ms(lambda: ci.grads_plain(qa, qb, ci.lse_plain(qa, qb, count, tau),
                                                 count, tau), 1, 0) for _ in range(2)]
         bound_ms = 6.0 * n * n * d / bf16_flops * 1e3
+        exp_bound_ms = 3.0 * n * n / ex2_per_s * 1e3
         fwd_ms, bwd_ms = float(np.median(fwd)), float(np.median(bwd))
         out[side].update(fwd_ms=fwd_ms, bwd_ms=bwd_ms, bound_ms=bound_ms,
-                         roofline=bound_ms / (fwd_ms + bwd_ms),
+                         roofline=bound_ms / (fwd_ms + bwd_ms), exp_bound_ms=exp_bound_ms,
+                         exp_share=exp_bound_ms / (fwd_ms + bwd_ms),
                          plain_chunked_ms=float(np.median(plain)))
         log(f"[infonce] {side}: n {n}, d {d}: forward {fwd_ms:.3f} ms, backward "
             f"{bwd_ms:.3f} ms (both views), bound {bound_ms:.3f} ms "
-            f"({100 * out[side]['roofline']:.1f} %); plain chunked "
-            f"{out[side]['plain_chunked_ms']:.1f} ms")
+            f"({100 * out[side]['roofline']:.1f} %), exponentials' bound "
+            f"{exp_bound_ms:.3f} ms ({100 * out[side]['exp_share']:.1f} %, {sms} SMs at "
+            f"{sm_hz / 1e9:.3f} GHz); plain chunked {out[side]['plain_chunked_ms']:.1f} ms")
     step_ms = sum(out[s]["fwd_ms"] + out[s]["bwd_ms"] for s in ("users", "items"))
     out.update(step_ms=step_ms, epoch_s_16_steps=16 * step_ms / 1e3,
                seconds=time.time() - t0)
@@ -5040,7 +5049,8 @@ def main() -> int:
     for kname, path in built.items():
         log(f"[build] {kname}: {path.name} in {time.time() - t0:.1f} s")
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Performance Loss" in line):
                 log(f"[build]   {line.strip()}")
             elif "Compiling entry function" in line:
                 log(f"[build]   {line.strip()[:120]}")

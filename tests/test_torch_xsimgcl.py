@@ -11,6 +11,11 @@ alone: about 1e-7 of each value, grown by a few hops and Adam steps. A
 dropped term (λ = 0, ε = 0) moves the same numbers by 1e-2 or more.
 """
 
+import inspect
+import json
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -181,6 +186,27 @@ def test_infonce_blocks_and_empty():
     assert abs(float(got) - float(want)) < 1e-5 * abs(float(want))
     zero = cuda_infonce.infonce(a, b, torch.zeros(1, dtype=torch.int32), 0.5, "float32")
     assert float(zero) == 0.0
+
+
+def test_infonce_kernels_are_named_as_the_benchmark_counts_them():
+    """Every kernel that ``benchmark/kernels/infonce.json`` names (the
+    kernels whose time ``train.infonce_roofline`` reads) is a ``__global__``
+    function template of ``csrc/infonce.cu``, which has no other kernel;
+    and the source exports each ``extern "C"`` entry point that
+    ``ops/cuda_infonce.py::_library`` binds."""
+    src = (Path(cuda_infonce.__file__).resolve().parents[1] / "csrc" / "infonce.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    templates = re.findall(r"template\s*<[^>]*>\s*__global__\s+void\s+"
+                           r"(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)\s*\(", code)
+    kmap = Path(__file__).resolve().parents[1] / "benchmark" / "kernels" / "infonce.json"
+    names = json.loads(kmap.read_text())["kernels"]
+    assert len(templates) == code.count("__global__") >= 1
+    assert sorted(set(templates)) == sorted(names) == ["infonce_bwd_kernel",
+                                                       "infonce_fwd_kernel"]
+    bound = set(re.findall(r"lib\.(\w+)\.", inspect.getsource(cuda_infonce._library)))
+    assert bound == {"infonce_fwd", "infonce_bwd", "infonce_error_string"}
+    for entry in bound:
+        assert re.search(r'extern\s+"C"\s+[\w\s\*]+?\b' + entry + r"\s*\(", code), entry
 
 
 # --- one full-graph epoch ---------------------------------------------------------

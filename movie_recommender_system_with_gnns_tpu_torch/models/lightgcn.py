@@ -7,7 +7,7 @@
     adjacency plus the layer-averaged readout. ``readout='reference'`` keeps
     the reference's double 1/(K+1) factor (light_gcn.py:36 applies 1/(K+1) on
     top of a mean that already divides by K+1); ``'standard'`` is the
-    LightGCN paper's plain mean;
+    LightGCN paper's plain mean; :func:`readout_scale` gives either factor;
   * :func:`get_embeddings` returns layer-0 table rows — the reference's
     serving contract (light_gcn.py:42-64);
   * :func:`params_from_numpy` carries weights across from the JAX package's
@@ -81,8 +81,7 @@ def propagate(
     through any ``spmm(graph, emb) -> emb`` callable, average the K+1 layer
     outputs, split back into user/item halves.
     """
-    if readout not in ("reference", "standard"):
-        raise ValueError(f"unknown readout {readout!r}")
+    readout_scale(num_layers, readout)   # refuses an unknown readout
     num_users = params.user_emb.shape[0]
     emb = torch.cat([params.user_emb, params.item_emb], dim=0)
     if compute_dtype is not None:
@@ -98,6 +97,16 @@ def propagate(
         final = final / (num_layers + 1)
     final = final.to(params.user_emb.dtype)
     return final[:num_users], final[num_users:]
+
+
+def readout_scale(num_layers: int, readout: str) -> float:
+    """The readout's factor on the sum of the K+1 layers, ``1/(K+1)²`` or
+    ``1/(K+1)``, for trainers that sum the layers themselves; an unknown
+    ``readout`` raises ``ValueError``."""
+    if readout not in ("reference", "standard"):
+        raise ValueError(f"unknown readout {readout!r}")
+    k1 = num_layers + 1
+    return 1.0 / (k1 * k1) if readout == "reference" else 1.0 / k1
 
 
 def get_embeddings(

@@ -13,15 +13,19 @@ Reference ``bpr_loss`` (utils/train_test.py:18-64):
             sign: the loss goes NEGATIVE during training; the quirk is kept
             for parity and the textbook −log σ(pos−neg) BPR is an option.
 
-Masked variants support padded triplet batches.
+Masked variants support padded triplet batches. :func:`triplet_rows` gathers
+a triplet batch's rows and :func:`triplet_loss` takes the configured loss of them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .cuda_scatter import gather_rows, sort_rows
+from .sampling import TripletBatch
 
 
 def normalize_embedding(emb: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
@@ -120,3 +124,39 @@ def select_bpr_loss(name: str):
     if name == "standard":
         return bpr_loss_standard
     raise ValueError(f"unknown loss {name!r}")
+
+
+def triplet_rows(finals: Tuple[torch.Tensor, torch.Tensor],
+                 tables: Tuple[torch.Tensor, torch.Tensor], batch: TripletBatch,
+                 neg_item: torch.Tensor, sorted_: bool = True) -> Tuple[torch.Tensor, ...]:
+    """The reference's ``compute_embeddings`` 6-tuple (train_test.py:105-134),
+    (final_user, initial_user, final_pos, initial_pos, final_neg,
+    initial_neg): the rows of ``batch`` and ``neg_item`` (B,) or (B, K) in the
+    (user, item) ``finals`` and layer-0 ``tables``. ``sorted_`` gathers them
+    through ``gather_rows`` over one ``sort_rows`` of the users and one of
+    the items, so that their gradients sum in an order fixed by the data (a
+    step is bit-reproducible on the card); else by ``index_select``."""
+    users_final, items_final = finals
+    user_emb, item_emb = tables
+    b, d = batch.user.shape[0], user_emb.shape[1]
+    items = torch.cat([batch.pos_item.reshape(-1), neg_item.reshape(-1)])
+    if sorted_:
+        u_lists = sort_rows(batch.user, user_emb.shape[0])
+        i_lists = sort_rows(items, item_emb.shape[0])
+        gather_u = lambda t: gather_rows(t, batch.user, *u_lists)
+        gather_i = lambda t: gather_rows(t, items, *i_lists)
+    else:
+        gather_u = lambda t: t.index_select(0, batch.user)
+        gather_i = lambda t: t.index_select(0, items)
+    uf, ue = gather_u(users_final), gather_u(user_emb)
+    itf, ite = gather_i(items_final), gather_i(item_emb)
+    neg_shape = tuple(neg_item.shape) + (d,)
+    return (uf, ue, itf[:b], ite[:b],
+            itf[b:].view(neg_shape), ite[b:].view(neg_shape))
+
+
+def triplet_loss(rows: Tuple[torch.Tensor, ...], mask: Optional[torch.Tensor], loss: str,
+                 bpr_coeff: float) -> torch.Tensor:
+    """The ``loss`` of :func:`select_bpr_loss` on :func:`triplet_rows`' 6-tuple,
+    ``mask`` (B,) leaving out padded triplets."""
+    return select_bpr_loss(loss)(*rows, bpr_coeff, mask=mask)

@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ._build import LAUNCHES
-from .bpr import select_bpr_loss
+from .bpr import triplet_loss
 from .cuda_scatter import sort_rows
 
 MAX_DIM = 512   # lanes stride over d with at most 16 elements each
@@ -63,9 +63,8 @@ def fused_bpr_loss_plain(fu, u_rows, fi, i_rows, ni, user_local, pos_local,
     u_cat = torch.cat([fu, u_rows], dim=1)[user_local]          # (B, 2d)
     p_cat = torch.cat([fi, i_rows], dim=1)[pos_local]
     nf = torch.where(in_cluster.bool()[:, None], fi[loc], ni * scale)
-    return select_bpr_loss(loss)(u_cat[:, :d], u_cat[:, d:], p_cat[:, :d],
-                                 p_cat[:, d:], nf, ni, bpr_coeff,
-                                 mask=mask.bool())
+    return triplet_loss((u_cat[:, :d], u_cat[:, d:], p_cat[:, :d], p_cat[:, d:], nf, ni),
+                        mask.bool(), loss, bpr_coeff)
 
 
 def bpr_tile_plain(u_tab, i_tab, ni, ul, pl, loc, inc, m, *, scale: float,

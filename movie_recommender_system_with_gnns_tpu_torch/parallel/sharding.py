@@ -45,9 +45,8 @@ import torch
 
 from ..config import Config, check_model
 from ..data.graph import EllGraph, gcn_norm
-from ..models.lightgcn import LightGCNParams
-from ..ops.bpr import select_bpr_loss
-from ..ops.cuda_scatter import gather_rows, sort_rows
+from ..models.lightgcn import LightGCNParams, readout_scale
+from ..ops.bpr import triplet_loss, triplet_rows
 from ..ops.cuda_spmm import spmm_ell_cuda
 from ..ops.sampling import TripletBatch, sample_negative
 from ..ops.spmm import DeviceCOO, DeviceELL, block_matmul, densify_blocks, spmm_rows
@@ -557,14 +556,13 @@ def _propagate(cfg: Config, layer: Layer, u_shard: torch.Tensor, i_shard: torch.
     """K layers; returns this rank's FINAL rows, users and items, by the
     readout's mean of the layers (JAX ``local_propagate`` /
     ``local_propagate_hybrid``)."""
+    scale = readout_scale(cfg.model.num_layers, cfg.model.readout)
     u_cur, i_cur = u_shard, i_shard
     acc_u, acc_i = u_shard, i_shard
     for _ in range(cfg.model.num_layers):
         u_cur, i_cur = layer(u_cur, i_cur)
         acc_u = acc_u + u_cur
         acc_i = acc_i + i_cur
-    k1 = cfg.model.num_layers + 1
-    scale = 1.0 / (k1 * k1) if cfg.model.readout == "reference" else 1.0 / k1
     return acc_u * scale, acc_i * scale
 
 
@@ -582,32 +580,23 @@ def make_sharded_propagate(cfg: Config, mesh: Mesh, plan: ShardPlan, hybrid: boo
     return fn
 
 
-def _local_loss(cfg: Config, plan: ShardPlan, mesh: Mesh, params: LightGCNParams,
-                layer: Layer, batch: TripletBatch, neg: torch.Tensor) -> torch.Tensor:
-    """This data shard's part of the step's loss: the single-device BPR loss
-    (``ops/bpr.py``, masked means over the shard's triplets) times the
-    shard's share of the valid triplets, ``local count / psum(count,
-    data)``. So each part is the shard's masked SUMS over the GLOBAL count,
-    as JAX's ``local_loss`` computes them before its ``psum`` over ``data``,
-    and the parts of all data ranks add up to the whole batch's loss. At
-    ``dp = 1`` the share is exactly 1: the part is the full-node step's
-    loss, bit for bit."""
+def _local_loss(cfg: Config, mesh: Mesh, params: LightGCNParams, layer: Layer,
+                batch: TripletBatch, neg: torch.Tensor) -> torch.Tensor:
+    """This data shard's part of the step's loss: the single-device triplet
+    loss (``ops/bpr.py::triplet_rows`` and ``triplet_loss`` over the
+    all-gathered final and layer-0 tables, masked means over the shard's
+    triplets) times the shard's share of the valid triplets, ``local count
+    / psum(count, data)``. So each part is the shard's masked SUMS over the
+    GLOBAL count, as JAX's ``local_loss`` computes them before its ``psum``
+    over ``data``, and the parts of all data ranks add up to the whole
+    batch's loss. At ``dp = 1`` the share is exactly 1: the part is the
+    full-node step's loss, bit for bit."""
     fu_loc, fi_loc = _propagate(cfg, layer, params.user_emb, params.item_emb)
-    # full final and initial tables for the triplet gathers
     mg = mesh.model_group
-    fu, fi = all_gather_rows(fu_loc, mg), all_gather_rows(fi_loc, mg)
-    u0, i0 = all_gather_rows(params.user_emb, mg), all_gather_rows(params.item_emb, mg)
-    # the gathers' gradients sum in an order fixed by the data (gather_rows),
-    # as train.compute_embeddings gathers
-    items = torch.cat([batch.pos_item.reshape(-1), neg.reshape(-1)])
-    u_lists, i_lists = sort_rows(batch.user, plan.u_pad), sort_rows(items, plan.i_pad)
-    uf, ui = (gather_rows(t, batch.user, *u_lists) for t in (fu, u0))
-    itf, ite = (gather_rows(t, items, *i_lists) for t in (fi, i0))
-    b, d = batch.user.shape[0], params.user_emb.shape[1]
-    neg_shape = tuple(neg.shape) + (d,)
-    loss = select_bpr_loss(cfg.train.loss)(
-        uf, ui, itf[:b], ite[:b], itf[b:].view(neg_shape), ite[b:].view(neg_shape),
-        cfg.train.bpr_coeff, mask=batch.mask)
+    finals = all_gather_rows(fu_loc, mg), all_gather_rows(fi_loc, mg)
+    tables = all_gather_rows(params.user_emb, mg), all_gather_rows(params.item_emb, mg)
+    loss = triplet_loss(triplet_rows(finals, tables, batch, neg), batch.mask,
+                        cfg.train.loss, cfg.train.bpr_coeff)
     local = batch.mask.to(torch.float32).sum()
     return loss * (local / all_reduce_(local.clone(), mesh.data_group).clamp_min(1.0))
 
@@ -663,7 +652,7 @@ def make_sharded_train_step(cfg: Config, mesh: Mesh, plan: ShardPlan, opt,
         local = TripletBatch(batch.user[lo:hi], batch.pos_item[lo:hi], batch.mask[lo:hi])
         leaves = LightGCNParams(*(t.detach().requires_grad_(True) for t in state.params))
         with torch.enable_grad():
-            part = _local_loss(cfg, plan, mesh, leaves, layer, local, neg[lo:hi])
+            part = _local_loss(cfg, mesh, leaves, layer, local, neg[lo:hi])
             grads = torch.autograd.grad(part, leaves)
         with torch.no_grad():
             flat = torch.cat([g.reshape(-1) for g in grads]) / pm

@@ -66,8 +66,8 @@ import torch
 
 from ..config import Config, check_model
 from ..data.graph import gcn_norm
-from ..models.lightgcn import LightGCNParams
-from ..ops.bpr import select_bpr_loss
+from ..models.lightgcn import LightGCNParams, readout_scale
+from ..ops.bpr import triplet_loss
 from ..ops.cuda_scatter import (gather_rows, scatter_rows, sort_rows, sort_rows_np,
                                 sorted_index_add)
 from ..ops.sampling import (build_member_table, check_negatives_mode, member_keys,
@@ -75,8 +75,8 @@ from ..ops.sampling import (build_member_table, check_negatives_mode, member_key
 from ..ops.spmm import block_matmul
 from ..ops.topk import DTypeLike
 from ..utils.device import DeviceLike, as_dtype, resolve_device
-from .train import (AdamState, TrainState, adam_step_, bias_corrections, loss_and_grads,
-                    make_lr_schedule, make_optimizer)
+from .train import (AdamState, TrainState, adam_step_table_, bias_corrections,
+                    loss_and_grads, make_lr_schedule, make_optimizer)
 
 
 class ClusterLists(NamedTuple):
@@ -539,8 +539,7 @@ def _triplet_loss(fu, u_rows, fi, i_rows, ni, neg, item_ids, user_local,
     loc, in_cluster = _neg_local_index(item_ids, neg, i_pad)
     iso = ni if nrest is None else ni + nrest.detach().to(ni.dtype)
     nf = torch.where(in_cluster[..., None], fi[loc], iso * scale)
-    loss_fn = select_bpr_loss(cfg.train.loss)
-    return loss_fn(uf, ui, pf, pi, nf, ni, cfg.train.bpr_coeff, mask=mask)
+    return triplet_loss((uf, ui, pf, pi, nf, ni), mask, cfg.train.loss, cfg.train.bpr_coeff)
 
 
 def row_loss(u_rows, i_rows, n_rows, cluster: Tuple, neg: torch.Tensor,
@@ -559,8 +558,7 @@ def row_loss(u_rows, i_rows, n_rows, cluster: Tuple, neg: torch.Tensor,
     route)."""
     (user_ids, item_ids, src, dst, w, user_local, pos_local, mask) = cluster
     n_local = u_pad + i_pad
-    k1 = cfg.model.num_layers + 1
-    scale = 1.0 / (k1 * k1) if cfg.model.readout == "reference" else 1.0 / k1
+    scale = readout_scale(cfg.model.num_layers, cfg.model.readout)
     cdtype = as_dtype(cfg.model.compute_dtype)
 
     emb = torch.cat([u_rows, i_rows], dim=0).to(cdtype)
@@ -734,6 +732,13 @@ def _lr_t(lr: float, bc1: float, bc2: float) -> float:
     return float(f(lr) * np.sqrt(f(bc2)) / f(bc1))
 
 
+def _moments(m: torch.Tensor, v: torch.Tensor, g: torch.Tensor, b1: float, b2: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adam's new first and second moments, out of place:
+    ``(b1·m + (1 − b1)·g, b2·v + (1 − b2)·g²)``."""
+    return b1 * m + (1.0 - b1) * g, b2 * v + (1.0 - b2) * (g * g)
+
+
 def _lazy_row_update(table, mu, nu, rows, g_rows, valid, lr_t, b1, b2, eps, scale,
                      runs: Optional[Runs] = None):
     """Adam on the gathered rows only, in the ``lr_t`` form (eps outside the
@@ -750,8 +755,7 @@ def _lazy_row_update(table, mu, nu, rows, g_rows, valid, lr_t, b1, b2, eps, scal
     g = g_rows * scale
     m_old = mu.index_select(0, rows)
     v_old = nu.index_select(0, rows)
-    m = b1 * m_old + (1.0 - b1) * g
-    v = b2 * v_old + (1.0 - b2) * (g * g)
+    m, v = _moments(m_old, v_old, g, b1, b2)
     upd = -lr_t * m / (v.sqrt() + eps)
     for t, delta in ((table, upd), (mu, m - m_old), (nu, v - v_old)):
         if valid is not None:
@@ -860,25 +864,22 @@ def _hybrid_update(cfg: Config, lazy_items: bool) -> UpdateFn:
         if lazy_items:
             g = g_rows * cscale
             m_old, v_old = mu_i.index_select(0, rows), nu_i.index_select(0, rows)
-            m_new = b1 * m_old + (1.0 - b1) * g
-            v_new = b2 * v_old + (1.0 - b2) * (g * g)
+            m_new, v_new = _moments(m_old, v_old, g, b1, b2)
             upd = m_new / ((v_new / bc2).sqrt() + eps) * (-lr / bc1)
             fm = valid[:, None].to(g.dtype)
             for t, delta in ((params.item_emb, upd), (mu_i, m_new - m_old),
                              (nu_i, v_new - v_old)):
                 t.index_add_(0, rows, delta * fm)
         else:
-            adam_step_(params.item_emb, g_dense * cscale, mu_i, nu_i, lr, bc1, bc2,
-                       b1, b2, eps)
+            adam_step_table_(params.item_emb, g_dense * cscale, mu_i, nu_i, lr, bc1, bc2,
+                             b1, b2, eps)
 
         # users: lazy rows, each user in one cluster, so the rows read here are
         # the epoch-start ones JAX reads; written in place of the old rows
         lr_t = _lr_t(lr, bc1, bc2)
         tables = (params.user_emb, ost.mu.user_emb, ost.nu.user_emb)
         u_rows, mu_rows, nu_rows = (t.index_select(0, user_ids) for t in tables)
-        gs = gu * cscale
-        m_new = b1 * mu_rows + (1.0 - b1) * gs
-        v_new = b2 * nu_rows + (1.0 - b2) * (gs * gs)
+        m_new, v_new = _moments(mu_rows, nu_rows, gu * cscale, b1, b2)
         u_new = u_rows - lr_t * m_new / (v_new.sqrt() + eps)
         slots = user_ids.long()
         for t, new in zip(tables, (u_new, m_new, v_new)):

@@ -36,17 +36,16 @@ import math
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..config import Config, check_model
+from ..config import Config, TrainConfig, check_model
 from ..data.graph import COOGraph
 from ..models.lightgcn import LightGCNParams, init_params, propagate
 from ..models.xsimgcl import final_tables
-from ..ops.bpr import select_bpr_loss
-from ..ops.cuda_scatter import gather_rows, sort_rows
+from ..ops.bpr import triplet_loss, triplet_rows
 from ..ops.metrics import sampled_recall_at_k
 from ..ops.sampling import (TripletBatch, check_negatives_mode, sample_negative,
                             triplets_from_edges)
@@ -112,16 +111,30 @@ def bias_corrections(count: int, b1: float, b2: float) -> Tuple[float, float]:
                  for b in (b1, b2))
 
 
-def adam_step_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
-               nu: torch.Tensor, lr: float, bc1: float, bc2: float, b1: float,
-               b2: float, eps: float) -> None:
-    """One optax-form Adam step in place on ``p`` and its moments, from the
-    clipped gradient ``g``: ``eps`` outside the square root of the
-    bias-corrected second moment."""
+Scalar = Union[float, torch.Tensor]
+
+
+def adam_step_table_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                     nu: torch.Tensor, lr: Scalar, bc1: Scalar, bc2: Scalar, b1: float,
+                     b2: float, eps: float) -> None:
+    """One Adam step in place on ``p`` and its moments from the clipped
+    gradient ``g``, in optax's order: ``p - lr · (mu / bc1) / (sqrt(nu /
+    bc2) + eps)``. ``lr``, ``bc1`` and ``bc2`` are Python floats or device
+    tensors (a captured step reads its own from a table); on the card
+    PyTorch divides by a float as a multiply by its reciprocal, so the two
+    may differ in the last bit."""
     mu.mul_(b1).add_(g, alpha=1.0 - b1)
     nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
     denom = (nu / bc2).sqrt_().add_(eps)
-    p.addcdiv_(mu, denom, value=-lr / bc1)
+    p.sub_((mu / bc1).div_(denom).mul_(lr))
+
+
+def _adam_tables_(params: LightGCNParams, grads, opt_state: AdamState, lr: Scalar,
+                  bc1: Scalar, bc2: Scalar, tc: TrainConfig) -> None:
+    """:func:`adam_step_table_` on each table and its moments, with ``tc``'s
+    betas and eps."""
+    for p, g, mu, nu in zip(params, grads, opt_state.mu, opt_state.nu):
+        adam_step_table_(p, g, mu, nu, lr, bc1, bc2, tc.adam_b1, tc.adam_b2, tc.adam_eps)
 
 
 def make_adam(cfg: Config, lr_of: Optional[Callable[[int], float]] = None) -> Optimizer:
@@ -131,7 +144,6 @@ def make_adam(cfg: Config, lr_of: Optional[Callable[[int], float]] = None) -> Op
     all shards and then runs this on its own rows."""
     tc = cfg.train
     lr_of = make_lr_schedule(cfg) if lr_of is None else lr_of
-    b1, b2, eps = tc.adam_b1, tc.adam_b2, tc.adam_eps
 
     def init(params: LightGCNParams) -> AdamState:
         z = lambda: LightGCNParams(torch.zeros_like(params.user_emb),
@@ -142,26 +154,11 @@ def make_adam(cfg: Config, lr_of: Optional[Callable[[int], float]] = None) -> Op
     def update(params: LightGCNParams, grads, opt_state: AdamState
                ) -> Tuple[LightGCNParams, AdamState]:
         count = opt_state.count + 1
-        bc1, bc2 = bias_corrections(count, b1, b2)
-        lr = lr_of(opt_state.count)
-        for p, g, mu, nu in zip(params, grads, opt_state.mu, opt_state.nu):
-            adam_step_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps)
+        _adam_tables_(params, grads, opt_state, lr_of(opt_state.count),
+                      *bias_corrections(count, tc.adam_b1, tc.adam_b2), tc)
         return params, AdamState(count, opt_state.mu, opt_state.nu)
 
     return Optimizer(init, update)
-
-
-def adam_step_table_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
-                     nu: torch.Tensor, lr: torch.Tensor, bc1: torch.Tensor,
-                     bc2: torch.Tensor, b1: float, b2: float, eps: float) -> None:
-    """:func:`adam_step_` with the learning rate and both bias corrections as
-    device tensors, so that a captured step reads its own from a table, in
-    optax's order: ``p - lr · (mu / bc1) / (sqrt(nu / bc2) + eps)``. It may
-    differ from :func:`adam_step_`'s Python-scalar route in the last bit."""
-    mu.mul_(b1).add_(g, alpha=1.0 - b1)
-    nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-    denom = (nu / bc2).sqrt_().add_(eps)
-    p.sub_((mu / bc1).div_(denom).mul_(lr))
 
 
 def clip_by_global_norm(grads, max_norm: float) -> List[torch.Tensor]:
@@ -225,39 +222,14 @@ def compute_embeddings(
     are the configured model's unperturbed readout
     (``models/xsimgcl.py::final_tables``).
 
-    When a gradient will be taken, the rows are gathered by
-    ``ops/cuda_scatter.py::gather_rows`` over one stable sort of each index
-    set (the users; the positives and negatives together), so their
-    gradients are summed per row in an order fixed by the data, not by float
-    atomics: a step is bit-reproducible on the card. Without a gradient
-    (the eval step) they are plain ``index_select`` gathers."""
-    users_final, items_final = final_tables(params, graph, spmm, cfg)
+    When a gradient will be taken, the rows are gathered in sorted order
+    (``ops/bpr.py::triplet_rows``), so that a step is bit-reproducible on
+    the card. Without a gradient (the eval step) they are plain
+    ``index_select`` gathers."""
+    finals = final_tables(params, graph, spmm, cfg)
     sorted_ = torch.is_grad_enabled() and (params.user_emb.requires_grad
                                            or params.item_emb.requires_grad)
-    return _triplet_rows(users_final, items_final, params, batch, neg_item, sorted_)
-
-
-def _triplet_rows(users_final: torch.Tensor, items_final: torch.Tensor,
-                  params: LightGCNParams, batch: TripletBatch, neg_item: torch.Tensor,
-                  sorted_: bool):
-    """:func:`compute_embeddings`' 6-tuple from the final and initial tables:
-    gathered through ``gather_rows`` over one ``sort_rows`` of each index set
-    when ``sorted_``, by ``index_select`` otherwise."""
-    b, d = batch.user.shape[0], params.user_emb.shape[1]
-    items = torch.cat([batch.pos_item.reshape(-1), neg_item.reshape(-1)])
-    if sorted_:
-        u_lists = sort_rows(batch.user, params.user_emb.shape[0])
-        i_lists = sort_rows(items, params.item_emb.shape[0])
-        gather_u = lambda t: gather_rows(t, batch.user, *u_lists)
-        gather_i = lambda t: gather_rows(t, items, *i_lists)
-    else:
-        gather_u = lambda t: t.index_select(0, batch.user)
-        gather_i = lambda t: t.index_select(0, items)
-    uf, ue = gather_u(users_final), gather_u(params.user_emb)
-    itf, ite = gather_i(items_final), gather_i(params.item_emb)
-    neg_shape = tuple(neg_item.shape) + (d,)
-    return (uf, ue, itf[:b], ite[:b],
-            itf[b:].view(neg_shape), ite[b:].view(neg_shape))
+    return triplet_rows(finals, params, batch, neg_item, sorted_)
 
 
 def compute_loss(
@@ -272,8 +244,7 @@ def compute_loss(
     pos, neg) triplets: ``compute_embeddings`` + ``bpr_loss``
     (train_test.py:105-134, :18-51)."""
     embs = compute_embeddings(params, graph, batch, neg_item, cfg, spmm)
-    loss_fn = select_bpr_loss(cfg.train.loss)
-    return loss_fn(*embs, cfg.train.bpr_coeff, mask=batch.mask)
+    return triplet_loss(embs, batch.mask, cfg.train.loss, cfg.train.bpr_coeff)
 
 
 def compute_loss_xsimgcl(
@@ -300,9 +271,8 @@ def compute_loss_xsimgcl(
     mc, tc = cfg.model, cfg.train
     zu, zi, cu, ci = propagate_perturbed(params, graph, spmm, mc.num_layers, mc.cl_layer,
                                          mc.cl_eps, noise)
-    # a training loss: the rows' gradients summed in sorted order, bit-reproducible
-    embs = _triplet_rows(zu, zi, params, batch, neg_item, True)
-    loss = select_bpr_loss(tc.loss)(*embs, tc.bpr_coeff, mask=batch.mask)
+    loss = triplet_loss(triplet_rows((zu, zi), params, batch, neg_item), batch.mask,
+                        tc.loss, tc.bpr_coeff)
     if tc.cl_weight == 0:
         return loss
     b = batch.user.shape[0]
@@ -348,10 +318,10 @@ def compute_loss_grads_microbatched(
     takes the gradients of ``l·w / total_w`` with respect to the detached
     finals and the initial tables, summed into four (N, d) accumulators; one
     backward then carries the finals' cotangents through the propagation.
-    A chunk's rows are gathered through ``gather_rows`` over its own
-    ``sort_rows`` lists, as in :func:`compute_embeddings`, so a step is
-    bit-reproducible on the card. Peak memory: one chunk's (B/num_micro, K,
-    d) triplet temps and the accumulators, not the whole batch's. A
+    A chunk's rows are gathered in sorted order over its own lists
+    (``ops/bpr.py::triplet_rows``), so a step is bit-reproducible on the
+    card. Peak memory: one chunk's (B/num_micro, K, d) triplet temps and
+    the accumulators, not the whole batch's. A
     ``num_micro`` that does not divide the batch raises ``ValueError``, and so
     does a model other than LightGCN."""
     if check_model(cfg) != "lightgcn":
@@ -360,8 +330,7 @@ def compute_loss_grads_microbatched(
     if b % num_micro:
         raise ValueError(f"loss_microbatches={num_micro} must divide the "
                          f"padded batch {b}")
-    loss_fn = select_bpr_loss(cfg.train.loss)
-    coeff = cfg.train.bpr_coeff
+    tc = cfg.train
     leaves = LightGCNParams(params.user_emb.detach().requires_grad_(True),
                             params.item_emb.detach().requires_grad_(True))
     bc = b // num_micro
@@ -374,8 +343,8 @@ def compute_loss_grads_microbatched(
         for c in range(num_micro):
             sl = slice(c * bc, (c + 1) * bc)
             chunk = TripletBatch(batch.user[sl], batch.pos_item[sl], batch.mask[sl])
-            embs = _triplet_rows(uf, itf, leaves, chunk, neg_item[sl], True)
-            l = loss_fn(*embs, coeff, mask=chunk.mask)
+            l = triplet_loss(triplet_rows((uf, itf), leaves, chunk, neg_item[sl]),
+                             chunk.mask, tc.loss, tc.bpr_coeff)
             w = chunk.mask.sum().to(torch.float32)
             gs = torch.autograd.grad(l * w / total_w, (uf, itf) + tuple(leaves))
             for a, g in zip(acc, gs):
@@ -581,12 +550,8 @@ class _EpochSteps:
                                      b["neg"].index_select(0, j)[0], self.cfg, self.spmm)
         with torch.no_grad():
             b["wloss"].add_(loss * stacked.edge_counts.index_select(0, c))
-            lr, bc1, bc2 = b["sched"].index_select(1, j)
-            grads = clip_by_global_norm(grads, tc.grad_clip_norm)
-            ost = state.opt_state
-            for p, g, mu, nu in zip(state.params, grads, ost.mu, ost.nu):
-                adam_step_table_(p, g, mu, nu, lr, bc1, bc2, tc.adam_b1, tc.adam_b2,
-                                 tc.adam_eps)
+            _adam_tables_(state.params, clip_by_global_norm(grads, tc.grad_clip_norm),
+                          state.opt_state, *b["sched"].index_select(1, j), tc)
             j.add_(1)
 
     def finish(self, state: TrainState, stacked: StackedClusters

@@ -214,3 +214,30 @@ def test_train_model_routes_like_jax(tiny_data, monkeypatch, shared_shape):
     assert routes["movie_recommender_system_with_gnns_tpu"] == \
         routes["movie_recommender_system_with_gnns_tpu_torch"] == \
         (["make_epoch_fn"] if shared_shape else ["train_epoch"])
+
+
+@pytest.mark.parametrize("fault", ["adam_step_table_", "compute_loss"])
+def test_epoch_fn_reaches_adam_and_loss_through_train_globals(tiny_data, monkeypatch, fault):
+    """The fused epoch looks Adam's body and its loss up in
+    ``training/train.py``'s globals at every step, where the benchmark's
+    faults swap them (``benchmark/faults.py``): with ``adam_step_table_`` a
+    no-op an epoch leaves the tables and moments as they were; a wrapped
+    ``compute_loss`` is called once a step, and the epoch trains."""
+    _, cfg = _cfgs()
+    _, tb = _batches(tiny_data)
+    st = ttrain.StackedClusters.from_batches(tb)
+    _, pt = both_params(tiny_data.num_users, tiny_data.num_items, 8, seed=5, std=0.05)
+    s0 = _state(cfg, pt)
+    epoch_fn = ttrain.make_epoch_fn(cfg)
+    calls = []
+    if fault == "adam_step_table_":
+        monkeypatch.setattr(ttrain, fault, lambda *a, **kw: None)
+    else:
+        real = ttrain.compute_loss
+        monkeypatch.setattr(ttrain, fault, lambda *a, **kw: (calls.append(1), real(*a, **kw))[1])
+    out, _ = epoch_fn(_copy(s0), st, torch.Generator().manual_seed(3))
+    moved = [not torch.equal(a, b) for a, b in zip(_leaves(out), _leaves(s0))]
+    if fault == "adam_step_table_":
+        assert not any(moved) and not calls
+    else:
+        assert len(calls) == st.num_clusters and all(moved)

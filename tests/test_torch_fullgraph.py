@@ -28,6 +28,7 @@ from movie_recommender_system_with_gnns_tpu_torch import cli as tcli
 from movie_recommender_system_with_gnns_tpu_torch.config import (
     Config as TConfig, DataConfig as TData, ModelConfig as TModel, TrainConfig as TTrain)
 from movie_recommender_system_with_gnns_tpu_torch.data import graph as tgraph
+from movie_recommender_system_with_gnns_tpu_torch.ops import bpr as tbpr
 from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_spmm
 from movie_recommender_system_with_gnns_tpu_torch.ops import sampling as tsampling
 from movie_recommender_system_with_gnns_tpu_torch.ops import spmm as tspmm
@@ -430,8 +431,8 @@ def test_compute_embeddings_sorts_rows_only_for_gradients(tiny_data, monkeypatch
         jnp.asarray(neg), cfg_j, jspmm.spmm_hybrid)
     tb = TripletBatch(torch.from_numpy(user), torch.from_numpy(pos), torch.ones(b, dtype=bool))
     calls = []
-    sort_rows = ttrain.sort_rows
-    monkeypatch.setattr(ttrain, "sort_rows", lambda *a: calls.append(1) or sort_rows(*a))
+    sort_rows = tbpr.sort_rows
+    monkeypatch.setattr(tbpr, "sort_rows", lambda *a: calls.append(1) or sort_rows(*a))
     with torch.no_grad():
         plain = ttrain.compute_embeddings(pt, ht, tb, torch.from_numpy(neg), cfg_t,
                                           tspmm.spmm_hybrid)

@@ -314,3 +314,76 @@ def test_cli_train_mesh_1x1_runs_in_process(tmp_path, capsys):
     rows = MetricsLogger.read(str(hist / "metrics.jsonl"))
     assert [r["step"] for r in rows] == [0, 1, 2] and rows[2]["sharded"] is True
     assert (tmp_path / "m.npz").exists() and not dist.is_initialized()
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """A 1x1 mesh over a one-rank gloo group in this process, ended after the
+    test."""
+    import torch.distributed as dist
+
+    mesh = tmesh.make_mesh(1, 1, device="cpu")
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("loss", ["reference", "standard"])
+def test_local_loss_at_one_rank_equals_compute_loss(step_inputs, one_rank_mesh, loss):
+    """At dp = mp = 1 a shard's part of the loss is the single-device
+    ``compute_loss`` over the shard's own graph bit for bit: the same
+    triplet rows and loss (``ops/bpr.py``), a share of exactly 1, and three
+    layers, whose readout factor 1/16 is exact whether multiplied or divided
+    twice by 4. The gradients lie within 1e-6 of their largest entry:
+    autograd adds a table's three cotangents (readout, hop, triplet rows) in
+    another order when the layers take the tables split."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops.spmm import spmm_rows
+    from movie_recommender_system_with_gnns_tpu_torch.training.train import compute_loss
+
+    inp = step_inputs
+    u, i = inp["u3"], inp["i3"]
+    cfg = TConfig(model=TModel(num_layers=3, dim=DIM), train=TTrain(loss=loss, num_negatives=3))
+    plan = tsh.ShardPlan.create(u.shape[0], i.shape[0], 1)
+    coos = tsh.shard_coos(tsh.shard_graph(inp["edges"], plan), plan, 0, "cpu")
+    layer = tsh._layer_of(cfg, plan, one_rank_mesh, coos, hybrid=False, symmetric=False)
+    batch = TripletBatch(*(torch.tensor(inp[k]) for k in ("user", "pos", "mask")))
+    neg = torch.tensor(inp["neg3"])
+    out = []
+    for fn in (lambda p: tsh._local_loss(cfg, one_rank_mesh, p, layer, batch, neg),
+               lambda p: compute_loss(p, coos[0], batch, neg, cfg, spmm_rows)):
+        leaves = params_from_numpy(u, i, "cpu")
+        leaves = type(leaves)(*(t.requires_grad_(True) for t in leaves))
+        value = fn(leaves)
+        out.append((value, *torch.autograd.grad(value, leaves)))
+    (loss_sh, *grads_sh), (loss_1, *grads_1) = out
+    assert torch.equal(loss_sh, loss_1)
+    for a, b in zip(grads_sh, grads_1):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("trainer", ["compact", "sharded"])
+def test_unknown_readout_is_refused(tiny_data, one_rank_mesh, trainer):
+    """The trainers that take the readout's factor themselves
+    (``models/lightgcn.py::readout_scale``) refuse a readout they do not
+    know, as ``propagate`` does, rather than train at 1/(K+1)."""
+    from movie_recommender_system_with_gnns_tpu_torch.training import compact as tcompact
+
+    from torch_parity import greedy_parts
+
+    nu, ni = tiny_data.num_users, tiny_data.num_items
+    cfg = TConfig(model=TModel(num_layers=2, dim=DIM, readout="foo"))
+    params = params_from_numpy(*np_tables(nu, ni, DIM, seed=2), "cpu")
+    if trainer == "compact":
+        cc = tcompact.build_compact_clusters(greedy_parts(tiny_data, 3), nu, align=8,
+                                             device="cpu")
+        neg = torch.zeros(cc.user_local.shape[1], dtype=torch.int32)
+        run = lambda: tcompact.make_compact_epoch_fn(cfg)(
+            tcompact.TrainState(params, tcompact.make_optimizer(cfg).init(params), 0),
+            cc, None, perm=[0], neg=neg[None])
+    else:
+        plan = tsh.ShardPlan.create(nu, ni, 1)
+        coos = tsh.shard_coos(tsh.shard_graph(tiny_data.edge_index, plan), plan, 0, "cpu")
+        run = lambda: tsh.make_sharded_propagate(cfg, one_rank_mesh, plan)(params, coos)
+    with pytest.raises(ValueError, match="unknown readout 'foo'"):
+        run()

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only | --mesh-only | --infonce-only]
+    python3 chip_smoke.py [--kernels-only | --mesh-only | --infonce-only | --triplet-only]
 
 ``--kernels-only`` stops after phase 3 (a new kernel's first, short run).
 ``--infonce-only`` builds the fused InfoNCE alone and runs its phase
-(``infonce_phase``) alone.
+(``infonce_phase``) alone; ``--triplet-only`` likewise the fused triplet
+loss and the row sums (``triplet_phase``).
 ``--mesh-only`` (two or more cards) runs after the build only the meshes of
 several cards against the 1×1 mesh (``mesh_cards_only``): the segment step
 and the hybrid step.
@@ -47,7 +48,11 @@ Phases:
      N no multiple of the block, k in {1, 10, 100}, Q no multiple of the query
      band, a row with fewer than k live columns, planted exact ties, d in
      {64, 100}; then d = 30 (4-byte copies), d = 256 and k = 1000 (candidate
-     buffers in global scratch); every case bit-equal over two calls;
+     buffers in global scratch); every case bit-equal over two calls.
+     ``triplet_loss`` (:func:`triplet_phase`): d 32 to 512, K 8, 3, 1 and
+     (B,) negatives, a masked tail and every triplet masked, then the
+     full-graph cells' shapes, bit-equal over two calls and timed beside
+     its bound, its plain version and the gather route;
   4. the serving path at ML-25M width (``bench.py``'s ``SCALES["full"]``:
      162,541 users x 59,047 items, 18 M sampled interactions, d = 64): split,
      seeded random weights through save/load, ``ServingIndex.build`` over
@@ -266,6 +271,11 @@ KERNEL_ROWS = {
         route="cuda",
         source="movie_recommender_system_with_gnns_tpu_torch/csrc/infonce.cu",
         replaces="none (XSimGCL's in-batch InfoNCE, models/xsimgcl.py)"),
+    # no Pallas kernel: XLA fuses the JAX package's triplet loss
+    "triplet_loss": dict(
+        route="cuda",
+        source="movie_recommender_system_with_gnns_tpu_torch/csrc/triplet_loss.cu",
+        replaces="none (the full-graph trainers' standard BPR loss, ops/bpr.py)"),
 }
 #: the XSimGCL cell's InfoNCE shapes: a step's distinct users and items (the
 #: benchmark's graph and split, 349,184 pairs a step) in buffers of every
@@ -875,6 +885,173 @@ def infonce_phase(smi: str, bf16_flops: float) -> dict:
     out.update(step_ms=step_ms, epoch_s_16_steps=16 * step_ms / 1e3,
                seconds=time.time() - t0)
     log(f"[infonce] {json.dumps(out)}")
+    return out
+
+
+#: the full-graph cells' triplet losses: the d-256 flagship (8 popularity
+#: negatives) and XSimGCL (1 uniform negative, d 64), 349,184 triplets a step
+#: over the benchmark graph's tables
+TRIPLET = dict(batch=349_184, users=162_541, items=59_047, timed=5,
+               cells=(("d256-pop8", 8, 256, 0.75), ("d64-k1", None, 64, 0.0)))
+
+
+def triplet_inputs(gen, b, k, d, users, items, power, masked=0, scale=0.1):
+    """Four f32 tables and a batch of ``b`` triplets on the card: users and
+    positives drawn by a power law of their rank (exponent 0.9, ids
+    shuffled), negatives by the positives' law to the ``power`` (0: uniform);
+    ``k`` None gives (B,) negatives; the last ``masked`` triplets masked."""
+    def law(n, p):
+        w = torch.arange(1, n + 1, device="cuda", dtype=torch.float64) ** -0.9
+        return w[torch.randperm(n, device="cuda", generator=gen)] ** p
+
+    def draw(w, shape):
+        n = int(np.prod(shape))
+        return torch.multinomial(w, n, replacement=True, generator=gen).view(shape)
+
+    tabs = [torch.randn(n, d, device="cuda", generator=gen) * scale
+            for n in (users, items, users, items)]
+    user = draw(law(users, 1.0), (b,))
+    item_w = law(items, 1.0)
+    pos = draw(item_w, (b,))
+    neg = draw(item_w ** power, (b,) if k is None else (b, k))
+    mask = torch.ones(b, dtype=torch.bool, device="cuda")
+    if masked:
+        mask[b - masked:] = False
+    return tabs, user, pos, neg, mask
+
+
+def triplet_case(inputs, what: str, coeff: float = 5e-3) -> dict:
+    """The kernel pair against the plain versions on the card, upstream
+    scalar 0.5: loss within 2e-6 relative (f32 sums of the same terms in
+    another order), sig and each gradient buffer within 1e-5 of its largest
+    entry; the two outputs bit-equal over two calls; a masked triplet's sig
+    and gradient rows zero. Returns the errors."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_triplet as ct
+
+    tabs, user, pos, neg, mask = inputs
+    args = (tabs, user, pos, neg, mask)
+    up = torch.tensor(0.5, device="cuda")
+    runs = []
+    for _ in range(2):
+        loss, sig, stats = ct.triplet_fwd(*args, coeff)
+        runs.append((loss, sig, stats) + ct.triplet_bwd(*args, sig, stats, up, coeff))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), f"{what}: two calls differ")
+    pl, psig, pstats = ct.triplet_fwd_plain(*args, coeff)
+    want = (pl, psig, pstats) + ct.triplet_bwd_plain(*args, psig, pstats, up, coeff)
+    got = runs[0]
+    loss_err = abs(float(got[0]) - float(want[0])) / max(abs(float(want[0])), 1e-30)
+    errs = {name: rel_max(a, b) for name, a, b in
+            zip(("sig", "stats", "g_uf", "g_ue", "g_if", "g_ie"), got[1:], want[1:])}
+    check(loss_err < 2e-6 and max(errs.values()) < 1e-5,
+          f"{what}: loss {loss_err:.3e}, outputs {errs} from the plain version's")
+    off = ~mask
+    if bool(off.any()):
+        b = user.shape[0]
+        kk = got[1].shape[1]
+        off_i = torch.cat([off, off.repeat_interleave(kk)])
+        check(not bool(got[1][off].any()) and not bool(got[3][off].any())
+              and not bool(got[5][off_i].any()), f"{what}: a masked triplet has a gradient")
+    log(f"[kernel] {what}: loss {loss_err:.3e}, largest output errors "
+        f"{max(errs.values()):.3e} of the plain version's; bit-equal over two calls")
+    return dict(loss=loss_err, **errs)
+
+
+def triplet_phase(smi: str, bw: float) -> dict:
+    """The fused triplet loss (``csrc/triplet_loss.cu``): small cases (d 32
+    to 512; K 8, 3, 1 and (B,) negatives; repeated rows, a masked tail, every
+    triplet masked) by :func:`triplet_case`, then the full-graph cells'
+    shapes (``TRIPLET``: 349,184 triplets, 8 popularity negatives at d 256,
+    and 1 uniform negative at d 64, over the benchmark graph's tables). At
+    each cell's shape: the pair by :func:`triplet_case`, the pair timed by
+    CUDA events (median of ``timed``) beside its bound (the compulsory
+    bytes at the card's memory peak: each distinct table row read once, the
+    indices, the mask, sig written and read, the gradient buffers written)
+    and beside the per-occurrence bytes, the plain versions timed, and the
+    whole loss with its gradients through autograd, fused against the
+    gather route (sort, gathers, the eager loss, its backward and the same
+    four row sums), both timed and their table gradients compared. One
+    ``[triplet]`` JSON line."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import bpr, cuda_triplet as ct
+    from movie_recommender_system_with_gnns_tpu_torch.ops.sampling import TripletBatch
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    worst = 0.0
+    for d in ct.DIMS:
+        for k, b, masked in ((8, 1000, 100), (3, 777, 0), (None, 1200, 200), (1, 64, 64)):
+            errs = triplet_case(triplet_inputs(gen, b, k, d, 50, 80, 0.75, masked),
+                                f"triplet d={d} K={k} B={b} masked={masked}")
+            worst = max(worst, max(errs.values()))
+    out = {"card": smi, "small_cases_max_err": worst}
+    for name, k, d, power in TRIPLET["cells"]:
+        b = TRIPLET["batch"]
+        inputs = triplet_inputs(gen, b, k, d, TRIPLET["users"], TRIPLET["items"], power,
+                                masked=734)
+        tabs, user, pos, neg, mask = inputs
+        kk = 1 if k is None else k
+        errs = triplet_case(inputs, f"triplet at the {name} cell's shape (B {b}, K {kk}, d {d})")
+        args = (tabs, user, pos, neg, mask)
+        up = torch.tensor(1.0, device="cuda")
+        _, sig, stats = ct.triplet_fwd(*args, 5e-3)
+        fwd = [time_ms(lambda: ct.triplet_fwd(*args, 5e-3), 1, 1)
+               for _ in range(TRIPLET["timed"])]
+        bwd = [time_ms(lambda: ct.triplet_bwd(*args, sig, stats, up, 5e-3), 1, 1)
+               for _ in range(TRIPLET["timed"])]
+        plain = [time_ms(lambda: ct.triplet_loss_plain(*args, 5e-3, up), 1, 0)
+                 for _ in range(2)]
+        fwd_ms, bwd_ms = float(np.median(fwd)), float(np.median(bwd))
+        rows_u = int(torch.unique(user).numel())
+        rows_i = int(torch.unique(torch.cat([pos, neg.reshape(-1)])).numel())
+        row = 4 * d
+        compulsory = (2 * (rows_u + rows_i) * row + 8 * b * (2 + kk) + b + 2 * 4 * b * kk
+                      + 2 * b * row + 2 * b * (1 + kk) * row)
+        per_occurrence = 2 * (2 * b * (kk + 2) * row) + 2 * b * (kk + 2) * row
+        bound_ms = compulsory / bw * 1e3
+
+        # the whole loss through autograd: fused against the gather route
+        batch = TripletBatch(user, pos, mask)
+        leaves = [t.clone().requires_grad_(True) for t in tabs]
+
+        def fused():
+            return torch.autograd.grad(
+                ct.triplet_loss_fused(leaves[:2], leaves[2:], user, pos, neg, mask, 5e-3),
+                leaves)
+
+        def gathered():
+            rows = bpr.triplet_rows(leaves[:2], leaves[2:], batch, neg)
+            return torch.autograd.grad(bpr.triplet_loss(rows, mask, "standard", 5e-3),
+                                       leaves)
+
+        g_f, g_g = fused(), gathered()
+        grad_err = max(rel_max(a, b_) for a, b_ in zip(g_f, g_g))
+        check(grad_err < 1e-5, f"triplet {name}: fused table gradients {grad_err:.3e} "
+              f"from the gather route's")
+        torch.cuda.reset_peak_memory_stats()
+        fused_ms = float(np.median([time_ms(fused, 1, 1) for _ in range(TRIPLET["timed"])]))
+        fused_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gather_ms = float(np.median([time_ms(gathered, 1, 1)
+                                     for _ in range(TRIPLET["timed"])]))
+        gather_peak = torch.cuda.max_memory_allocated()
+        out[name] = dict(errs, B=b, K=kk, d=d, distinct_users=rows_u, distinct_items=rows_i,
+                         fwd_ms=fwd_ms, bwd_ms=bwd_ms, pair_ms=fwd_ms + bwd_ms,
+                         compulsory_bytes=compulsory, bound_ms=bound_ms,
+                         roofline=bound_ms / (fwd_ms + bwd_ms),
+                         per_occurrence_bytes=per_occurrence,
+                         per_occurrence_ms=per_occurrence / bw * 1e3,
+                         plain_ms=float(np.median(plain)), table_grad_err=grad_err,
+                         fused_autograd_ms=fused_ms, gather_autograd_ms=gather_ms,
+                         fused_peak_bytes=fused_peak, gather_peak_bytes=gather_peak)
+        log(f"[triplet] {name}: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({100 * bound_ms / (fwd_ms + bwd_ms):.1f} %; per occurrence "
+            f"{per_occurrence / bw * 1e3:.3f} ms); plain {out[name]['plain_ms']:.1f} ms; "
+            f"through autograd with the row sums: fused {fused_ms:.3f} ms, gather route "
+            f"{gather_ms:.3f} ms; table gradients {grad_err:.3e} apart")
+        del inputs, tabs, leaves, g_f, g_g, sig, stats
+        torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    log(f"[triplet] {json.dumps(out)}")
     return out
 
 
@@ -4514,25 +4691,31 @@ class ReuseGraph:
 
 class HeldCalls:
     """While entered, the wrappers of B4 (``cuda_spmm.ell_spmm_into``, one
-    launch a hop) and of the row scatter (``cuda_scatter.sorted_index_add``,
-    as that module and ``training/compact.py`` bind it) keep a copy of the
-    inputs of one launched call of each shape: B4's first at each (rows,
-    sources, slots, d, dtype), the scatter's widest (most entries) at each
-    (rows, d, dtype). A call made while a CUDA graph is captured is counted
-    and not kept (nothing ran). ``calls`` counts the launched calls the
-    wrappers saw; the launches stay the wrapped functions' own."""
+    launch a hop), of the row scatter (``cuda_scatter.sorted_index_add``,
+    as that module, ``training/compact.py`` and ``ops/cuda_triplet.py`` bind
+    it) and of the fused triplet loss (``cuda_triplet.triplet_fwd`` and
+    ``triplet_bwd``) keep a copy of the inputs of one launched call of each
+    shape: B4's first at each (rows, sources, slots, d, dtype), the
+    scatter's widest (most entries) at each (rows, d, dtype), the triplet
+    forward's widest (most triplets) at each (d, K). A call made while a
+    CUDA graph is captured is counted and not kept (nothing ran). ``calls``
+    counts the launched calls the wrappers saw; the launches stay the
+    wrapped functions' own."""
 
     def __init__(self):
         from movie_recommender_system_with_gnns_tpu_torch.ops import (
-            _build, cuda_scatter, cuda_spmm)
+            _build, cuda_scatter, cuda_spmm, cuda_triplet)
         from movie_recommender_system_with_gnns_tpu_torch.training import compact
 
         self.launches = _build.LAUNCHES
         self.sites = [(cuda_spmm, "ell_spmm_into", "ell_spmm", self._ell),
                       (cuda_scatter, "sorted_index_add", "sorted_index_add", self._scatter),
-                      (compact, "sorted_index_add", "sorted_index_add", self._scatter)]
+                      (compact, "sorted_index_add", "sorted_index_add", self._scatter),
+                      (cuda_triplet, "sorted_index_add", "sorted_index_add", self._scatter),
+                      (cuda_triplet, "triplet_fwd", "triplet_loss", self._triplet),
+                      (cuda_triplet, "triplet_bwd", "triplet_loss", lambda *a, **kw: None)]
         self.real = {(m, f): getattr(m, f) for m, f, _, _ in self.sites}
-        self.ell, self.scatter, self.calls = {}, {}, {}
+        self.ell, self.scatter, self.triplet, self.calls = {}, {}, {}, {}
 
     def _wrap(self, mod, fn, kernel, keep):
         real = self.real[(mod, fn)]
@@ -4557,6 +4740,12 @@ class HeldCalls:
         key = (rows, x.shape[1], str(x.dtype)[6:])
         if key not in self.scatter or order.numel() > self.scatter[key][1].numel():
             self.scatter[key] = (x.detach().clone(), order.clone(), starts.clone())
+
+    def _triplet(self, tabs, user, pos, neg, mask, bpr_coeff):
+        key = (tabs[0].shape[1], 1 if neg.dim() == 1 else neg.shape[1])
+        if key not in self.triplet or user.numel() > self.triplet[key][1].numel():
+            self.triplet[key] = ([t.detach().clone() for t in tabs], user.clone(), pos.clone(),
+                                 neg.clone(), mask.clone(), bpr_coeff)
 
     def __enter__(self):
         for mod, fn, kernel, keep in self.sites:
@@ -4617,11 +4806,13 @@ def hold_scatter(x, order, starts, rows: int, what: str, bw: float) -> dict:
 def hold_kept(held: HeldCalls, name: str, bw: float) -> dict:
     """Each call ``held`` kept from driver ``name``'s run against its plain
     version: B4 by :func:`ell_case` (f32 and bf16 of the kept table, timed,
-    with :func:`ell_bound`'s bound), the scatter by :func:`hold_scatter`.
-    Returns {kernel: [one dict per shape]}."""
+    with :func:`ell_bound`'s bound), the scatter by :func:`hold_scatter`, the
+    fused triplet loss by :func:`triplet_case` (its pair timed). Returns
+    {kernel: [one dict per shape]}."""
+    from movie_recommender_system_with_gnns_tpu_torch.ops import cuda_triplet
     from movie_recommender_system_with_gnns_tpu_torch.ops.cuda_spmm import spmm_ell_cuda
 
-    out = {"ell_spmm": [], "sorted_index_add": []}
+    out = {"ell_spmm": [], "sorted_index_add": [], "triplet_loss": []}
     for (n, n_src, slots, d, dt), (ell, x) in held.ell.items():
         what = f"at {name}'s {n}-row graph from {n_src} sources ({slots} slots), d={d}"
         xf = x.float()
@@ -4635,8 +4826,23 @@ def hold_kept(held: HeldCalls, name: str, bw: float) -> dict:
         out["sorted_index_add"].append(hold_scatter(
             x, order, starts, rows, f"at {name}'s widest call over {rows} rows, d={d}, {dt}",
             bw))
+    for (d, k), (tabs, user, pos, neg, mask, coeff) in held.triplet.items():
+        b = user.shape[0]
+        errs = triplet_case((tabs, user, pos, neg, mask),
+                            f"triplet_loss at {name}'s widest call (B {b}, K {k}, d {d})", coeff)
+        args = (tabs, user, pos, neg, mask)
+        _, sig, stats = cuda_triplet.triplet_fwd(*args, coeff)
+        up = torch.ones((), device=user.device)
+        pair = lambda: cuda_triplet.triplet_bwd(*args, sig, stats, up, coeff)
+        out["triplet_loss"].append(dict(B=b, K=k, d=d, max_abs_err=max(errs.values()),
+                                        fwd_ms=time_ms(lambda: cuda_triplet.triplet_fwd(
+                                            *args, coeff), 5),
+                                        bwd_ms=time_ms(pair, 5)))
+        log(f"[examples] triplet_loss at {name}'s widest call: "
+            f"{json.dumps(out['triplet_loss'][-1])}")
     held.ell.clear()
     held.scatter.clear()
+    held.triplet.clear()
     torch.cuda.empty_cache()
     return out
 
@@ -5045,7 +5251,10 @@ def main() -> int:
     # 2. build
     t0 = time.time()
     only_infonce = "--infonce-only" in sys.argv[1:]
-    built = _build.build(*(["infonce"] if only_infonce else [*KERNEL_ROWS, "graphcore"]))
+    only_triplet = "--triplet-only" in sys.argv[1:]
+    built = _build.build(*(["infonce"] if only_infonce else
+                           ["triplet_loss", "sorted_index_add"] if only_triplet else
+                           [*KERNEL_ROWS, "graphcore"]))
     for kname, path in built.items():
         log(f"[build] {kname}: {path.name} in {time.time() - t0:.1f} s")
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -5061,6 +5270,10 @@ def main() -> int:
         infonce_phase(smi, bf16_flops)
         log(f"[done] infonce only: {time.time() - t_start:.1f} s")
         return 0
+    if only_triplet:
+        triplet_phase(smi, bw)
+        log(f"[done] triplet only: {time.time() - t_start:.1f} s")
+        return 0
 
     # 3. kernels against their plain versions
     kernel_err = kernel_phase()
@@ -5069,6 +5282,7 @@ def main() -> int:
     ell_err = ell_kernel_phase()
     block_err = mips_block_phase()
     infonce_phase(smi, bf16_flops)
+    triplet_phase(smi, bw)
     if "--kernels-only" in sys.argv[1:]:
         log(f"[done] kernels only: {time.time() - t_start:.1f} s")
         return 0

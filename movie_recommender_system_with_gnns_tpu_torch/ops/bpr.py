@@ -14,7 +14,10 @@ Reference ``bpr_loss`` (utils/train_test.py:18-64):
             for parity and the textbook −log σ(pos−neg) BPR is an option.
 
 Masked variants support padded triplet batches. :func:`triplet_rows` gathers
-a triplet batch's rows and :func:`triplet_loss` takes the configured loss of them.
+a triplet batch's rows and :func:`triplet_loss` takes the configured loss of
+them; :func:`triplet_loss_of` is the trainers' one entry, which on the card
+takes the ``standard`` loss's gradient through the fused kernels of
+``ops/cuda_triplet.py`` instead.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.observability import count
 from .cuda_scatter import gather_rows, sort_rows
+from .cuda_triplet import triplet_loss_fused
 from .sampling import TripletBatch
 
 
@@ -160,3 +165,24 @@ def triplet_loss(rows: Tuple[torch.Tensor, ...], mask: Optional[torch.Tensor], l
     """The ``loss`` of :func:`select_bpr_loss` on :func:`triplet_rows`' 6-tuple,
     ``mask`` (B,) leaving out padded triplets."""
     return select_bpr_loss(loss)(*rows, bpr_coeff, mask=mask)
+
+
+def triplet_loss_of(finals: Tuple[torch.Tensor, torch.Tensor],
+                    tables: Tuple[torch.Tensor, torch.Tensor], batch: TripletBatch,
+                    neg_item: torch.Tensor, loss: str, bpr_coeff: float) -> torch.Tensor:
+    """The ``loss`` of ``batch``'s triplets with negatives ``neg_item`` (B,)
+    or (B, K), over the (user, item) ``finals`` and layer-0 ``tables``.
+
+    The route follows the inputs. When a gradient is taken of the
+    ``standard`` loss on tensors off the CPU, the fused kernels compute it
+    (``ops/cuda_triplet.py::triplet_loss_fused``; counted as
+    ``triplet.fused``) and a width they lack raises ``ValueError``. Else
+    :func:`triplet_rows` gathers the rows, in sorted order when a gradient is
+    taken, and :func:`triplet_loss` takes the loss of them."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (*finals, *tables))
+    if grad and loss == "standard" and tables[0].device.type != "cpu":
+        count("triplet.fused")
+        return triplet_loss_fused(finals, tables, batch.user, batch.pos_item, neg_item,
+                                  batch.mask, bpr_coeff)
+    return triplet_loss(triplet_rows(finals, tables, batch, neg_item, grad), batch.mask,
+                        loss, bpr_coeff)

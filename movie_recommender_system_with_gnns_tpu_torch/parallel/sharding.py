@@ -46,7 +46,7 @@ import torch
 from ..config import Config, check_model
 from ..data.graph import EllGraph, gcn_norm
 from ..models.lightgcn import LightGCNParams, readout_scale
-from ..ops.bpr import triplet_loss, triplet_rows
+from ..ops.bpr import triplet_loss_of
 from ..ops.cuda_spmm import spmm_ell_cuda
 from ..ops.sampling import TripletBatch, sample_negative
 from ..ops.spmm import DeviceCOO, DeviceELL, block_matmul, densify_blocks, spmm_rows
@@ -583,7 +583,7 @@ def make_sharded_propagate(cfg: Config, mesh: Mesh, plan: ShardPlan, hybrid: boo
 def _local_loss(cfg: Config, mesh: Mesh, params: LightGCNParams, layer: Layer,
                 batch: TripletBatch, neg: torch.Tensor) -> torch.Tensor:
     """This data shard's part of the step's loss: the single-device triplet
-    loss (``ops/bpr.py::triplet_rows`` and ``triplet_loss`` over the
+    loss (``ops/bpr.py::triplet_loss_of`` over the
     all-gathered final and layer-0 tables, masked means over the shard's
     triplets) times the shard's share of the valid triplets, ``local count
     / psum(count, data)``. So each part is the shard's masked SUMS over the
@@ -595,8 +595,7 @@ def _local_loss(cfg: Config, mesh: Mesh, params: LightGCNParams, layer: Layer,
     mg = mesh.model_group
     finals = all_gather_rows(fu_loc, mg), all_gather_rows(fi_loc, mg)
     tables = all_gather_rows(params.user_emb, mg), all_gather_rows(params.item_emb, mg)
-    loss = triplet_loss(triplet_rows(finals, tables, batch, neg), batch.mask,
-                        cfg.train.loss, cfg.train.bpr_coeff)
+    loss = triplet_loss_of(finals, tables, batch, neg, cfg.train.loss, cfg.train.bpr_coeff)
     local = batch.mask.to(torch.float32).sum()
     return loss * (local / all_reduce_(local.clone(), mesh.data_group).clamp_min(1.0))
 

@@ -29,9 +29,11 @@ trainer keeps them all:
 
 The epoch is a Python loop of steps drawing the permutation and each step's
 negatives (uniform, popularity^power, or exact-feasible against the train
-pairs) from the epoch's generator. The triplet rows are gathered through
-``ops/cuda_scatter.py::gather_rows`` (``train.compute_embeddings``, or per
-chunk), so a step is bit-reproducible on the card.
+pairs) from the epoch's generator. The triplet loss is
+``ops/bpr.py::triplet_loss_of``'s: on the card the ``standard`` loss runs
+its fused kernels (``ops/cuda_triplet.py``), whose row gradients
+``ops/cuda_scatter.py::sorted_index_add`` sums in an order fixed by the
+data, as the gather route's; so a step is bit-reproducible on the card.
 """
 
 from __future__ import annotations

@@ -45,7 +45,7 @@ from ..config import Config, TrainConfig, check_model
 from ..data.graph import COOGraph
 from ..models.lightgcn import LightGCNParams, init_params, propagate
 from ..models.xsimgcl import final_tables
-from ..ops.bpr import triplet_loss, triplet_rows
+from ..ops.bpr import triplet_loss_of, triplet_rows
 from ..ops.metrics import sampled_recall_at_k
 from ..ops.sampling import (TripletBatch, check_negatives_mode, sample_negative,
                             triplets_from_edges)
@@ -241,10 +241,13 @@ def compute_loss(
     spmm: Callable = spmm_segment,
 ) -> torch.Tensor:
     """Propagate on the batch graph and evaluate the BPR loss on the (user,
-    pos, neg) triplets: ``compute_embeddings`` + ``bpr_loss``
-    (train_test.py:105-134, :18-51)."""
-    embs = compute_embeddings(params, graph, batch, neg_item, cfg, spmm)
-    return triplet_loss(embs, batch.mask, cfg.train.loss, cfg.train.bpr_coeff)
+    pos, neg) triplets: ``compute_embeddings``' rows + ``bpr_loss``
+    (train_test.py:105-134, :18-51), through ``ops/bpr.py::triplet_loss_of``
+    (on the card, a gradient of the ``standard`` loss takes its fused
+    kernels)."""
+    finals = final_tables(params, graph, spmm, cfg)
+    return triplet_loss_of(finals, params, batch, neg_item, cfg.train.loss,
+                           cfg.train.bpr_coeff)
 
 
 def compute_loss_xsimgcl(
@@ -271,8 +274,7 @@ def compute_loss_xsimgcl(
     mc, tc = cfg.model, cfg.train
     zu, zi, cu, ci = propagate_perturbed(params, graph, spmm, mc.num_layers, mc.cl_layer,
                                          mc.cl_eps, noise)
-    loss = triplet_loss(triplet_rows((zu, zi), params, batch, neg_item), batch.mask,
-                        tc.loss, tc.bpr_coeff)
+    loss = triplet_loss_of((zu, zi), params, batch, neg_item, tc.loss, tc.bpr_coeff)
     if tc.cl_weight == 0:
         return loss
     b = batch.user.shape[0]
@@ -318,10 +320,11 @@ def compute_loss_grads_microbatched(
     takes the gradients of ``l·w / total_w`` with respect to the detached
     finals and the initial tables, summed into four (N, d) accumulators; one
     backward then carries the finals' cotangents through the propagation.
-    A chunk's rows are gathered in sorted order over its own lists
-    (``ops/bpr.py::triplet_rows``), so a step is bit-reproducible on the
-    card. Peak memory: one chunk's (B/num_micro, K, d) triplet temps and
-    the accumulators, not the whole batch's. A
+    A chunk's loss is ``ops/bpr.py::triplet_loss_of``'s, its gradient rows
+    summed in sorted order over its own lists, so a step is bit-reproducible
+    on the card; the fused kernels read ``l``'s cotangent, ``w / total_w``,
+    on the device. Peak memory: one chunk's triplet temps and the
+    accumulators, not the whole batch's. A
     ``num_micro`` that does not divide the batch raises ``ValueError``, and so
     does a model other than LightGCN."""
     if check_model(cfg) != "lightgcn":
@@ -343,8 +346,8 @@ def compute_loss_grads_microbatched(
         for c in range(num_micro):
             sl = slice(c * bc, (c + 1) * bc)
             chunk = TripletBatch(batch.user[sl], batch.pos_item[sl], batch.mask[sl])
-            l = triplet_loss(triplet_rows((uf, itf), leaves, chunk, neg_item[sl]),
-                             chunk.mask, tc.loss, tc.bpr_coeff)
+            l = triplet_loss_of((uf, itf), leaves, chunk, neg_item[sl], tc.loss,
+                                tc.bpr_coeff)
             w = chunk.mask.sum().to(torch.float32)
             gs = torch.autograd.grad(l * w / total_w, (uf, itf) + tuple(leaves))
             for a, g in zip(acc, gs):
